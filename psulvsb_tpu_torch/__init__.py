@@ -1,0 +1,29 @@
+"""psulvsb_tpu_torch — the PSULVSB point-cloud registration solver on
+PyTorch, with its GNC-TLS loop in a CUDA kernel for NVIDIA Hopper.
+
+A port of the JAX package `psulvsb_tpu`, which stays the reference: the
+modules mirror its paths and names. This package imports torch and numpy
+only. It runs the known-scale solve without the clique stages;
+`SolverParams.check_port_supported` names the settings that still raise.
+"""
+
+from psulvsb_tpu_torch.api import RobustRegistrationSolver, register_pair
+from psulvsb_tpu_torch.solver.config import (
+    InlierGraphFormulation,
+    InlierSelectionMode,
+    RotationEstimationAlgorithm,
+    SolverParams,
+)
+from psulvsb_tpu_torch.solver.psulvsb import psulvsb_solve
+from psulvsb_tpu_torch.solver.solution import RegistrationSolution
+
+__all__ = [
+    "InlierGraphFormulation",
+    "InlierSelectionMode",
+    "RegistrationSolution",
+    "RobustRegistrationSolver",
+    "RotationEstimationAlgorithm",
+    "SolverParams",
+    "psulvsb_solve",
+    "register_pair",
+]

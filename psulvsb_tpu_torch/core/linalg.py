@@ -1,0 +1,105 @@
+"""Rotation from a weighted correlation, and weighted rigid fits.
+
+Point-set convention: (3, N) matrices, points as columns, as in the JAX
+package. Every function here also takes leading batch dimensions:
+(..., 3, N) point sets and (..., 3, 3) correlations.
+
+Functional equivalents of teaser::utils::svdRot (utils.h:121-136) and the
+core of weightedSVD (registration.cc:526-569). The rotation is the leading
+eigenvector of the 4x4 Davenport matrix (Horn 1987), which gives the
+Kabsch rotation with the reflection fix and no sign branch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from psulvsb_tpu_torch.utils.precision import mm
+
+
+def _davenport_matrix(s: torch.Tensor) -> torch.Tensor:
+    """Davenport K (..., 4, 4) from the correlation S = sum_i w_i x_i y_i^T
+    (..., 3, 3); rows/cols in quaternion (w, x, y, z) order."""
+    sxx, sxy, sxz = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2]
+    syx, syy, syz = s[..., 1, 0], s[..., 1, 1], s[..., 1, 2]
+    szx, szy, szz = s[..., 2, 0], s[..., 2, 1], s[..., 2, 2]
+    rows = [
+        [sxx + syy + szz, syz - szy, szx - sxz, sxy - syx],
+        [syz - szy, sxx - syy - szz, sxy + syx, szx + sxz],
+        [szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy],
+        [sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) in (w, x, y, z) order -> (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rot_from_correlation(h: torch.Tensor, method: str = "eigh") -> torch.Tensor:
+    """Proper rotation R maximizing tr(R^T H) for H = sum_i w_i x_i y_i^T.
+
+    method:
+      "eigh"  — torch.linalg.eigh on the 4x4 Davenport matrix;
+      "power" — shifted power iteration: 5 squarings of K + shift*I, each
+                normalized, then the largest-norm column (the first maximum
+                wins), which is a scaled dominant eigenvector whatever its
+                orientation.
+    """
+    k = _davenport_matrix(h)
+    if method == "eigh":
+        _, vecs = torch.linalg.eigh(k)
+        q = vecs[..., :, -1]
+    elif method == "power":
+        shift = 2.0 * torch.sqrt((h * h).sum(dim=(-2, -1))) + 1e-12
+        eye = torch.eye(4, dtype=k.dtype, device=k.device)
+        ks = k + shift[..., None, None] * eye
+        for _ in range(5):
+            ks = mm(ks, ks)
+            ks = ks / (torch.sqrt((ks * ks).sum(dim=(-2, -1)))[..., None, None] + 1e-30)
+        col = torch.argmax((ks * ks).sum(dim=-2), dim=-1)  # (...,)
+        q = torch.gather(ks, -1, col[..., None, None].expand(*ks.shape[:-1], 1))[..., 0]
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return _quat_to_rot(q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-30))
+
+
+def svd_rot(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor | None = None,
+    method: str = "eigh",
+) -> torch.Tensor:
+    """Weighted Procrustes: rotation R with y ≈ R x (both (..., 3, N));
+    inactive columns carry zero weight (utils.h:121-136)."""
+    if w is None:
+        w = torch.ones(x.shape[:-2] + x.shape[-1:], dtype=x.dtype, device=x.device)
+    h = mm(x * w[..., None, :], y.transpose(-1, -2))  # S_ab = sum_i w_i x_a y_b
+    return rot_from_correlation(h, method=method)
+
+
+def weighted_procrustes_srt(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    w: torch.Tensor,
+    method: str = "eigh",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted rigid fit (R, t) minimizing sum_i w_i ||R src_i + t - dst_i||^2
+    over (3, N) point sets (registration.cc:526-569 without the transform
+    composition, which the caller does)."""
+    total = w.sum() + 1e-30
+    c_src = mm(src, w) / total
+    c_dst = mm(dst, w) / total
+    xs = src - c_src[:, None]
+    ys = dst - c_dst[:, None]
+    h = mm(xs * w[None, :], ys.T)
+    r = rot_from_correlation(h, method=method)
+    t = c_dst - mm(r, c_src)
+    return r, t

@@ -1,0 +1,76 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one `csrc/<name>.cu` file with a plain C entry point. At
+first use it is compiled by nvcc for Hopper (sm_90a) into a shared library
+under `build/psulvsb_tpu_torch/` beside the package, named by a hash of the
+source so an edited kernel is rebuilt, and loaded with ctypes. Nothing is
+built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "psulvsb_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time (0.0 when the library was already built),
+# "log": nvcc's output, including ptxas's register and shared-memory report}
+BUILD_INFO: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu on first use and return the loaded library."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    info = {"seconds": 0.0, "log": ""}
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # Build into a temporary name and rename, so concurrent processes
+        # never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True, text=True,
+        )
+        info = {
+            "seconds": time.perf_counter() - t0,
+            "log": proc.stdout + proc.stderr,
+        }
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed to build {src}:\n{info['log']}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _LOADED[name] = lib
+    BUILD_INFO[name] = info
+    return lib

@@ -1,0 +1,844 @@
+"""PSULVSB two-level probabilistic RANSAC on PyTorch tensors.
+
+Port of psulvsb_tpu/solver/psulvsb.py for the known-scale, clique-free
+path (registration.cc:622-1535 without the clique and scale stages):
+
+- `_init_stage_dense` builds the reduced line-vector set exactly over the
+  (C, C) pair grid and compacts it by a hashed-priority top-k;
+- each host round runs `_sample_stage` (Gumbel top-k), `_local_stage`
+  (batched hypotheses: basic set -> known-scale test -> GNC-TLS rotation in
+  ops.gnc.gnc_batch -> endpoint translation -> sampled scoring, with the
+  serial acceptance rule replayed over the batch), `_host_stage` (scoring
+  on every point, the chi(3) self-update) and `_self_update_pairs`;
+- `_finalize_stage` runs a weighted Procrustes kept only if an RMSE gate
+  passes.
+
+Every stage that draws random numbers takes them as an optional argument
+(hash constants `ab`, Gumbel keys, uniforms) and otherwise draws them from
+the `torch.Generator` it is given, so a test can feed the JAX package's
+own draws to both sides. Tensors stay on the device of the inputs; the
+host reads a value only where control flow needs it, and `psulvsb_solve`
+counts those reads in info["host_syncs"].
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import NamedTuple
+
+import torch
+
+from psulvsb_tpu_torch.core.linalg import weighted_procrustes_srt
+from psulvsb_tpu_torch.core.metrics import (
+    angular_error_rad,
+    inlier_probability,
+    masked_rmse,
+)
+from psulvsb_tpu_torch.ops.gnc import gnc_batch
+from psulvsb_tpu_torch.robust.scale import select_scale_inliers
+from psulvsb_tpu_torch.robust.translation import (
+    solve_translation,
+    solve_translation_endpoints,
+)
+from psulvsb_tpu_torch.solver.basic import WarmState, endpoint_mask, score_transform
+from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, SolverParams
+from psulvsb_tpu_torch.solver.solution import RegistrationSolution
+from psulvsb_tpu_torch.utils.precision import mm, pin_float32
+
+_F32 = torch.float32
+_I64 = torch.int64
+
+
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] along dim 0 for a 0-d index tensor, without a host read."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def _gumbel(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Standard Gumbel draws, -log(-log(u)) with u uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=_F32)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(_F32).tiny)))
+
+
+# =============================================================================
+# Stage 1: initial reduced set
+# =============================================================================
+
+
+def _pool_caps(params: SolverParams) -> tuple[int, int]:
+    """(pool slot capacity, init fill target) for the materialized reduced
+    pool. The fill stays below capacity so self-update appends always have
+    reserve slots (config.pool_cap / pool_reserve)."""
+    pool = min(params.pool_cap, params.reduced_cap)
+    fill = pool - min(params.pool_reserve, pool // 8)
+    return pool, fill
+
+
+def _init_stage_dense(
+    ori_src: torch.Tensor,
+    ori_dst: torch.Tensor,
+    keep_mask: torch.Tensor,
+    params: SolverParams,
+    generator: torch.Generator | None = None,
+    ab: torch.Tensor | None = None,
+):
+    """Exact known-scale reduced set over the dense (C, C) pair grid
+    (registration.cc:753-767): pair (i < j) is a member when
+    | ‖s_j - s_i‖ - ‖d_j - d_i‖ | <= 2 noise_bound sqrt(cbar2).
+
+    Pair norms come from ‖a-b‖² = ‖a‖² + ‖b‖² - 2ab (one float32 matmul per
+    cloud). Members are compacted into `fill` slots by a top-k over a
+    multiplicative-xorshift hash of the flat pair position, seeded by the
+    two constants `ab`, so an over-cap reduced set is thinned uniformly. The
+    uint32 hash is computed in int64 with a 32-bit mask after each multiply.
+
+    Returns (red_i (pool,), red_j (pool,), red_count (), pool_count ()).
+    """
+    c = ori_src.shape[1]
+    dev = ori_src.device
+    pool_cap, fill_cap = _pool_caps(params)
+    active = keep_mask == 1
+
+    def pdist(m):
+        n = (m * m).sum(1)
+        g = mm(m, m.T)
+        return torch.sqrt(torch.clamp(n[:, None] + n[None, :] - 2.0 * g, min=0.0))
+
+    v1 = pdist(ori_src.T.to(_F32))
+    v2 = pdist(ori_dst.T.to(_F32))
+    iu = torch.arange(c, device=dev)
+    valid = (iu[:, None] < iu[None, :]) & active[:, None] & active[None, :]
+    beta = 2.0 * params.noise_bound * math.sqrt(params.cbar2)
+    member = (torch.abs(v1 - v2) <= beta) & valid
+    red_count = torch.clamp(member.sum(), max=params.reduced_cap)
+
+    if ab is None:
+        ab = torch.randint(1, 2**31 - 1, (2,), generator=generator, device=dev)
+    ab = ab.to(device=dev, dtype=_I64)
+    m32 = 0xFFFFFFFF
+    pos = iu[:, None] * c + iu[None, :]
+    h = (pos * (ab[0] | 1) + ab[1]) & m32
+    h = h ^ (h >> 16)
+    h = (h * 0x45D9F3B) & m32
+    h = h ^ (h >> 16)
+    pri = torch.where(member, h.to(_F32), -1.0).reshape(-1)
+    k = min(fill_cap, c * c)
+    vals, idx = torch.topk(pri, k, sorted=True)
+    if k < pool_cap:
+        vals = torch.cat([vals, vals.new_full((pool_cap - k,), -1.0)])
+        idx = torch.cat([idx, idx.new_zeros(pool_cap - k)])
+    ok = vals >= 0.0
+    zero = torch.zeros_like(idx)
+    red_i = torch.where(ok, idx // c, zero)
+    red_j = torch.where(ok, idx % c, zero)
+    return red_i, red_j, red_count, ok.sum()
+
+
+def _init_stage(
+    ori_src: torch.Tensor,
+    ori_dst: torch.Tensor,
+    keep_mask: torch.Tensor,
+    params: SolverParams,
+    generator: torch.Generator | None = None,
+    ab: torch.Tensor | None = None,
+):
+    """Initial reduced set (registration.cc:682-767). keep_mask: (C,) in
+    {1, 0, -1} from the histogram pre-filter. Only the dense mode is ported;
+    `check_port_supported` names the item that ports the others."""
+    params.check_port_supported(ori_src.shape[1])
+    return _init_stage_dense(ori_src, ori_dst, keep_mask, params, generator, ab)
+
+
+# =============================================================================
+# Stage 2: sample the L-sampled set for one host round
+# =============================================================================
+
+
+def _sample_stage(
+    red_i: torch.Tensor,
+    red_j: torch.Tensor,
+    red_count: torch.Tensor,
+    pool: torch.Tensor,
+    l_rate: float,
+    params: SolverParams,
+    num_points: int,
+    generator: torch.Generator | None = None,
+    gumbel: torch.Tensor | None = None,
+):
+    """Draw floor(|reduced| * L_sampled_rate) TIMs without replacement
+    (registration.cc:834-895): the top of Gumbel keys over the valid pool
+    slots is a uniform random subset; a floor of 0 takes the whole reduced
+    set. Sizes cap at sampled_cap. `gumbel`: optional (pool,) keys.
+
+    Returns (s_i (S,), s_j (S,), slot mask (S,), sampled_count (),
+    sampled point mask (C,))."""
+    dev = red_i.device
+    r_cap = red_i.shape[0]
+    cap = min(params.sampled_cap, r_cap)
+    rate = torch.tensor(l_rate, dtype=_F32, device=dev)
+    want = torch.floor(red_count.to(_F32) * rate).to(_I64)
+    want = torch.where(want == 0, red_count, want)
+    count = torch.minimum(torch.clamp(want, max=cap), pool)
+
+    slot_ok = torch.arange(r_cap, device=dev) < pool
+    g = _gumbel((r_cap,), generator, dev) if gumbel is None else gumbel.to(dev, _F32)
+    score = torch.where(slot_ok, g, -math.inf)
+    # Sorted output keeps the -inf (invalid) slots last.
+    vals, top = torch.topk(score, cap, sorted=True)
+    count = torch.minimum(count, (vals > -math.inf).sum())
+    rank_ok = torch.arange(cap, device=dev) < count
+    zero = torch.zeros_like(top)
+    s_i = torch.where(rank_ok, red_i[top], zero)
+    s_j = torch.where(rank_ok, red_j[top], zero)
+    pt_mask = endpoint_mask(s_i, s_j, rank_ok, num_points)
+    return s_i, s_j, rank_ok, count, pt_mask
+
+
+# =============================================================================
+# Stage 3: the local RANSAC loop (batched hypotheses)
+# =============================================================================
+
+
+class HypExtras(NamedTuple):
+    """Stage masks of the winning basic iteration, behind the inlier getters
+    (registration.h:600-746)."""
+
+    b_i: torch.Tensor  # (bcap,) basic TIM endpoint indices
+    b_j: torch.Tensor  # (bcap,)
+    scale_inliers: torch.Tensor  # (bcap,) bool
+    rotation_inliers: torch.Tensor  # (bcap,) bool
+    translation_inliers: torch.Tensor  # (C,) bool
+    translation_points: torch.Tensor  # (C,) bool — points fed to translation
+
+    @staticmethod
+    def zeros(bcap: int, c: int, device) -> "HypExtras":
+        def z(n, dtype):
+            return torch.zeros(n, dtype=dtype, device=device)
+
+        return HypExtras(
+            z(bcap, _I64), z(bcap, _I64), z(bcap, torch.bool), z(bcap, torch.bool),
+            z(c, torch.bool), z(c, torch.bool),
+        )
+
+
+class LocalState(NamedTuple):
+    best: WarmState  # best sampled solution (also the next batch's warm)
+    best_count: torch.Tensor  # () best sampled inlier count
+    local_r: torch.Tensor  # ()
+    pro_local: torch.Tensor  # ()
+    iterations: int  # batches run
+    hypotheses: torch.Tensor  # () hypotheses consumed
+    escalate: torch.Tensor  # () bool — stagnation triggered
+    done: torch.Tensor  # () bool
+    extras: HypExtras
+    extras_valid: torch.Tensor  # () bool — extras ever populated
+    host_syncs: int  # host reads of `done`, one per batch
+
+
+def _similar(sol_scale, sol_rot, sol_trans, warm: WarmState, params: SolverParams):
+    """Early-accept similarity test (registration.cc:1261-1264), batched
+    over hypotheses, with the inner-loop noise constants."""
+    scale_noise = 2.0 * params.inner_noise_bound * math.sqrt(params.inner_cbar2)
+    trans_noise = params.inner_noise_bound * math.sqrt(params.inner_cbar2)
+    return (
+        (torch.abs(warm.scale - sol_scale) <= scale_noise)
+        & (angular_error_rad(warm.rotation, sol_rot) <= params.rotation_similar)
+        & (torch.linalg.vector_norm(warm.translation - sol_trans, dim=-1) <= trans_noise)
+    )
+
+
+def _local_stage(
+    ori_src: torch.Tensor,
+    ori_dst: torch.Tensor,
+    s_i: torch.Tensor,
+    s_j: torch.Tensor,
+    s_ok: torch.Tensor,
+    sampled_count: torch.Tensor,
+    sampled_pt_mask: torch.Tensor,
+    b_rate: float,
+    b_rate_is_one: bool,
+    host_r: torch.Tensor,
+    warm_in: WarmState,
+    thr: torch.Tensor,
+    params: SolverParams,
+    generator: torch.Generator | None = None,
+    gumbels: torch.Tensor | None = None,
+) -> LocalState:
+    """The local RANSAC loop of one host round (registration.cc:903-1398),
+    `hypothesis_batch` hypotheses at a time. The loop reads `done` on the
+    host once per batch. `gumbels`: optional (max_batches, batch, S) keys
+    that pick each hypothesis' basic set."""
+    dev = ori_src.device
+    cap = s_i.shape[0]
+    bcap = min(params.basic_cap, cap)
+    batch = params.hypothesis_batch
+    c = ori_src.shape[1]
+
+    n_sampled_pts = torch.clamp(sampled_pt_mask.sum(), min=1).to(_F32)
+    if b_rate_is_one:
+        # b_rate == 1.0: basic set = whole sampled set (capped).
+        basic_choose = torch.clamp(sampled_count, max=bcap)
+    else:
+        rate = torch.tensor(b_rate, dtype=_F32, device=dev)
+        basic_choose = torch.floor(sampled_count.to(_F32) * rate).to(_I64)
+        basic_choose = torch.clamp(basic_choose, 1, bcap)
+    nb = torch.tensor(params.inner_noise_bound, dtype=_F32, device=dev)
+    cb2 = torch.tensor(params.inner_cbar2, dtype=_F32, device=dev)
+    ar_bcap = torch.arange(bcap, device=dev)
+
+    def eval_batch(g: torch.Tensor, warm: WarmState):
+        """Evaluate `batch` hypotheses (registration.cc:908-1256): basic set,
+        known-scale test, one GNC kernel launch for all, endpoint
+        translation, scoring on the sampled points."""
+        use_warm = not warm.first_time
+        score = torch.where(s_ok, g, -math.inf)  # (batch, S)
+        vals, top = torch.topk(score, bcap, dim=1, sorted=True)
+        n_valid = (vals > -math.inf).sum(1)
+        sel_ok = ar_bcap < torch.minimum(basic_choose, n_valid)[:, None]
+        zero = torch.zeros_like(top)
+        b_i = torch.where(sel_ok, s_i[top], zero)
+        b_j = torch.where(sel_ok, s_j[top], zero)
+        src_t = (ori_src[:, b_j] - ori_src[:, b_i]).movedim(0, 1)  # (batch, 3, bcap)
+        dst_t = (ori_dst[:, b_j] - ori_dst[:, b_i]).movedim(0, 1)
+        scale, sc_inl, _ = select_scale_inliers(src_t, dst_t, nb, cb2, sel_ok)
+        # Known scale: rotation consumes ALL basic TIMs (registration.cc:
+        # 984-991); the scale-inlier mask backs the getter only.
+        inv_s = 1.0 / torch.clamp(scale, min=1e-30)
+        rots, rot_inl = gnc_batch(
+            src_t,
+            dst_t * inv_s[:, None, None],
+            sel_ok,
+            nb * 2.0 * inv_s,
+            warm.rotation,
+            use_warm,
+            max_iterations=params.inner_rotation_max_iterations,
+            gnc_factor=params.inner_rotation_gnc_factor,
+            cost_threshold=params.inner_rotation_cost_threshold,
+        )
+        if 2 * bcap < c:
+            t_s, t_inl, t_pts, _ = solve_translation_endpoints(
+                ori_src, ori_dst, rots, scale, b_i, b_j, rot_inl, nb, cb2,
+                warm_translation=warm.translation, use_warm=use_warm,
+            )
+        else:
+            t_pts = endpoint_mask(b_i, b_j, rot_inl, c)
+            moved = scale[:, None, None] * mm(rots, ori_src)
+            t_s, t_inl, _ = solve_translation(
+                moved, ori_dst, nb, cb2, active=t_pts,
+                warm_translation=warm.translation, use_warm=use_warm,
+            )
+        trans = t_s * inv_s[:, None]
+        counts, _ = score_transform(
+            ori_src, ori_dst, sampled_pt_mask, scale, rots, trans, thr
+        )
+        sims = _similar(scale, rots, trans, warm, params)
+        extras = HypExtras(b_i, b_j, sc_inl, rot_inl, t_inl, t_pts)
+        return scale, rots, trans, counts, sims, extras
+
+    factor = params.local_batch_ceiling_factor
+    max_batches = max(2, -(-factor * params.local_max_iter // batch) + 1)
+    t_idx = torch.arange(batch, device=dev)
+    zero_i = torch.zeros((), dtype=_I64, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+
+    warm = warm_in
+    best_count = zero_i
+    local_r = zero_i
+    pro_local = torch.zeros((), dtype=_F32, device=dev)
+    hypotheses = zero_i
+    escalate = false
+    done = false
+    extras = HypExtras.zeros(bcap, c, dev)
+    extras_valid = false
+    iterations = 0
+    for it in range(max_batches):
+        g = _gumbel((batch, cap), generator, dev) if gumbels is None else gumbels[it].to(dev, _F32)
+        scales, rots, transs, counts, sims, extras_b = eval_batch(g, warm)
+        first_time = warm.first_time
+        if first_time:
+            sims = torch.zeros_like(sims)  # early-accept only after first scoring
+
+        # --- replay the serial acceptance over the batch -------------------
+        # Baseline: the serial loop re-baselines to warm's own sampled count
+        # (registration.cc:1289-1315) except before the first scoring and at
+        # the escalated b_rate == 1.0 round.
+        if first_time or b_rate_is_one:
+            baseline = torch.full((), -1, dtype=_I64, device=dev)
+        else:
+            baseline, _ = score_transform(
+                ori_src, ori_dst, sampled_pt_mask, warm.scale, warm.rotation,
+                warm.translation, thr,
+            )
+        run_best = torch.cummax(torch.maximum(counts, baseline), dim=0).values
+        local_r_t = local_r + t_idx + 1
+        w_t = run_best.to(_F32) / n_sampled_pts
+        pro_t = 1.0 - torch.pow(1.0 - w_t, local_r_t.to(_F32))
+
+        # Early-accept: the first similar hypothesis ends the local loop with
+        # pro_local = 1 (registration.cc:1261-1282).
+        sim_any = sims.any()
+        sim_t = torch.argmax(sims.to(_I64))
+        stagn_t = (local_r_t >= params.local_max_iter) & (
+            pro_t <= params.stagnation_min_pro_local
+        )
+        if b_rate_is_one:
+            stagn_t = torch.ones_like(stagn_t)  # registration.cc:1361
+        conf_t = pro_t > params.local_confidence
+        stop_mask = conf_t | stagn_t
+        stop_any = stop_mask.any()
+        stop_t = torch.where(stop_any, torch.argmax(stop_mask.to(_I64)), batch - 1)
+
+        # The effective cut: earliest of early-accept and stop.
+        is_sim_cut = sim_any & (sim_t <= stop_t)
+        cut = torch.where(is_sim_cut, sim_t, stop_t)
+
+        # Winner among hypotheses [0..cut]: first max of counts vs baseline.
+        cmask = torch.where(t_idx <= cut, counts, torch.iinfo(_I64).min)
+        best_h = torch.argmax(cmask)
+        batch_best_count = _pick(cmask, best_h)
+        take_batch = batch_best_count > baseline
+        if first_time:
+            take_batch = torch.ones_like(take_batch)
+
+        def choose(stack, keep):
+            win = torch.where(take_batch, _pick(stack, best_h), keep)
+            # Early-accept overrides the winner (registration.cc:1278-1281).
+            return torch.where(is_sim_cut, _pick(stack, sim_t), win)
+
+        new_scale = choose(scales, warm.scale)
+        new_rot = choose(rots, warm.rotation)
+        new_trans = choose(transs, warm.translation)
+        new_best_count = torch.maximum(batch_best_count, baseline)
+
+        consumed = cut + 1
+        # The host_r + 1 bump applies only when the round's literal first
+        # hypothesis is the similar one (registration.cc:1270-1276).
+        sim_bump = torch.where(
+            (hypotheses == 0) & is_sim_cut & (sim_t == 0), host_r + 1, consumed
+        )
+        local_r = local_r + torch.where(is_sim_cut, sim_bump, consumed)
+
+        one = torch.ones((), dtype=_F32, device=dev)
+        pro_after = torch.where(is_sim_cut | stop_any, one, pro_t[batch - 1])
+        conf_at_stop = _pick(conf_t, stop_t)
+        pro_local = torch.where(
+            stop_any & ~is_sim_cut & conf_at_stop, _pick(pro_t, stop_t), pro_after
+        )
+        done = is_sim_cut | stop_any
+        escalate = escalate | (
+            stop_any & ~is_sim_cut & _pick(stagn_t, stop_t) & ~conf_at_stop
+        )
+        warm = WarmState(new_scale, new_rot, new_trans, first_time=False)
+
+        # Stage masks follow the same winner selection.
+        sel_idx = torch.where(is_sim_cut, sim_t, best_h)
+        keep_new = is_sim_cut | take_batch
+        extras = HypExtras(
+            *(
+                torch.where(keep_new, _pick(new, sel_idx), old)
+                for new, old in zip(extras_b, extras)
+            )
+        )
+        best_count = torch.where(is_sim_cut, best_count, new_best_count)
+        hypotheses = hypotheses + consumed
+        extras_valid = extras_valid | keep_new
+        iterations = it + 1
+        if bool(done):
+            break
+
+    return LocalState(
+        best=warm,
+        best_count=best_count,
+        local_r=local_r,
+        pro_local=pro_local,
+        iterations=iterations,
+        hypotheses=hypotheses,
+        escalate=escalate,
+        done=done,
+        extras=extras,
+        extras_valid=extras_valid,
+        host_syncs=iterations,
+    )
+
+
+# =============================================================================
+# Stage 4: host scoring + probabilistic self-update bookkeeping
+# =============================================================================
+
+
+class HostState(NamedTuple):
+    inlier_counter: torch.Tensor  # (C,) int64 — weightedSVD weights
+    inlier_history: torch.Tensor  # (C,) int64 in {-1, 0, 1}
+    residual_history: torch.Tensor  # (C,)
+    final_inliers: torch.Tensor  # (C,) int64 {0, 1}
+    keep_mask: torch.Tensor  # (C,) int64 {1, 0, -1}
+    active: torch.Tensor  # (C,) bool — current correspondence set
+    inl_kept: torch.Tensor  # (C,) bool — kept host-inliers (inlier_map)
+    best: WarmState  # best host solution
+    best_count: torch.Tensor  # () int64
+    host_r: torch.Tensor  # () int64
+    pro_host: torch.Tensor  # ()
+
+    @staticmethod
+    def initial(c: int, keep_mask: torch.Tensor) -> "HostState":
+        dev = keep_mask.device
+        keep_mask = keep_mask.to(_I64)
+        return HostState(
+            inlier_counter=torch.zeros(c, dtype=_I64, device=dev),
+            inlier_history=torch.full((c,), -1, dtype=_I64, device=dev),
+            residual_history=torch.zeros(c, dtype=_F32, device=dev),
+            final_inliers=torch.zeros(c, dtype=_I64, device=dev),
+            keep_mask=keep_mask,
+            active=keep_mask == 1,
+            inl_kept=torch.zeros(c, dtype=torch.bool, device=dev),
+            best=WarmState.initial(dev),
+            best_count=torch.zeros((), dtype=_I64, device=dev),
+            host_r=torch.zeros((), dtype=_I64, device=dev),
+            pro_host=torch.zeros((), dtype=_F32, device=dev),
+        )
+
+
+def _host_stage(
+    ori_src: torch.Tensor,
+    ori_dst: torch.Tensor,
+    hs: HostState,
+    best_sampled: WarmState,
+    local_r: torch.Tensor,
+    b_rate_is_one: bool,
+    thr: torch.Tensor,
+    params: SolverParams,
+    generator: torch.Generator | None = None,
+    u: torch.Tensor | None = None,
+):
+    """Host scoring of the local round's winner on the ORIGINAL set plus
+    the probabilistic self-update bookkeeping (registration.cc:1399-1488).
+    `u`: optional (C,) uniforms for the re-admission and demotion draws.
+
+    Returns (new HostState, new_corr (C,) bool, take () bool — whether the
+    round's sampled best displaced the host best)."""
+    c = ori_src.shape[1]
+    dev = ori_src.device
+    host_r = hs.host_r + local_r
+
+    moved = best_sampled.scale * (
+        mm(best_sampled.rotation, ori_src) + best_sampled.translation[:, None]
+    )
+    res = torch.sqrt(((ori_dst - moved) ** 2).sum(0))
+    # keep_mask == -2 marks padding columns, which never vote.
+    real = hs.keep_mask > -2
+    is_inl = (res <= thr) & real
+    curr_count = is_inl.sum()
+    inlier_counter = hs.inlier_counter + is_inl.to(_I64)
+
+    # Probabilistic re-admission (registration.cc:1428-1436).
+    if u is None:
+        u = torch.rand(c, generator=generator, device=dev, dtype=_F32)
+    u = u.to(dev, _F32)
+    p_in = inlier_probability(res, params.noise_bound_dataset)
+    hist = hs.inlier_history
+    readmit_ok = (hist == -1) | (hist == 1) | ((hist == 0) & (u <= p_in))
+    new_corr = is_inl & (hs.keep_mask == 0) & readmit_ok
+    if not params.enable_self_update:
+        new_corr = torch.zeros_like(new_corr)
+
+    # Demotion on miss (the published intent of registration.cc:1438).
+    p_prev = inlier_probability(hs.residual_history, params.noise_bound_dataset)
+    demote = (~is_inl) & ((hist == 0) | ((hist == 1) & (u > p_prev)))
+
+    final_inliers = torch.where(new_corr, 1, hs.final_inliers)
+    kept_inl = is_inl & (hs.keep_mask == 1)
+    final_inliers = torch.where(kept_inl, 1, final_inliers)
+    final_inliers = torch.where(demote, 0, final_inliers)
+
+    # Host best update (registration.cc:1454-1462).
+    take = (curr_count > hs.best_count) | (hs.pro_host == 0.0)
+    if b_rate_is_one:
+        take = take | (curr_count >= hs.best_count)
+    best = WarmState(
+        scale=torch.where(take, best_sampled.scale, hs.best.scale),
+        rotation=torch.where(take, best_sampled.rotation, hs.best.rotation),
+        translation=torch.where(take, best_sampled.translation, hs.best.translation),
+        first_time=False,
+    )
+    best_count = torch.where(take, curr_count, hs.best_count)
+    n_real = torch.clamp(real.sum(), min=1).to(_F32)
+    w = best_count.to(_F32) / n_real
+    pro_host = 1.0 - torch.pow(1.0 - w, host_r.to(_F32))
+
+    new_hs = HostState(
+        inlier_counter=inlier_counter,
+        inlier_history=is_inl.to(_I64),
+        residual_history=res,
+        final_inliers=final_inliers,
+        keep_mask=torch.where(new_corr, 1, hs.keep_mask),
+        active=hs.active | new_corr,
+        inl_kept=kept_inl,
+        best=best,
+        best_count=best_count,
+        host_r=host_r,
+        pro_host=pro_host,
+    )
+    return new_hs, new_corr, take
+
+
+def _self_update_pairs(
+    red_i: torch.Tensor,
+    red_j: torch.Tensor,
+    red_count: torch.Tensor,
+    pool: torch.Tensor,
+    new_corr: torch.Tensor,
+    inl_kept: torch.Tensor,
+    params: SolverParams,
+):
+    """Append the self-update TIMs to the compacted reduced set
+    (registration.cc:786-832): every pair between a newly admitted point and
+    a kept host-inlier point or another new point. Admitted points and
+    members cap at self_update_new_cap / member_cap; appends beyond the pool
+    are dropped (written to a sentinel slot that is sliced off)."""
+    dev = red_i.device
+    c = new_corr.shape[0]
+    r_cap = red_i.shape[0]
+    n_cap = params.self_update_new_cap
+    m_cap = params.self_update_member_cap
+    points = torch.arange(c, device=dev)
+
+    def compact(mask, cap):
+        pos = torch.cumsum(mask.to(_I64), 0) - 1
+        write = torch.where(mask & (pos < cap), pos, cap)
+        lst = torch.full((cap + 1,), -1, dtype=_I64, device=dev).scatter_(0, write, points)
+        return lst[:cap], torch.clamp(mask.sum(), max=cap)
+
+    member = inl_kept | new_corr
+    new_list, n_new = compact(new_corr, n_cap)
+    mem_list, n_mem = compact(member, m_cap)
+
+    # (n_cap, m_cap) candidate grid; a new-new pair counts once (member > new).
+    nn = new_list[:, None]
+    mb = mem_list[None, :]
+    valid = (
+        (torch.arange(n_cap, device=dev)[:, None] < n_new)
+        & (torch.arange(m_cap, device=dev)[None, :] < n_mem)
+        & (nn != mb)
+        & (~new_corr[torch.clamp(mb, min=0)] | (mb > nn))
+    )
+    vf = valid.reshape(-1)
+    pif = torch.minimum(nn, mb).reshape(-1)
+    pjf = torch.maximum(nn, mb).reshape(-1)
+    dest = pool + torch.cumsum(vf.to(_I64), 0) - 1
+    write = torch.where(vf & (dest < r_cap), dest, r_cap)
+    pad = torch.zeros(1, dtype=red_i.dtype, device=dev)
+    red_i = torch.cat([red_i, pad]).scatter_(0, write, pif)[:r_cap]
+    red_j = torch.cat([red_j, pad]).scatter_(0, write, pjf)[:r_cap]
+    added = torch.minimum(vf.sum(), r_cap - pool)
+    # red_count is the |reduced| count, clamped by reduced_cap (it may
+    # exceed the materialized pool).
+    return red_i, red_j, torch.clamp(red_count + added, max=params.reduced_cap), pool + added
+
+
+# =============================================================================
+# Stage 5: weighted-SVD refinement + RMSE gate
+# =============================================================================
+
+
+def _finalize_stage(
+    ori_src: torch.Tensor,
+    ori_dst: torch.Tensor,
+    hs: HostState,
+    best_sampled: WarmState,
+    params: SolverParams,
+):
+    """weightedSVD refinement seeded from the sampled best with per-point
+    inlier-hit-count weights, kept only if the masked RMSE over
+    final_inliers improves (registration.cc:1502-1525), in the s*(R p + t)
+    model with s = the sampled best's scale (1 at known scale)."""
+    del params  # the translation rescue is not ported (check_port_supported)
+    s = best_sampled.scale
+    s_safe = torch.where(s > 0, s, torch.ones_like(s))
+    w = hs.inlier_counter.to(ori_src.dtype)
+    moved = s_safe * (mm(best_sampled.rotation, ori_src) + best_sampled.translation[:, None])
+    r_fit, t_fit = weighted_procrustes_srt(moved, ori_dst, w)
+    # combined = final * initial (registration.cc:566) in s*(R p + t) form.
+    r_adj = mm(r_fit, best_sampled.rotation)
+    t_adj = mm(r_fit, best_sampled.translation) + t_fit / s_safe
+
+    mask = hs.final_inliers == 1
+    rmse_adj = masked_rmse(ori_src, ori_dst, mask, r_adj, t_adj, scale=s_safe)
+    rmse_ori = masked_rmse(
+        ori_src, ori_dst, mask, best_sampled.rotation, best_sampled.translation,
+        scale=s_safe,
+    )
+    better = rmse_adj < rmse_ori
+    rotation = torch.where(better, r_adj, hs.best.rotation)
+    translation = torch.where(better, t_adj, hs.best.translation)
+    return rotation, translation, better
+
+
+# =============================================================================
+# Orchestration
+# =============================================================================
+
+
+def psulvsb_solve(
+    ori_src: torch.Tensor,
+    ori_dst: torch.Tensor,
+    keep_mask: torch.Tensor,
+    params: SolverParams,
+    generator: torch.Generator | None = None,
+    profile: bool = False,
+) -> tuple[RegistrationSolution, dict]:
+    """Full PSULVSB solve on (3, C) float32 correspondence tensors.
+
+    keep_mask: (C,) integer tensor in {1, 0, -1} from the histogram
+    pre-filter (-2 marks padding columns). All tensors stay on the device
+    of ori_src; `generator` (on that device) supplies every random draw.
+
+    The host-round loop runs in Python with the wall-clock budget checked
+    between rounds, as registration.cc:1475 does. profile=True adds
+    per-stage wall times (info["stage_s"]) with a device synchronization
+    after each stage, so a profiled solve is slower than a plain one.
+    """
+    t_start = time.monotonic()
+    pin_float32()
+    c = ori_src.shape[1]
+    params.check_port_supported(c)
+    dev = ori_src.device
+    ori_src = ori_src.to(_F32)
+    ori_dst = ori_dst.to(device=dev, dtype=_F32)
+    keep_mask = keep_mask.to(device=dev, dtype=_I64)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+
+    stage_s: dict[str, float] = {}
+
+    def timed(name, fn, *args, **kw):
+        if not profile:
+            return fn(*args, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stage_s[name] = stage_s.get(name, 0.0) + (time.monotonic() - t0)
+        return out
+
+    red_i, red_j, red_count, red_pool = timed(
+        "init", _init_stage, ori_src, ori_dst, keep_mask, params, generator
+    )
+    # adoptive_thr_multiplier = 1 + |reduced| / |ori| (registration.cc:669).
+    n_reduced_pts, n_real = torch.stack(
+        [(keep_mask == 1).sum(), (keep_mask >= -1).sum()]
+    ).tolist()
+    host_syncs = 1
+    thr = torch.tensor(
+        params.pr_noise * (1.0 + n_reduced_pts / max(n_real, 1)), dtype=_F32, device=dev
+    )
+
+    hs = HostState.initial(c, keep_mask)
+    warm = WarmState.initial(dev)
+    rate_idx = 0
+    longholi = False
+    best_sampled = warm
+    best_extras: HypExtras | None = None
+    best_count = 0
+    rounds = 0
+    total_hypotheses = 0
+    total_local_batches = 0
+
+    for _round in range(params.max_host_rounds):
+        rounds += 1
+        l_rate, b_rate = RATE_SCHEDULE[rate_idx]
+        b_one = b_rate >= 1.0
+        s_i, s_j, s_ok, s_count, s_pts = timed(
+            "sample", _sample_stage, red_i, red_j, red_count, red_pool, l_rate,
+            params, c, generator,
+        )
+        local = timed(
+            "local", _local_stage, ori_src, ori_dst, s_i, s_j, s_ok, s_count, s_pts,
+            b_rate, b_one, hs.host_r, warm, thr, params, generator,
+        )
+        host_syncs += local.host_syncs
+        best_sampled = local.best
+        total_local_batches += local.iterations
+        hs, new_corr, host_take = timed(
+            "host", _host_stage, ori_src, ori_dst, hs, best_sampled, local.local_r,
+            b_one, thr, params, generator,
+        )
+        # One host read for every decision of the round.
+        hyp, extras_valid, take, pro_host, escalate, n_new, best_count = torch.stack(
+            [
+                t.to(torch.float64)
+                for t in (
+                    local.hypotheses, local.extras_valid, host_take, hs.pro_host,
+                    local.escalate, new_corr.sum(), hs.best_count,
+                )
+            ]
+        ).tolist()
+        host_syncs += 1
+        total_hypotheses += int(hyp)
+        if take:
+            # The host best came from this round: its winning hypothesis's
+            # stage masks back the inlier getters, unless the warm state
+            # survived every batch unbeaten.
+            best_extras = local.extras if extras_valid else None
+        warm = WarmState(hs.best.scale, hs.best.rotation, hs.best.translation, first_time=False)
+
+        # Stop checks at the host boundary (registration.cc:1475-1484).
+        elapsed = time.monotonic() - t_start
+        if pro_host > params.host_confidence or longholi or elapsed > params.time_budget_s:
+            break
+        if rate_idx == len(RATE_SCHEDULE) - 1:
+            longholi = True
+        # Escalation decided inside the local loop takes effect next round
+        # (registration.cc:1377-1388).
+        if escalate and rate_idx < len(RATE_SCHEDULE) - 1:
+            rate_idx += 1
+        # Self-update: fold newly admitted points into the reduced set.
+        if n_new > 0:
+            red_i, red_j, red_count, red_pool = timed(
+                "self_update", _self_update_pairs, red_i, red_j, red_count,
+                red_pool, new_corr, hs.inl_kept, params,
+            )
+
+    # Final refinement (registration.cc:1499-1528).
+    if params.enable_refinement and best_count != 0:
+        rotation, translation, refined = timed(
+            "finalize", _finalize_stage, ori_src, ori_dst, hs, best_sampled, params
+        )
+    else:
+        rotation, translation = hs.best.rotation, hs.best.translation
+        refined = torch.zeros((), dtype=torch.bool, device=dev)
+
+    # valid is false on a zero-inlier outcome (the reference sets it true
+    # unconditionally on loop exit, registration.cc:1531).
+    solution = RegistrationSolution(
+        valid=hs.best_count > 0,
+        scale=hs.best.scale,
+        rotation=rotation,
+        translation=translation,
+        final_inlier_count=hs.best_count,
+    )
+    ex = best_extras
+    info = {
+        "pro_host": hs.pro_host,
+        "host_r": hs.host_r,
+        "rounds": rounds,
+        "refined": refined,
+        "inlier_counter": hs.inlier_counter,
+        "final_inliers": hs.final_inliers,
+        "scale_inliers": None if ex is None else ex.scale_inliers,
+        "rotation_inliers": None if ex is None else ex.rotation_inliers,
+        "translation_inliers": None if ex is None else ex.translation_inliers,
+        "translation_points": None if ex is None else ex.translation_points,
+        "basic_tims_i": None if ex is None else ex.b_i,
+        "basic_tims_j": None if ex is None else ex.b_j,
+        "gror_init": False,
+        "stage_s": stage_s if profile else None,
+        "elapsed_s": time.monotonic() - t_start,
+        "total_hypotheses": total_hypotheses,
+        "total_local_batches": total_local_batches,
+        "host_syncs": host_syncs,
+    }
+    return solution, info

@@ -1,0 +1,137 @@
+"""The port's SolverParams against the JAX package's: same fields, defaults
+and presets, a lossless conversion, the settings that still raise, and an
+import of the port with JAX made unimportable."""
+
+import dataclasses
+import enum
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from psulvsb_tpu.solver import config as jcfg
+from psulvsb_tpu_torch.convert import params_from_jax
+from psulvsb_tpu_torch.solver import config as tcfg
+
+REPO = Path(__file__).resolve().parents[1]
+PRESETS = [
+    "preset_3dmatch",
+    "preset_kitti",
+    "preset_artificial",
+    "preset_artificial_gror",
+    "preset_whu_tls",
+    "preset_cransac_wt",
+    "preset_psulvsb_2025_07",
+]
+
+
+def _plain(v):
+    return int(v) if isinstance(v, enum.Enum) else v
+
+
+def _as_dict(p):
+    return {f.name: _plain(getattr(p, f.name)) for f in dataclasses.fields(p)}
+
+
+def test_same_fields_and_defaults():
+    jf = dataclasses.fields(jcfg.SolverParams)
+    tf = dataclasses.fields(tcfg.SolverParams)
+    assert [f.name for f in jf] == [f.name for f in tf]
+    assert _as_dict(jcfg.SolverParams()) == _as_dict(tcfg.SolverParams())
+    assert jcfg.RATE_SCHEDULE == tcfg.RATE_SCHEDULE
+
+
+@pytest.mark.parametrize(
+    "name", ["RotationEstimationAlgorithm", "InlierSelectionMode", "InlierGraphFormulation"]
+)
+def test_same_enum_values(name):
+    j = {m.name: int(m) for m in getattr(jcfg, name)}
+    t = {m.name: int(m) for m in getattr(tcfg, name)}
+    assert j == t
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_same_presets(preset):
+    jp = getattr(jcfg.SolverParams, preset)(sampled_cap=1024)
+    tp = getattr(tcfg.SolverParams, preset)(sampled_cap=1024)
+    assert _as_dict(jp) == _as_dict(tp)
+    assert params_from_jax(jp) == tp
+
+
+def test_preset_anchor_is_the_bench_anchor_without_cliques():
+    jp = jcfg.SolverParams.preset_artificial(
+        sampled_cap=2048, basic_cap=256, hypothesis_batch=4, clique_init="off",
+        inlier_selection_mode=jcfg.InlierSelectionMode.NONE,
+    )
+    anchor = tcfg.SolverParams.preset_anchor()
+    assert params_from_jax(jp) == anchor
+    anchor.check_port_supported(1889)
+
+
+def test_params_from_jax_maps_enums_by_value():
+    jp = jcfg.SolverParams(
+        rotation_estimation_algorithm=jcfg.RotationEstimationAlgorithm.FGR,
+        inlier_selection_mode=jcfg.InlierSelectionMode.KCORE_HEU,
+        rotation_tim_graph=jcfg.InlierGraphFormulation.COMPLETE,
+        noise_bound=0.123, pool_cap=777, clique_init="eager",
+    )
+    tp = params_from_jax(jp)
+    assert tp.rotation_estimation_algorithm is tcfg.RotationEstimationAlgorithm.FGR
+    assert tp.inlier_selection_mode is tcfg.InlierSelectionMode.KCORE_HEU
+    assert tp.rotation_tim_graph is tcfg.InlierGraphFormulation.COMPLETE
+    assert _as_dict(tp) == _as_dict(jp)
+    assert tp.resolve_inlier_selection() == jp.resolve_inlier_selection()
+
+
+UNSUPPORTED = [
+    ({"estimate_scaling": True}, "item 9"),
+    ({"clique_init": "auto"}, "item 10"),
+    ({"clique_init": "eager"}, "item 10"),
+    ({"clique_init": True}, "item 10"),
+    ({"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT}, "item 10"),
+    ({"max_clique_exact_solution": False}, "item 10"),  # resolves to PMC_HEU
+    ({"gror_init": True}, "item 14"),
+    ({"translation_rescue": True}, "item 14"),
+    ({"rotation_estimation_algorithm": tcfg.RotationEstimationAlgorithm.FGR}, "item 11"),
+    ({"gnc_rot_method": "eigh"}, "item 17"),
+    ({"init_mode": "sampled"}, "item 9"),
+    ({"init_mode": "exact"}, "item 9"),
+    ({"dense_init_max_c": 1000}, "item 9"),  # C = 1889 leaves the dense window
+]
+
+
+@pytest.mark.parametrize("kw,item", UNSUPPORTED)
+def test_unsupported_settings_raise(kw, item):
+    p = tcfg.SolverParams.preset_anchor(**kw)
+    with pytest.raises(NotImplementedError, match=item):
+        p.check_port_supported(1889)
+
+
+def test_supported_variants_do_not_raise():
+    for p in (
+        tcfg.SolverParams.preset_anchor(),
+        tcfg.SolverParams.preset_anchor(clique_init=False, init_mode="dense"),
+        tcfg.SolverParams.preset_anchor(use_max_clique=False, clique_init="off"),
+        tcfg.SolverParams.preset_anchor(enable_self_update=False, enable_refinement=False),
+    ):
+        p.check_port_supported(1889)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import psulvsb_tpu_torch\n"
+        "from psulvsb_tpu_torch import convert, api\n"
+        "from psulvsb_tpu_torch.ops import gnc\n"
+        "from psulvsb_tpu_torch.eval import synthetic\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'psulvsb_tpu.'))"
+        " or m == 'psulvsb_tpu' for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,0 +1,202 @@
+"""The GNC-TLS kernel module (psulvsb_tpu_torch/ops/gnc.py).
+
+On the CPU the port's `gnc_batch` runs its plain PyTorch version; it is
+held against the JAX front door `psulvsb_tpu.ops.pallas_gnc.gnc_batch`,
+which runs the Pallas kernel in interpret mode on the CPU, and against
+`rotation/gnc.py::gnc_tls_rotation(rot_method="power")`. The CUDA cases
+hold the kernel against the plain version on the card and skip here; JAX
+is imported by a fixture, so on a machine with a card and without JAX they
+run with `python -m pytest tests/test_torch_gnc.py -m cuda --noconftest`.
+
+Tolerances: 1e-4 absolute on rotations (float32 sums in another order over
+up to 100 reweighting iterations), >= 99% agreement of the inlier masks
+over active columns (a weight within rounding of the 0.5 cut may flip).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from psulvsb_tpu_torch.core.linalg import _quat_to_rot
+from psulvsb_tpu_torch.ops import gnc as tops
+from psulvsb_tpu_torch.rotation.gnc import gnc_tls_rotation
+
+ROT_TOL = 1e-4
+MASK_AGREE = 0.99
+LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX reference: jax.numpy, the Pallas front door (interpret mode
+    on the CPU) and the XLA GNC loop."""
+    jnp = pytest.importorskip("jax.numpy")
+    from psulvsb_tpu.ops.pallas_gnc import gnc_batch
+    from psulvsb_tpu.rotation.gnc import gnc_tls_rotation
+
+    return types.SimpleNamespace(jnp=jnp, gnc_batch=gnc_batch, gnc_tls_rotation=gnc_tls_rotation)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _rotation(rng):
+    q = rng.normal(size=4)
+    return np.asarray(_quat_to_rot(torch.as_tensor(q / np.linalg.norm(q))), np.float32)
+
+
+def _problem(rng, b, n, outliers=0.3, masked=0.0):
+    """B rotation problems: noisy rotated TIMs with a share of gross
+    outliers and optionally a share of masked (inactive) columns."""
+    rots = np.stack([_rotation(rng) for _ in range(b)])
+    src = rng.normal(size=(b, 3, n)).astype(np.float32)
+    dst = np.einsum("bij,bjn->bin", rots, src).astype(np.float32)
+    dst += rng.uniform(-0.01, 0.01, size=dst.shape).astype(np.float32)
+    k = int(n * outliers)
+    dst[:, :, :k] += rng.normal(size=(b, 3, k)).astype(np.float32) * 2.0
+    act = rng.uniform(size=(b, n)) >= masked
+    return src, dst, act, rots
+
+
+def _both(jref, src, dst, act, nb, warm, use_warm):
+    jnp = jref.jnp
+    rj, ij = jref.gnc_batch(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(act), jnp.asarray(nb),
+        jnp.asarray(warm), jnp.asarray(use_warm), **LOOP,
+    )
+    rt, it = tops.gnc_batch(
+        torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(act),
+        torch.as_tensor(nb), torch.as_tensor(warm), use_warm, **LOOP,
+    )
+    return np.asarray(rj), np.asarray(ij), rt.numpy(), it.numpy()
+
+
+def _assert_agree(rj, ij, rt, it, act):
+    np.testing.assert_allclose(rt, rj, atol=ROT_TOL)
+    agree = ((it == ij) | ~act).sum() / act.size
+    assert agree >= MASK_AGREE, agree
+    assert not (it & ~act).any()
+
+
+@pytest.mark.parametrize("b,n", [(4, 128), (4, 256), (3, 197)])
+def test_matches_pallas_gnc(jref, b, n):
+    rng = np.random.default_rng(b * 1000 + n)
+    src, dst, act, rots = _problem(rng, b, n)
+    nb = np.full((b,), 0.1, np.float32)
+    rj, ij, rt, it = _both(jref, src, dst, act, nb, np.eye(3, dtype=np.float32), False)
+    _assert_agree(rj, ij, rt, it, act)
+    for i in range(b):
+        assert np.abs(rt[i] - rots[i]).max() < 5e-3
+
+
+def test_matches_xla_gnc_power(jref, rng):
+    b, n = 4, 128
+    src, dst, act, rots = _problem(rng, b, n)
+    rt, it = tops.gnc_batch(
+        torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(act),
+        torch.full((b,), 0.1), torch.eye(3), False, **LOOP,
+    )
+    for i in range(b):
+        ref = jref.gnc_tls_rotation(
+            jref.jnp.asarray(src[i]), jref.jnp.asarray(dst[i]), 0.1, rot_method="power", **LOOP
+        )
+        np.testing.assert_allclose(rt[i].numpy(), np.asarray(ref.rotation), atol=ROT_TOL)
+        agree = (it[i].numpy() == np.asarray(ref.inliers)).mean()
+        assert agree >= MASK_AGREE
+
+
+@pytest.mark.parametrize("method", ["power", "eigh"])
+def test_single_problem_gnc_tls_rotation(jref, rng, method):
+    jnp = jref.jnp
+    src, dst, act, _ = _problem(rng, 1, 150, masked=0.2)
+    warm = _rotation(rng)
+    for use_warm in (False, True):
+        ref = jref.gnc_tls_rotation(
+            jnp.asarray(src[0]), jnp.asarray(dst[0]), 0.1, jnp.asarray(act[0]),
+            warm_rotation=jnp.asarray(warm), use_warm=use_warm, rot_method=method, **LOOP,
+        )
+        got = gnc_tls_rotation(
+            torch.as_tensor(src[0]), torch.as_tensor(dst[0]), 0.1, torch.as_tensor(act[0]),
+            warm_rotation=torch.as_tensor(warm), use_warm=use_warm, rot_method=method, **LOOP,
+        )
+        np.testing.assert_allclose(got.rotation.numpy(), np.asarray(ref.rotation), atol=ROT_TOL)
+        assert (got.inliers.numpy() == np.asarray(ref.inliers)).mean() >= MASK_AGREE
+        assert int(got.iterations) == int(ref.iterations)
+
+
+def test_warm_start_and_masking(jref, rng):
+    """The TestPallasGnc warm/mask problem: half the columns are garbage
+    and masked out; the warm rotation is the truth."""
+    b, n = 2, 64
+    r = _rotation(rng)
+    src = rng.normal(size=(3, n)).astype(np.float32)
+    dst = (r @ src).astype(np.float32)
+    dst[:, n // 2:] = 99.0
+    act = np.zeros((b, n), bool)
+    act[:, : n // 2] = True
+    nb = np.full((b,), 0.1, np.float32)
+    rj, ij, rt, it = _both(jref, np.stack([src] * b), np.stack([dst] * b), act, nb, r, True)
+    _assert_agree(rj, ij, rt, it, act)
+    for i in range(b):
+        assert np.abs(rt[i] - r).max() < 5e-3
+        assert not it[i, n // 2:].any()
+
+
+@pytest.mark.parametrize("use_warm", [False, True])
+def test_masked_problem_with_mixed_noise_bounds(jref, rng, use_warm):
+    b, n = 5, 160
+    src, dst, act, rots = _problem(rng, b, n, masked=0.5)
+    nb = np.array([0.1, 0.05, 0.2, 0.0, 0.1], np.float32)  # 0.0 takes the 1e-2 floor
+    rj, ij, rt, it = _both(jref, src, dst, act, nb, rots[0], use_warm)
+    _assert_agree(rj, ij, rt, it, act)
+
+
+def test_all_inactive_hypothesis_gives_identity_and_no_inliers(jref, rng):
+    jnp = jref.jnp
+    src, dst, act, _ = _problem(rng, 3, 40)
+    act[1] = False
+    rt, it = tops.gnc_batch(
+        torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(act),
+        torch.full((3,), 0.1), torch.eye(3), False, **LOOP,
+    )
+    np.testing.assert_array_equal(rt[1].numpy(), np.eye(3, dtype=np.float32))
+    assert not it[1].any()
+    rj, ij = jref.gnc_batch(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(act), jnp.full((3,), 0.1),
+        jnp.eye(3), jnp.asarray(False), **LOOP,
+    )
+    np.testing.assert_array_equal(np.asarray(rj)[1], np.eye(3, dtype=np.float32))
+    assert not np.asarray(ij)[1].any()
+
+
+@pytest.mark.parametrize("b,n", [(2, 0), (0, 8), (1, tops.MAX_N + 1)])
+def test_bad_sizes_raise(b, n):
+    src = torch.zeros(b, 3, n)
+    act = torch.ones(b, n, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        tops.gnc_batch(src, src, act, torch.full((b,), 0.1), torch.eye(3), False, **LOOP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(4, 256), (16, 1024), (4, 2048), (3, 197)])
+@pytest.mark.parametrize("use_warm", [False, True])
+def test_cuda_kernel_matches_plain_version(cuda_device, b, n, use_warm):
+    rng = np.random.default_rng(n + b)
+    src, dst, act, rots = _problem(rng, b, n, masked=0.5)
+    args = [
+        torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device),
+        torch.as_tensor(act, device=cuda_device), torch.full((b,), 0.1, device=cuda_device),
+        torch.as_tensor(rots[0], device=cuda_device), use_warm,
+    ]
+    before = tops.KERNEL_LAUNCHES
+    rk, ik = tops.gnc_batch(*args, **LOOP)
+    torch.cuda.synchronize()
+    assert tops.KERNEL_LAUNCHES == before + 1
+    rr, ir = tops.gnc_batch_reference(*args, **LOOP)
+    _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)

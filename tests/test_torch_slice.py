@@ -1,0 +1,110 @@
+"""The port's whole known-scale slice against the JAX solver.
+
+Six numpy-generated pairs (about 300 correspondences, 90% displaced
+outliers, small caps) are solved by JAX `psulvsb_solve` and by the port's
+`RobustRegistrationSolver.solve`. The random streams of the two packages
+differ, so the comparison is distributional: the port's recall (RE < 5°
+and TE < 0.3, the synthetic protocol's success criteria) must be at least
+JAX's recall minus one pair in six."""
+
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from psulvsb_tpu.solver.config import InlierSelectionMode, SolverParams as JParams
+from psulvsb_tpu.solver.psulvsb import psulvsb_solve as jax_psulvsb_solve
+from psulvsb_tpu_torch import RobustRegistrationSolver, psulvsb_solve, register_pair
+from psulvsb_tpu_torch.convert import params_from_jax
+from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
+from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+
+C = 300
+N_PAIRS = 6
+JPARAMS = JParams.preset_artificial(
+    sampled_cap=512, basic_cap=128, hypothesis_batch=4, clique_init="off",
+    inlier_selection_mode=InlierSelectionMode.NONE,
+)
+
+
+def _pair(k):
+    src = synthetic_cloud(C, seed=20 + k)
+    return make_synthetic_pair(np.random.default_rng(40 + k), src, 0.05, 0.9)
+
+
+def _success(pair, rotation, translation) -> bool:
+    re = angular_error_deg_np(pair.transform.rotation, np.asarray(rotation))
+    te = float(np.linalg.norm(np.asarray(translation) - pair.transform.translation))
+    return re < 5.0 and te < 0.3
+
+
+def test_recall_matches_jax():
+    params = params_from_jax(JPARAMS)
+    keep = jax.numpy.ones((C,), jax.numpy.int32)
+    jax_ok, port_ok = [], []
+    for k in range(N_PAIRS):
+        pair = _pair(k)
+        sol_j, _ = jax_psulvsb_solve(
+            jax.numpy.asarray(pair.src), jax.numpy.asarray(pair.dst), keep, JPARAMS,
+            jax.random.PRNGKey(k),
+        )
+        jax_ok.append(bool(sol_j.valid) and _success(pair, sol_j.rotation, sol_j.translation))
+        sol_t = RobustRegistrationSolver(params, seed=k).solve(pair.src, pair.dst)
+        assert sol_t.rotation.dtype == torch.float32
+        assert torch.isfinite(sol_t.rotation).all() and torch.isfinite(sol_t.translation).all()
+        port_ok.append(bool(sol_t.valid) and _success(pair, sol_t.rotation, sol_t.translation))
+    assert sum(port_ok) / N_PAIRS >= sum(jax_ok) / N_PAIRS - 1 / N_PAIRS, (port_ok, jax_ok)
+    assert sum(port_ok) >= N_PAIRS - 1
+
+
+def test_solver_api_surface():
+    params = params_from_jax(JPARAMS)
+    pair = _pair(0)
+    solver = RobustRegistrationSolver(params, seed=3)
+    with pytest.raises(RuntimeError):
+        solver.getSolution()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sol = solver.solve(pair.src.astype(np.float64), pair.dst.astype(np.float64))
+    assert any("float64" in str(w.message) for w in caught)
+    assert solver.getSolution() is sol
+    assert _success(pair, sol.rotation, sol.translation)
+    assert solver.getFinalInliers().shape == (C,)
+    assert solver.getInlierCounter().shape == (C,)
+    b_i, b_j = solver.getBasicTIMEndpoints()
+    assert solver.getRotationInliersMask().shape == b_i.shape == b_j.shape
+    assert solver.getTranslationInliersMask().shape == (C,)
+    # The same seed replays bit for bit.
+    again = RobustRegistrationSolver(params, seed=3).solve(pair.src, pair.dst)
+    assert torch.equal(again.rotation, sol.rotation)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        solver.solve_decoupled(pair.src, pair.dst)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        RobustRegistrationSolver(params.replace(clique_init="auto")).solve(pair.src, pair.dst)
+
+
+def test_correspondence_overload_and_keep_mask():
+    params = params_from_jax(JPARAMS)
+    pair = _pair(1)
+    perm = np.random.default_rng(0).permutation(C)
+    dst_shuffled = pair.dst[:, perm]
+    corr = np.stack([np.arange(C), np.argsort(perm)], axis=1)
+    sol = RobustRegistrationSolver(params, seed=0).solve(pair.src, dst_shuffled, corr)
+    assert _success(pair, sol.rotation, sol.translation)
+    keep = np.ones(C, np.int64)
+    keep[pair.outlier_mask.nonzero()[0][:50]] = -1
+    keep[np.flatnonzero(~pair.outlier_mask)[:5]] = 0
+    src_t, dst_t = torch.as_tensor(pair.src), torch.as_tensor(pair.dst)
+    sol2, info = register_pair(
+        src_t, dst_t, params, torch.Generator().manual_seed(1), keep_mask=torch.as_tensor(keep)
+    )
+    assert _success(pair, sol2.rotation, sol2.translation)
+    assert info["host_syncs"] >= 1 + 2 * info["rounds"]
+    sol3, info3 = psulvsb_solve(
+        src_t, dst_t, torch.as_tensor(keep), params, torch.Generator().manual_seed(1),
+        profile=True,
+    )
+    assert set(info3["stage_s"]) >= {"init", "sample", "local", "host"}
+    assert torch.equal(sol3.rotation, sol2.rotation)
