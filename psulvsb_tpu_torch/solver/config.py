@@ -181,14 +181,11 @@ class SolverParams:
             mode = InlierSelectionMode.PMC_HEU
         return mode
 
-    def check_port_supported(self, c: int | None = None) -> None:
+    def check_port_supported(self) -> None:
         """Raise NotImplementedError, naming the ROADMAP.md item that ports
-        it, for any setting outside the port's known-scale, clique-free
-        slice. `c` (the correspondence count) also checks the init mode."""
+        it, for any setting outside the port's clique-free slice."""
         self._check_clique_init()
         unsupported = []
-        if self.estimate_scaling:
-            unsupported.append("estimate_scaling=True (Queue 1 item 9)")
         if self.clique_init not in ("off", False):
             unsupported.append(
                 f"clique_init={self.clique_init!r} (Queue 1 item 10)"
@@ -210,15 +207,6 @@ class SolverParams:
         if self.gnc_rot_method != "power":
             unsupported.append(
                 f"gnc_rot_method={self.gnc_rot_method!r} (Queue 1 item 17)"
-            )
-        # "auto" resolves to "dense" up to dense_init_max_c; the O(C) init
-        # modes beyond it are not ported.
-        if self.init_mode not in ("auto", "dense"):
-            unsupported.append(f"init_mode={self.init_mode!r} (Queue 1 item 9)")
-        elif self.init_mode == "auto" and c is not None and c > self.dense_init_max_c:
-            unsupported.append(
-                f"C={c} > dense_init_max_c={self.dense_init_max_c} "
-                "(O(C) init modes, Queue 1 item 9)"
             )
         if unsupported:
             raise NotImplementedError(

@@ -1,6 +1,6 @@
 """The port's SolverParams against the JAX package's: same fields, defaults
-and presets, a lossless conversion, the settings that still raise, and an
-import of the port with JAX made unimportable."""
+and presets, a lossless conversion, the settings that still raise and those
+that run, and an import of the port with JAX made unimportable."""
 
 import dataclasses
 import enum
@@ -66,7 +66,7 @@ def test_preset_anchor_is_the_bench_anchor_without_cliques():
     )
     anchor = tcfg.SolverParams.preset_anchor()
     assert params_from_jax(jp) == anchor
-    anchor.check_port_supported(1889)
+    anchor.check_port_supported()
 
 
 def test_params_from_jax_maps_enums_by_value():
@@ -85,7 +85,6 @@ def test_params_from_jax_maps_enums_by_value():
 
 
 UNSUPPORTED = [
-    ({"estimate_scaling": True}, "item 9"),
     ({"clique_init": "auto"}, "item 10"),
     ({"clique_init": "eager"}, "item 10"),
     ({"clique_init": True}, "item 10"),
@@ -95,9 +94,6 @@ UNSUPPORTED = [
     ({"translation_rescue": True}, "item 14"),
     ({"rotation_estimation_algorithm": tcfg.RotationEstimationAlgorithm.FGR}, "item 11"),
     ({"gnc_rot_method": "eigh"}, "item 17"),
-    ({"init_mode": "sampled"}, "item 9"),
-    ({"init_mode": "exact"}, "item 9"),
-    ({"dense_init_max_c": 1000}, "item 9"),  # C = 1889 leaves the dense window
 ]
 
 
@@ -105,17 +101,47 @@ UNSUPPORTED = [
 def test_unsupported_settings_raise(kw, item):
     p = tcfg.SolverParams.preset_anchor(**kw)
     with pytest.raises(NotImplementedError, match=item):
-        p.check_port_supported(1889)
+        p.check_port_supported()
 
 
-def test_supported_variants_do_not_raise():
-    for p in (
-        tcfg.SolverParams.preset_anchor(),
-        tcfg.SolverParams.preset_anchor(clique_init=False, init_mode="dense"),
-        tcfg.SolverParams.preset_anchor(use_max_clique=False, clique_init="off"),
-        tcfg.SolverParams.preset_anchor(enable_self_update=False, enable_refinement=False),
-    ):
-        p.check_port_supported(1889)
+SUPPORTED = [
+    {},
+    {"clique_init": False, "init_mode": "dense"},
+    {"use_max_clique": False, "clique_init": "off"},
+    {"enable_self_update": False, "enable_refinement": False},
+    # Queue 1 item 9: scale estimation and every init mode at any C.
+    {"estimate_scaling": True},
+    {"init_mode": "sampled"},
+    {"init_mode": "exact"},
+    {"init_mode": "exact_hist", "estimate_scaling": True},
+    {"init_mode": "exact_beta"},
+    {"dense_init_max_c": 1000},  # C = 1889 leaves the dense window
+    {"estimate_scaling": True, "scale_estimator": "vote"},
+]
+
+
+@pytest.mark.parametrize("kw", SUPPORTED)
+def test_supported_variants_do_not_raise(kw):
+    tcfg.SolverParams.preset_anchor(**kw).check_port_supported()
+
+
+@pytest.mark.parametrize("preset", ["preset_3dmatch", "preset_kitti", "preset_whu_tls"])
+def test_estimate_scaling_preset_round_trip(preset):
+    """The unknown-scale presets without the clique stages (bench.py:437-443)
+    convert losslessly and run."""
+    kw = dict(
+        estimate_scaling=True, sampled_cap=2048, basic_cap=256, hypothesis_batch=4,
+        clique_init="off",
+    )
+    jp = getattr(jcfg.SolverParams, preset)(
+        inlier_selection_mode=jcfg.InlierSelectionMode.NONE, **kw
+    )
+    tp = getattr(tcfg.SolverParams, preset)(
+        inlier_selection_mode=tcfg.InlierSelectionMode.NONE, **kw
+    )
+    assert params_from_jax(jp) == tp
+    assert tp.estimate_scaling
+    tp.check_port_supported()
 
 
 def test_port_imports_without_jax():
@@ -123,7 +149,8 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import psulvsb_tpu_torch\n"
         "from psulvsb_tpu_torch import convert, api\n"
-        "from psulvsb_tpu_torch.ops import gnc\n"
+        "from psulvsb_tpu_torch.ops import gnc, hist\n"
+        "from psulvsb_tpu_torch.pairs import tims\n"
         "from psulvsb_tpu_torch.eval import synthetic\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'psulvsb_tpu.'))"
         " or m == 'psulvsb_tpu' for m in sys.modules if sys.modules[m] is not None)\n"

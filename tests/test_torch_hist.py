@@ -1,0 +1,229 @@
+"""The pair-grid kernel module (psulvsb_tpu_torch/ops/hist.py).
+
+On the CPU the port's `pair_ratio_histogram`, `pair_beta_count` and
+`exact_peak_bin` run their plain PyTorch versions. They are held against
+the JAX front doors of psulvsb_tpu/ops/pallas_hist.py, which run the Pallas
+kernels in interpret mode on the CPU (small blocks, t_block=8 and
+c_block=32, keep that fast), and against the XLA direct sweep over all
+pairs (the `_xla_reference` of tests/test_pallas_hist.py).
+
+Tolerances: against the XLA direct sweep, equal counts (both take the
+distances from direct differences in float32). Against the Pallas kernels,
+whose distances come from |a|^2 + |b|^2 - 2ab, at most 2 pairs per call may
+move to a neighbouring bin or across the beta edge, with equal totals for
+clamped windows and the same argmax; exact_peak_bin's peak, count and
+certificate equal. The CUDA cases hold each kernel against its plain version
+on the card and skip here; they need no JAX (`python -m pytest
+tests/test_torch_hist.py -m cuda --noconftest`).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+from psulvsb_tpu_torch.ops import hist
+
+FLIPS = 2
+SMALL_BLOCKS = dict(t_block=8, c_block=32)
+WINDOWS = {
+    "coarse": dict(num_bins=128, stride=16, clamp_overflow=True),
+    "fine": dict(num_bins=48, lo_bin=48, stride=1, clamp_overflow=False),
+    "exact_hist": dict(num_bins=512, stride=1, clamp_overflow=True),
+}
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX reference: jax.numpy and the Pallas front doors (interpret
+    mode on the CPU)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from psulvsb_tpu.ops import pallas_hist
+
+    return types.SimpleNamespace(jnp=jnp, ph=pallas_hist)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _inputs(c, seed, test_scale=3.7, rate=0.85, inactive=0.2):
+    """A mismatch-outlier pair of C points stretched by test_scale (ratio
+    peak at fine bin ~74, inside every window above) and an active mask
+    with a share of points off, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    pair = make_synthetic_pair(
+        rng, synthetic_cloud(c, seed=seed), 0.01, rate, outlier_mode="mismatch",
+        test_scale=test_scale,
+    )
+    return pair.src, pair.dst, rng.uniform(size=c) >= inactive
+
+
+def _xla_direct(jref, src, dst, act, bins_per_unit, lo, stride, num_bins, clamp):
+    """Direct-difference sweep over all i < j pairs in jax.numpy."""
+    jnp = jref.jnp
+    ii, jj = np.triu_indices(src.shape[1], 1)
+    s, d = jnp.asarray(src), jnp.asarray(dst)
+    st = s[:, jj] - s[:, ii]
+    dt = d[:, jj] - d[:, ii]
+    v1 = jnp.sqrt(jnp.sum(st * st, axis=0))
+    v2 = jnp.sqrt(jnp.sum(dt * dt, axis=0))
+    fine = jnp.maximum(jnp.floor(v2 / jnp.where(v1 > 0, v1, 1.0) * bins_per_unit).astype(jnp.int32), 0)
+    idx = (fine - lo) // stride
+    pa = jnp.asarray(act[ii] & act[jj])
+    if not clamp:
+        pa = pa & (idx >= 0) & (idx < num_bins)
+    idx = jnp.clip(idx, 0, num_bins - 1)
+    return np.asarray(jnp.zeros((num_bins,), jnp.int32).at[idx].add(pa.astype(jnp.int32)))
+
+
+def _assert_close_counts(got, want, clamp):
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    assert np.abs(got - want).sum() <= FLIPS, (got, want)
+    if clamp:
+        assert got.sum() == want.sum()
+    assert got.argmax() == want.argmax()
+
+
+@pytest.mark.parametrize("window", list(WINDOWS))
+@pytest.mark.parametrize("c,seed", [(197, 1), (120, 2)])
+def test_histogram_matches_pallas_and_xla(jref, window, c, seed):
+    src, dst, act = _inputs(c, seed)
+    kw = WINDOWS[window]
+    got = hist.pair_ratio_histogram(
+        torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(act), **kw
+    ).numpy()
+    pallas = jref.ph.pair_ratio_histogram(
+        jref.jnp.asarray(src), jref.jnp.asarray(dst), jref.jnp.asarray(act), **kw, **SMALL_BLOCKS
+    )
+    _assert_close_counts(got, np.asarray(pallas), kw["clamp_overflow"])
+    direct = _xla_direct(
+        jref, src, dst, act, 20, kw.get("lo_bin", 0), kw["stride"], kw["num_bins"],
+        kw["clamp_overflow"],
+    )
+    np.testing.assert_array_equal(got, direct)
+    assert got.dtype == np.int64
+
+
+@pytest.mark.parametrize("beta", [0.02, 0.1])
+def test_beta_count_matches_pallas_and_xla(jref, beta):
+    src, dst, act = _inputs(180, 3, test_scale=1.0)
+    got = int(hist.pair_beta_count(
+        torch.as_tensor(src), torch.as_tensor(dst), beta, torch.as_tensor(act)
+    ))
+    jnp = jref.jnp
+    pallas = int(jref.ph.pair_beta_count(
+        jnp.asarray(src), jnp.asarray(dst), beta, jnp.asarray(act), **SMALL_BLOCKS
+    ))
+    assert abs(got - pallas) <= FLIPS, (got, pallas)
+    ii, jj = np.triu_indices(src.shape[1], 1)
+    s, d = jnp.asarray(src), jnp.asarray(dst)
+    st, dt = s[:, jj] - s[:, ii], d[:, jj] - d[:, ii]
+    v1 = jnp.sqrt(jnp.sum(st * st, axis=0))
+    v2 = jnp.sqrt(jnp.sum(dt * dt, axis=0))
+    direct = int(jnp.sum((jnp.abs(v1 - v2) <= beta) & jnp.asarray(act[ii] & act[jj])))
+    assert got == direct
+
+
+@pytest.mark.parametrize(
+    "case", ["clustered", "mismatch_uncertified", "out_of_window_200x"]
+)
+def test_exact_peak_bin_matches_pallas(jref, case):
+    rng = np.random.default_rng(7)
+    if case == "clustered":  # the certified case of tests/test_pallas_hist.py
+        src = rng.normal(size=(3, 160)).astype(np.float32)
+        dst = (src * 1.05 + rng.normal(size=(3, 160)) * 0.01).astype(np.float32)
+        act = np.ones(160, bool)
+    elif case == "mismatch_uncertified":
+        src, dst, act = _inputs(150, 4)
+    else:
+        src = rng.normal(size=(3, 120)).astype(np.float32)
+        dst = (src * 200.0 + rng.normal(size=(3, 120)) * 0.01).astype(np.float32)
+        act = np.ones(120, bool)
+    got = [int(x) for x in hist.exact_peak_bin(
+        torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(act)
+    )]
+    jnp = jref.jnp
+    want = [int(x) for x in jref.ph.exact_peak_bin(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(act)
+    )]
+    assert got == want
+    assert bool(got[2]) == (case == "clustered")
+
+
+def test_reference_and_front_door_agree_on_cpu():
+    src, dst, act = (torch.as_tensor(x) for x in _inputs(90, 5))
+    for kw in WINDOWS.values():
+        assert torch.equal(
+            hist.pair_ratio_histogram(src, dst, act, **kw),
+            hist.pair_ratio_histogram_reference(src, dst, act, **kw),
+        )
+    assert [int(x) for x in hist.exact_peak_bin(src, dst, act)] == [
+        int(x) for x in hist.exact_peak_bin_reference(src, dst, act)
+    ]
+    # A 0-d tensor window start gives the same counts as an int.
+    kw = dict(WINDOWS["fine"], lo_bin=torch.tensor(48))
+    assert torch.equal(
+        hist.pair_ratio_histogram(src, dst, act, **kw),
+        hist.pair_ratio_histogram(src, dst, act, **WINDOWS["fine"]),
+    )
+
+
+def test_inactive_points_never_vote():
+    rng = np.random.default_rng(0)
+    src = torch.as_tensor(rng.normal(size=(3, 100)).astype(np.float32))
+    dst = torch.as_tensor(rng.normal(size=(3, 100)).astype(np.float32))
+    act = torch.arange(100) < 60
+    assert int(hist.pair_ratio_histogram(src, dst, act, num_bins=256).sum()) == 60 * 59 // 2
+    assert int(hist.pair_beta_count(src, dst, 1e9, act)) == 60 * 59 // 2
+    assert int(hist.pair_beta_count(src, dst, 1e9)) == 100 * 99 // 2
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(num_bins=0), dict(num_bins=hist.MAX_BINS + 1), dict(stride=0)]
+)
+def test_bad_windows_raise(kw):
+    x = torch.zeros(3, 8)
+    with pytest.raises(ValueError):
+        hist.pair_ratio_histogram(x, x, **kw)
+
+
+def test_bad_shapes_raise():
+    with pytest.raises(ValueError):
+        hist.pair_beta_count(torch.zeros(3, 8), torch.zeros(3, 9), 0.1)
+    with pytest.raises(ValueError):
+        hist.pair_ratio_histogram(torch.zeros(3, 8), torch.zeros(3, 8), torch.ones(7, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [197, 1889, 5000])
+def test_cuda_kernels_match_plain_versions(cuda_device, c):
+    src, dst, act = (torch.as_tensor(x, device=cuda_device) for x in _inputs(c, c))
+    for kw in WINDOWS.values():
+        before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+        got = hist.pair_ratio_histogram(src, dst, act, **kw)
+        torch.cuda.synchronize()
+        assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+        want = hist.pair_ratio_histogram_reference(src, dst, act, **kw)
+        _assert_close_counts(got.cpu().numpy(), want.cpu().numpy(), kw["clamp_overflow"])
+    for beta in (0.02, 0.1):
+        before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+        got = int(hist.pair_beta_count(src, dst / 3.7, beta, act))
+        assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
+        assert abs(got - int(hist.pair_beta_count_reference(src, dst / 3.7, beta, act))) <= FLIPS
+    k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
+    p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
+    assert k == p
+
+
+@pytest.mark.cuda
+def test_cuda_small_inputs(cuda_device):
+    for c in (0, 1):
+        x = torch.zeros(3, c, device=cuda_device)
+        assert int(hist.pair_ratio_histogram(x, x, num_bins=8).sum()) == 0
+        assert int(hist.pair_beta_count(x, x, 0.1)) == 0

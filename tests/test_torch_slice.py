@@ -1,11 +1,18 @@
-"""The port's whole known-scale slice against the JAX solver.
+"""The port's whole slice against the JAX solver.
 
-Six numpy-generated pairs (about 300 correspondences, 90% displaced
-outliers, small caps) are solved by JAX `psulvsb_solve` and by the port's
-`RobustRegistrationSolver.solve`. The random streams of the two packages
-differ, so the comparison is distributional: the port's recall (RE < 5°
-and TE < 0.3, the synthetic protocol's success criteria) must be at least
-JAX's recall minus one pair in six."""
+Known scale: six numpy-generated pairs (about 300 correspondences, 90%
+displaced outliers, small caps) are solved by JAX `psulvsb_solve` and by
+the port's `RobustRegistrationSolver.solve`. The random streams of the two
+packages differ, so the comparison is distributional: the port's recall
+(RE < 5° and TE < 0.3, the synthetic protocol's success criteria) must be
+at least JAX's recall minus one pair in six.
+
+Estimated scale: ten pairs of the unknownScale protocol (mismatch outliers,
+the target stretched by a test scale drawn in [1, 5)) through the 3DMatch
+preset with scale estimation; success also needs scale error <= 0.1. The
+port's recall must be at least JAX's minus one pair in ten, and its median
+and 90% quantiles of RE, TE and scale error at most twice JAX's plus a
+floor (0.5°, 0.01, 0.01) that absorbs the spread of near-zero errors."""
 
 import warnings
 
@@ -19,7 +26,11 @@ from psulvsb_tpu.solver.psulvsb import psulvsb_solve as jax_psulvsb_solve
 from psulvsb_tpu_torch import RobustRegistrationSolver, psulvsb_solve, register_pair
 from psulvsb_tpu_torch.convert import params_from_jax
 from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
-from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+from psulvsb_tpu_torch.eval.synthetic import (
+    make_synthetic_pair,
+    registration_errors,
+    synthetic_cloud,
+)
 
 C = 300
 N_PAIRS = 6
@@ -108,3 +119,55 @@ def test_correspondence_overload_and_keep_mask():
     )
     assert set(info3["stage_s"]) >= {"init", "sample", "local", "host"}
     assert torch.equal(sol3.rotation, sol2.rotation)
+
+
+N_SCALED = 10
+JPARAMS_SCALED = JParams.preset_3dmatch(
+    estimate_scaling=True, sampled_cap=512, basic_cap=128, hypothesis_batch=4,
+    clique_init="off", inlier_selection_mode=InlierSelectionMode.NONE,
+)
+FLOORS = (0.5, 0.01, 0.01)  # RE (deg), TE, scale error
+
+
+def _scaled_pair(k):
+    rng = np.random.default_rng(60 + k)
+    test_scale = 1.0 + 4.0 * rng.uniform()
+    return make_synthetic_pair(
+        rng, synthetic_cloud(C, seed=70 + k), 0.01, 0.8, outlier_mode="mismatch",
+        test_scale=test_scale,
+    )
+
+
+def test_estimated_scale_recall_and_quantiles_match_jax():
+    params = params_from_jax(JPARAMS_SCALED)
+    keep = jax.numpy.ones((C,), jax.numpy.int32)
+    errs = {"jax": [], "port": []}
+    for k in range(N_SCALED):
+        pair = _scaled_pair(k)
+        sol_j, _ = jax_psulvsb_solve(
+            jax.numpy.asarray(pair.src), jax.numpy.asarray(pair.dst), keep, JPARAMS_SCALED,
+            jax.random.PRNGKey(k),
+        )
+        errs["jax"].append(
+            (bool(sol_j.valid),) + registration_errors(
+                pair, np.asarray(sol_j.scale), np.asarray(sol_j.rotation),
+                np.asarray(sol_j.translation),
+            )
+        )
+        sol_t = RobustRegistrationSolver(params, seed=k).solve(pair.src, pair.dst)
+        assert torch.isfinite(sol_t.scale) and torch.isfinite(sol_t.translation).all()
+        errs["port"].append(
+            (bool(sol_t.valid),) + registration_errors(
+                pair, sol_t.scale, sol_t.rotation, sol_t.translation
+            )
+        )
+    ok = {
+        name: [v and re < 5.0 and te < 0.3 and se <= 0.1 for v, re, te, se in e]
+        for name, e in errs.items()
+    }
+    assert sum(ok["port"]) >= sum(ok["jax"]) - 1, errs
+    for col, floor in zip(range(1, 4), FLOORS):
+        for q in (0.5, 0.9):
+            port_q = np.quantile([e[col] for e in errs["port"]], q)
+            jax_q = np.quantile([e[col] for e in errs["jax"]], q)
+            assert port_q <= 2.0 * jax_q + floor, (col, q, port_q, jax_q)

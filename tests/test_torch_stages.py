@@ -2,15 +2,18 @@
 state and with the JAX stage's own random draws.
 
 A JAX chain (init -> sample -> local -> host -> self-update, three rounds,
-then finalize) runs once per configuration on a small pair; every port
-stage then gets the JAX stage's inputs through `convert.py` and the draws
-the JAX stage made from its key (hash constants, Gumbel keys, uniforms).
+then finalize) runs once per configuration on a small pair, at known scale
+(the artificial preset, displaced outliers) or at estimated scale (the
+3DMatch preset, mismatch outliers, the target stretched by 2.7); every
+port stage then gets the JAX stage's inputs through `convert.py` and the
+draws the JAX stage made from its key (hash constants, pair draws, Gumbel
+keys, the scale consensus's uniforms, uniforms).
 
 Tolerances: `red_count` within 0.1% and reduced pools as sets with Jaccard
 >= 0.999 (the distance matrices come from float32 matmuls summed in another
 order, so a pair at the window's edge may flip); the sample stage and the
 self-update exactly; the local stage equal counts and flags with the
-rotation within 1e-4; the host stage equal masks and counts with pro_host
+rotation within 1e-4 and the scale within 1e-5 relative; the host stage equal masks and counts with pro_host
 within 1e-6; the finalize stage within 1e-4.
 """
 
@@ -41,42 +44,50 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _local_gumbels(key, max_batches, batch, cap):
-    """The Gumbel keys JAX's _local_stage draws to pick each hypothesis'
-    basic set, batch by batch."""
-    out = []
+def _local_draws(key, max_batches, batch, cap, draws):
+    """The draws JAX's _local_stage makes batch by batch: the Gumbel keys
+    that pick each hypothesis' basic set and the uniforms of its 1-point
+    scale consensus (jax.random.choice's, from the hypothesis' scale key)."""
+    gumbels, uniforms = [], []
     for _ in range(max_batches):
         key, sub = jax.random.split(key)
-        hkeys = jax.random.split(sub, batch)
-        out.append(
-            [jax.random.gumbel(jax.random.split(hk)[0], (cap,), F32) for hk in hkeys]
-        )
-    return np.asarray(out)
+        ks = [jax.random.split(hk) for hk in jax.random.split(sub, batch)]
+        gumbels.append([jax.random.gumbel(k[0], (cap,), F32) for k in ks])
+        uniforms.append([jax.random.uniform(k[1], (draws,), F32) for k in ks])
+    return np.asarray(gumbels), np.asarray(uniforms)
 
 
-def _params(basic_cap=64, pool_cap=16384):
-    return JParams.preset_artificial(
+def _params(basic_cap=64, pool_cap=16384, scaled=False):
+    kw = dict(
         sampled_cap=512, basic_cap=basic_cap, hypothesis_batch=4, pool_cap=pool_cap,
         clique_init="off", inlier_selection_mode=InlierSelectionMode.NONE,
     )
+    if scaled:
+        return JParams.preset_3dmatch(estimate_scaling=True, **kw)
+    return JParams.preset_artificial(**kw)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_chain(basic_cap=64, pool_cap=16384):
+def _jax_chain(basic_cap=64, pool_cap=16384, scaled=False):
     """Run the JAX stages for three host rounds and keep every input, output
     and draw."""
-    params = _params(basic_cap, pool_cap)
+    params = _params(basic_cap, pool_cap, scaled)
     src = synthetic_cloud(C, seed=3)
-    pair = make_synthetic_pair(np.random.default_rng(5), src, 0.05, 0.9)
+    if scaled:
+        pair = make_synthetic_pair(
+            np.random.default_rng(5), src, 0.01, 0.7, outlier_mode="mismatch", test_scale=2.7
+        )
+    else:
+        pair = make_synthetic_pair(np.random.default_rng(5), src, 0.05, 0.9)
     keep = np.ones(C, np.int32)
     keep[np.random.default_rng(6).permutation(C)[: C // 5]] = 0  # re-admittable
     sj, dj, kj = jnp.asarray(pair.src), jnp.asarray(pair.dst), jnp.asarray(keep)
     out = {"params": params, "src": pair.src, "dst": pair.dst, "keep": keep}
 
     k_init = jax.random.PRNGKey(11)
-    out["ab"] = np.asarray(
-        jax.random.randint(jax.random.split(k_init)[1], (2,), 1, jnp.iinfo(jnp.int32).max)
-    )
+    k_peak, k_hash = jax.random.split(k_init)
+    out["ab"] = np.asarray(jax.random.randint(k_hash, (2,), 1, jnp.iinfo(jnp.int32).max))
+    out["peak_pairs"] = _np_tree(jps._draw_pairs(k_peak, params.init_peak_sample, C))
     red = jps._init_stage(sj, dj, kj, params, k_init)
     out["init"] = _np_tree(red)
     red_i, red_j, red_count, pool = red
@@ -101,8 +112,8 @@ def _jax_chain(basic_cap=64, pool_cap=16384):
         rec["sample"] = _np_tree(samp)
         s_i, s_j, s_ok, s_count, s_pts = samp
         b_one = b_rate >= 1.0
-        rec["gumbels"] = _local_gumbels(
-            k_local, max_batches, params.hypothesis_batch, s_i.shape[0]
+        rec["gumbels"], rec["scale_us"] = _local_draws(
+            k_local, max_batches, params.hypothesis_batch, s_i.shape[0], params.scale_max_draws
         )
         local = jps._local_stage(
             sj, dj, s_i, s_j, s_ok, s_count, s_pts, jnp.asarray(b_rate, F32),
@@ -163,10 +174,7 @@ def test_sample_stage(round_idx):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("basic_cap", [64, 256])  # endpoint and full-C translation
-@pytest.mark.parametrize("round_idx", [0, 1, 2])  # cold; warm over 2 batches; b_rate = 1
-def test_local_stage(basic_cap, round_idx):
-    ch = _jax_chain(basic_cap=basic_cap)
+def _check_local_stage(ch, round_idx):
     rec = ch["rounds"][round_idx]
     s_i, s_j, s_ok, s_count, s_pts = rec["sample"]
     hs_in = host_state_from_numpy(rec["hs_in"], "cpu")
@@ -175,6 +183,7 @@ def test_local_stage(basic_cap, round_idx):
         _t(s_ok), _t(s_count, torch.int64), _t(s_pts), rec["b_rate"],
         rec["b_rate"] >= 1.0, hs_in.host_r, warm_state_from_numpy(rec["warm_in"]),
         _t(ch["thr"]), params_from_jax(ch["params"]), gumbels=_t(rec["gumbels"]),
+        scale_us=_t(rec["scale_us"]),
     )
     want = rec["local"]
     assert int(got.best_count) == int(want.best_count)
@@ -185,11 +194,75 @@ def test_local_stage(basic_cap, round_idx):
     np.testing.assert_allclose(got.best.rotation.numpy(), want.best.rotation, atol=1e-4)
     np.testing.assert_allclose(got.best.translation.numpy(), want.best.translation, atol=1e-4)
     assert abs(float(got.pro_local) - float(want.pro_local)) <= 1e-6
+    np.testing.assert_allclose(float(got.best.scale), float(want.best.scale), rtol=1e-5)
     if bool(want.extras_valid):
         np.testing.assert_array_equal(got.extras.b_i.numpy(), want.extras.b_i)
         np.testing.assert_array_equal(
+            got.extras.scale_inliers.numpy(), want.extras.scale_inliers
+        )
+        np.testing.assert_array_equal(
             got.extras.translation_points.numpy(), want.extras.translation_points
         )
+
+
+@pytest.mark.parametrize("basic_cap", [64, 256])  # endpoint and full-C translation
+@pytest.mark.parametrize("round_idx", [0, 1, 2])  # cold; warm over 2 batches; b_rate = 1
+def test_local_stage(basic_cap, round_idx):
+    _check_local_stage(_jax_chain(basic_cap=basic_cap), round_idx)
+
+
+@pytest.mark.parametrize("basic_cap", [64, 256])
+@pytest.mark.parametrize("round_idx", [0, 1, 2])
+def test_local_stage_estimated_scale(basic_cap, round_idx):
+    """The scale branch: 1-point consensus per hypothesis with the warm
+    scale after the first scoring, rotation on the scale inliers, the
+    de-scaled TIMs and widened noise bound into the GNC kernel."""
+    ch = _jax_chain(basic_cap=basic_cap, scaled=True)
+    _check_local_stage(ch, round_idx)
+    assert abs(float(ch["rounds"][round_idx]["local"].best.scale) - 2.7) < 0.05
+
+
+def test_init_stage_dense_estimated_scale():
+    """The dense init's scale branch: the peak from exact_peak_bin, or the
+    subsample peak over JAX's pair draws (the JAX stage on the CPU takes
+    the subsample peak)."""
+    ch = _jax_chain(scaled=True)
+    red_i, red_j, red_count, pool = tps._init_stage_dense(
+        _t(ch["src"]), _t(ch["dst"]), _t(ch["keep"]), params_from_jax(ch["params"]),
+        ab=_t(ch["ab"]), peak_pairs=tuple(_t(x, torch.int64) for x in ch["peak_pairs"]),
+    )
+    j_i, j_j, j_count, j_pool = ch["init"]
+    assert abs(int(red_count) - int(j_count)) <= 2
+    a, b = _pairs(red_i, red_j, pool), _pairs(j_i, j_j, j_pool)
+    assert len(a ^ b) <= 2
+    assert all(i < j for i, j in a)
+
+
+@pytest.mark.parametrize("round_idx", [0, 2])
+def test_host_and_finalize_carry_the_scale(round_idx):
+    """The host stage scores s (R p + t) with the sampled best's scale and
+    the finalize stage refits in that model, as the JAX stages do."""
+    ch = _jax_chain(scaled=True)
+    rec = ch["rounds"][round_idx]
+    best = warm_state_from_numpy(rec["local"].best)
+    hs, new_corr, take = tps._host_stage(
+        _t(ch["src"]), _t(ch["dst"]), host_state_from_numpy(rec["hs_in"], "cpu"), best,
+        _t(rec["local"].local_r, torch.int64), rec["b_rate"] >= 1.0, _t(ch["thr"]),
+        params_from_jax(ch["params"]), u=_t(rec["u"]),
+    )
+    w_hs, w_new, w_take = rec["host"]
+    np.testing.assert_array_equal(new_corr.numpy(), w_new)
+    assert bool(take) == bool(w_take)
+    assert int(hs.best_count) == int(w_hs.best_count)
+    np.testing.assert_allclose(float(hs.best.scale), float(w_hs.best.scale), rtol=1e-6)
+    rot, trans, better = tps._finalize_stage(
+        _t(ch["src"]), _t(ch["dst"]), host_state_from_numpy(ch["hs_final"], "cpu"),
+        warm_state_from_numpy(ch["rounds"][-1]["local"].best), params_from_jax(ch["params"]),
+    )
+    w_rot, w_trans, w_better = ch["finalize"]
+    assert bool(better) == bool(w_better)
+    np.testing.assert_allclose(rot.numpy(), w_rot, atol=1e-4)
+    np.testing.assert_allclose(trans.numpy(), w_trans, atol=1e-4)
 
 
 @pytest.mark.parametrize("round_idx", [0, 1, 2])
