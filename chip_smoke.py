@@ -7,9 +7,10 @@ and prints no result line):
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA device
    is a failure;
-2. build — compile the three kernels (csrc/gnc_batch.cu,
-   csrc/pair_ratio_hist.cu, csrc/pair_beta_count.cu) with nvcc, one process
-   each, all started together, and print ptxas's register lines;
+2. build — compile the four kernels (csrc/gnc_batch.cu,
+   csrc/pair_ratio_hist.cu, csrc/pair_beta_count.cu,
+   csrc/consistency_degree.cu) with nvcc, one process each, all started
+   together, and print ptxas's register lines;
 3. kernel vs plain — ops.gnc.gnc_batch (the kernel) against
    gnc_batch_reference (plain PyTorch) on the card, at (B, N) = (4, 256),
    (16, 1024), (4, 2048), (3, 197), with 30% gross outliers, half the
@@ -45,8 +46,37 @@ and prints no result line):
    launch the beta-count kernel, and one unknown-scale solve (the protocol
    of phase 6) routed to "exact_hist", which must launch the histogram
    kernel, each gated like its protocol;
-8. result — the card line, a JSON line of per-kernel figures, and the
-   final JSON line {"ok": true, "device": {...}}.
+8. consistency degree vs plain — ops.pairs.consistency_degree (the kernel)
+   against consistency_degree_reference on the card at C = 197, 1250, 1889,
+   5000, 8192 with about 20% of the points inactive, tau = 0.1 and 0.2:
+   degrees must be equal (2 flipped pairs per call would be allowed and
+   printed; none is expected). C = 0 raises; an all-inactive input gives
+   zeros. Medians of 20 timed runs (CUDA events) at C = 1889 and 8192;
+9. slice, artificial GROR preset — the anchor pair through
+   RobustRegistrationSolver(SolverParams.preset_artificial_gror(caps
+   (2048, 256, 4))) at its own defaults (clique "auto", PMC_EXACT on the
+   greedy, K 800, resolution 0.05): one warm-up and 5 timed solves, each
+   valid with RE < 5 deg, TE < 0.3 and GROR's seed adopted; the degree
+   kernel launched once a solve and the GNC kernel launched; one profiled
+   solve with its "gror" stage;
+10. slice, front-end preset — the two committed real-correspondence pairs
+   of tests/data/frontend_aliasing/ through eval.frontend_protocol.
+   frontend_solver_params(caps (2048, 256, 4)), 5 seeds each:
+   pair_seed1375 must pass the KITTI gates (RE < 5 deg, TE < 0.6) on every
+   seed, pair_seed10300 is printed; the degree, histogram and GNC kernels
+   must each have launched;
+11. clique stages — (a) one preset_artificial_gror(clique_init="eager")
+   solve of the anchor pair, which must adopt the clique seed and pass the
+   anchor's gates; (b) the anchor protocol at 99% displaced outliers with
+   the bench anchor's own program (preset_artificial at the caps, clique
+   "auto", PMC_EXACT) over 12 seeds, across which the lazy seed must have
+   been adopted and a b_rate == 1.0 clique round must have run; recall is
+   printed beside the JAX package's CPU recall on the same pair; (c) the
+   peak device memory of the clique round's batched triangle products at
+   C = 8192 (printed);
+12. result — the card line, a JSON line of per-kernel figures (time,
+   plain time, bound, launches on its path), and the final JSON line
+   {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a phase drives a solve path and
 read just after it; launches made to compare a kernel with its plain
@@ -61,6 +91,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -72,7 +103,47 @@ TIMED_SHAPES = [(4, 256), (16, 1024)]
 LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
 ANCHOR_C = 1889
 N_TIMED_SOLVES = 5
-KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count")
+KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree")
+CAPS = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)  # bench.py:95
+DEGREE_SIZES = [197, 1250, 1889, 5000, 8192]
+DEGREE_TIMED_SIZES = [1889, 8192]
+GROR_TAUS = (0.1, 0.2)  # 2 gror_resolution: the artificial preset, the default
+FRONTEND_DIR = Path(__file__).resolve().parent / "tests" / "data" / "frontend_aliasing"
+FRONTEND_TAGS = ("pair_seed1375", "pair_seed10300")
+FRONTEND_GATED = "pair_seed1375"
+# RE, TE, scale error: the protocols' success criteria (bench.py:423-426),
+# and the KITTI gates (teaser_cpp_ply_main.cc:714; a real pair's scale is
+# not scored).
+LIMITS = (5.0, 0.3, 0.1)
+KITTI_LIMITS = (5.0, 0.6, 0.1)
+HOSTILE_RATE = 0.99
+HOSTILE_DATA_SEED = 5
+# About a third of the solve seeds reach a b_rate == 1.0 round; twelve keep
+# the gate off the edge of any one random stream.
+HOSTILE_SOLVE_SEEDS = tuple(range(12))
+# The JAX package's recall on the hostile pair on the CPU, one key per solve
+# seed (tools/port_jax_reference.py; the JAX random stream differs from the
+# port's, so the two are compared as recalls).
+JAX_CPU_HOSTILE_RECALL = "12/12"
+CLIQUE_MEMORY_C = 8192
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
+# outside the tensor cores, and HBM bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# Floating-point operations per unit of work, counted from each kernel's
+# expression: a pair distance is 3 subtractions, 3 products, 2 sums and a
+# square root (9); the window tests add a few more. Each function is
+# symmetric, so its bound counts each pair i < j once.
+OPS_PER_PAIR = {
+    "pair_ratio_hist": 2 * 9 + 5,  # two distances, ratio, scale, floor, offset, divide
+    "pair_beta_count": 2 * 9 + 3,  # two distances, difference, |.|, compare
+    "consistency_degree": 2 * 9 + 3 + 2,  # as beta, plus one to each endpoint's degree
+}
+# GNC per active column and iteration: weighted correlation (3 + 18),
+# residual R x - y and its square (15 + 3 + 5), TLS weight update (6),
+# cost (2); plus 5 squarings of the 4x4 Davenport matrix per iteration.
+GNC_OPS_PER_COLUMN = 52
+GNC_OPS_PER_ITERATION = 5 * 2 * 64
 HIST_SIZES = [197, 1889, 5000, 12000]
 HIST_TIMED_SIZES = [5000, 16384]
 BETAS = {"3dmatch": 0.02, "artificial": 0.1}  # 2 noise_bound sqrt(cbar2)
@@ -106,6 +177,23 @@ def gnc_problem(rng, b, n, device):
     act = rng.uniform(size=(b, n)) < 0.5
     t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     return t(src), t(dst), t(act), torch.full((b,), 0.1, device=device), t(rots[0])
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the float32 peak; and which bounds."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pair_grid_bound(name: str, act: torch.Tensor, out_bytes: int):
+    """bound_ms of a pair-grid function over the active points of `act`:
+    each point (two float32 triples and a mask byte) read once, the output
+    written once, OPS_PER_PAIR[name] operations per active pair i < j."""
+    n = int(act.sum())
+    c = act.shape[0]
+    return bound_ms(c * 25 + out_bytes, n * (n - 1) // 2 * OPS_PER_PAIR[name])
 
 
 def median_ms(fn, reps=20, warmup=3) -> float:
@@ -164,92 +252,190 @@ def phase_kernel_vs_plain(device) -> dict:
         raise AssertionError("N = 0 must raise ValueError")
     print("[kernel] all-inactive hypothesis -> identity, no inliers; N=0 raises")
 
+    from psulvsb_tpu_torch.rotation.gnc import floor_noise_sq, gnc_tls_batched
+
     times = {}
     for b, n in TIMED_SHAPES:
         src, dst, act, nb, warm = gnc_problem(rng, b, n, device)
         args = (src, dst, act, nb, warm, False)
         ms = median_ms(lambda: gnc.gnc_batch(*args, **LOOP))
         plain = median_ms(lambda: gnc.gnc_batch_reference(*args, **LOOP))
-        times[(b, n)] = (ms, plain)
+        # The bound counts the iterations these inputs run (the plain loop's
+        # count) over each hypothesis' active columns.
+        _, _, _, iters = gnc_tls_batched(
+            src, dst, act, floor_noise_sq(nb), warm, False, rot_method="power", **LOOP
+        )
+        ops = float((iters * (act.sum(1) * GNC_OPS_PER_COLUMN + GNC_OPS_PER_ITERATION)).sum())
+        # Bytes: the float32 TIM triples, the bool mask in and inliers out,
+        # a noise bound and a rotation per hypothesis, the warm start.
+        bound = bound_ms(b * n * (4 * 3 + 4 * 3 + 1 + 1) + b * (4 + 36) + 36, ops)
+        times[(b, n)] = (ms, plain, bound)
         print(f"[kernel] B={b} N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-              "(median of 20, CUDA events)")
+              f"(median of 20, CUDA events); iterations {iters.tolist()}, bound "
+              f"{bound[0]:.6f} ms by {bound[1]}")
     return {"max_abs_err": max_err, "times": times}
 
 
-def phase_slice(device, card: str) -> dict:
-    from psulvsb_tpu_torch import RobustRegistrationSolver, SolverParams, psulvsb_solve
-    from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
+def anchor_case(c=ANCHOR_C, rate=0.9, data_seed=1, cloud_seed=0):
+    """The bench anchor protocol (noise 0.05, displaced outliers) at C
+    points: (src, dst, truth), truth = (rotation, translation, test scale)."""
     from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
-    from psulvsb_tpu_torch.ops import gnc
 
-    params = SolverParams.preset_anchor()
     pair = make_synthetic_pair(
-        np.random.default_rng(1), synthetic_cloud(ANCHOR_C, seed=0), 0.05, 0.9
+        np.random.default_rng(data_seed), synthetic_cloud(c, seed=cloud_seed), 0.05, rate
     )
-    src = torch.as_tensor(pair.src, device=device)
-    dst = torch.as_tensor(pair.dst, device=device)
+    t = pair.transform
+    return pair.src, pair.dst, (t.rotation, t.translation, float(t.scale))
 
-    def solve(seed):
-        solver = RobustRegistrationSolver(params, seed=seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sol = solver.solve(src, dst)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rot = sol.rotation.cpu().numpy()
-        trans = sol.translation.cpu().numpy()
-        if sol.rotation.device != device:
-            raise AssertionError(f"the solve ran on {sol.rotation.device}, not {device}")
-        if not (np.isfinite(rot).all() and np.isfinite(trans).all()):
-            raise AssertionError("non-finite solution")
-        re = angular_error_deg_np(pair.transform.rotation, rot)
-        te = float(np.linalg.norm(trans - pair.transform.translation))
-        valid = bool(sol.valid)
-        info = solver._info
-        print(f"[slice] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} "
-              f"inliers={int(sol.final_inlier_count)} rounds={info['rounds']} "
-              f"batches={info['total_local_batches']} host_syncs={info['host_syncs']} "
-              f"wall={wall * 1e3:.2f} ms")
-        if not (valid and re < 5.0 and te < 0.3):
-            raise AssertionError(f"anchor solve failed: valid={valid} RE={re} TE={te}")
-        return wall, info["host_syncs"]
 
+def unknown_scale_case(c, seed):
+    """The 3DMatch unknownScale protocol: noise 0.01, 85% mismatch
+    outliers, dst stretched by a test scale drawn in [1, 5) from the seed."""
+    from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+
+    rng = np.random.default_rng(seed)
+    test_scale = 1.0 + 4.0 * rng.uniform()
+    pair = make_synthetic_pair(
+        rng, synthetic_cloud(c, seed=seed), 0.01, UNKNOWN_RATE, outlier_mode="mismatch",
+        test_scale=test_scale,
+    )
+    t = pair.transform
+    return pair.src, pair.dst, (t.rotation, t.translation, float(t.scale))
+
+
+def unknown_scale_params():
+    from psulvsb_tpu_torch import InlierSelectionMode, SolverParams
+
+    return SolverParams.preset_3dmatch(
+        estimate_scaling=True, clique_init="off", inlier_selection_mode=InlierSelectionMode.NONE,
+        **CAPS,
+    )
+
+
+def frontend_case(tag):
+    """A committed real-correspondence pair: (src, dst, truth), the test
+    scale None (the translation is compared as it comes)."""
+    corr = np.loadtxt(FRONTEND_DIR / f"{tag}_corr.txt").astype(np.float32)
+    gt = np.loadtxt(FRONTEND_DIR / f"{tag}_gt.txt")
+    return corr[:, :3].T.copy(), corr[:, 3:].T.copy(), (gt[:3, :3], gt[:3, 3], None)
+
+
+def path_case(name):
+    """(params, case) of a solve path that chip_smoke times:
+    anchor, unknown, gror or frontend."""
+    from psulvsb_tpu_torch import SolverParams
+    from psulvsb_tpu_torch.eval.frontend_protocol import frontend_solver_params
+
+    if name == "anchor":
+        return SolverParams.preset_anchor(), anchor_case()
+    if name == "unknown":
+        return unknown_scale_params(), unknown_scale_case(UNKNOWN_C, 5)
+    if name == "gror":
+        return SolverParams.preset_artificial_gror(**CAPS), anchor_case()
+    if name == "frontend":
+        return frontend_solver_params(**CAPS), frontend_case(FRONTEND_GATED)
+    raise ValueError(f"unknown path {name!r}")
+
+
+def run_solve(tag, params, case, seed, device, route=None, limits=LIMITS, gate=True):
+    """One solve of case = (src, dst, truth) through RobustRegistrationSolver
+    on the card, scored as the batch harness scores it. Non-finite output,
+    or an init route other than `route`, raises; with `gate`, so does a
+    solve that is not valid or misses a limit of (RE, TE, scale error).
+    Returns (wall seconds, info, success)."""
+    from psulvsb_tpu_torch import RobustRegistrationSolver
+    from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
+
+    src, dst, (rot_true, t_true, test_scale) = case
+    src = torch.as_tensor(src, device=device)
+    dst = torch.as_tensor(dst, device=device)
+    solver = RobustRegistrationSolver(params, seed=seed, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solver.solve(src, dst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sol.rotation.device != device:
+        raise AssertionError(f"the solve ran on {sol.rotation.device}, not {device}")
+    rot = sol.rotation.cpu().numpy().astype(np.float64)
+    trans = sol.translation.cpu().numpy().astype(np.float64)
+    scale = float(sol.scale)
+    if not (np.isfinite(rot).all() and np.isfinite(trans).all() and np.isfinite(scale)):
+        raise AssertionError(f"{tag}: non-finite solution")
+    re = angular_error_deg_np(rot_true, rot)
+    if test_scale is None:  # a real pair: its scale is not scored
+        te, se = float(np.linalg.norm(trans - t_true)), float("nan")
+    else:  # psulvsb_tpu/eval/batch_harness.py:386-402
+        te = float(np.linalg.norm(trans * scale / test_scale - t_true))
+        se = abs(scale - test_scale)
+    valid = bool(sol.valid)
+    info = solver._info
+    ok = valid and re < limits[0] and te < limits[1] and (test_scale is None or se <= limits[2])
+    print(f"[{tag}] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} scale={scale:.4f} "
+          f"(error {se:.5f}) init={info['init_mode']} gror={info['gror_init']} "
+          f"clique_seeded={info['clique_seeded']} clique_rounds={info['clique_rounds']} "
+          f"rescued={bool(info['translation_rescued'])} rounds={info['rounds']} "
+          f"batches={info['total_local_batches']} host_syncs={info['host_syncs']} "
+          f"wall={wall * 1e3:.2f} ms")
+    if route is not None and info["init_mode"] != route:
+        raise AssertionError(f"{tag}: init took {info['init_mode']!r}, expected {route!r}")
+    if gate and not ok:
+        raise AssertionError(f"{tag} solve failed: valid={valid} RE={re} TE={te} scale error={se}")
+    return wall, info, ok
+
+
+def drive_path(name, device, card, route=None):
+    """One warm-up and N_TIMED_SOLVES gated solves of path_case(name), the
+    launch counts set to 0 just before and read just after; then one
+    profiled solve's per-stage wall times (a device sync after each stage).
+    Returns (the solves' infos, launches)."""
+    from psulvsb_tpu_torch import psulvsb_solve
+
+    params, case = path_case(name)
     reset_launches()
-    solve(0)  # warm-up
-    runs = [solve(100 + i) for i in range(N_TIMED_SOLVES)]
-    launches = gnc.KERNEL_LAUNCHES
-    if launches <= 0:
-        raise AssertionError("the anchor solves never launched the GNC kernel")
-    walls = [w for w, _ in runs]
-    syncs = [s for _, s in runs]
-    print(f"[slice] C={ANCHOR_C}: median wall {statistics.median(walls) * 1e3:.2f} ms "
-          f"over {N_TIMED_SOLVES} solves (min {min(walls) * 1e3:.2f}, max "
-          f"{max(walls) * 1e3:.2f}); host syncs per solve {syncs}; kernel launches "
-          f"{launches} over {N_TIMED_SOLVES + 1} solves; card: {card}")
-
-    # Per-stage wall time of one solve, with a device sync after each stage.
+    runs = [run_solve(name, params, case, seed, device, route)
+            for seed in [0] + [100 + i for i in range(N_TIMED_SOLVES)]]
+    launches = read_launches()
+    walls = [w for w, _, _ in runs[1:]]
+    c = case[0].shape[1]
+    print(f"[{name}] C={c}: median wall {statistics.median(walls) * 1e3:.2f} ms over "
+          f"{N_TIMED_SOLVES} solves (min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}); "
+          f"host syncs per solve {[i['host_syncs'] for _, i, _ in runs[1:]]}; launches over "
+          f"{N_TIMED_SOLVES + 1} solves {launches}; card: {card}")
     _, info = psulvsb_solve(
-        src, dst, torch.ones(ANCHOR_C, dtype=torch.int64, device=device), params,
+        torch.as_tensor(case[0], device=device), torch.as_tensor(case[1], device=device),
+        torch.ones(c, dtype=torch.int64, device=device), params,
         torch.Generator(device=device).manual_seed(7), profile=True,
     )
     stages = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in info["stage_s"].items())
-    print(f"[slice] profiled solve stages: {stages}")
-    return {"launches": launches}
+    print(f"[{name}] profiled solve stages: {stages}")
+    return [i for _, i, _ in runs], launches
+
+
+def phase_slice(device, card: str) -> dict:
+    _, launches = drive_path("anchor", device, card)
+    if launches["gnc_batch"] <= 0:
+        raise AssertionError("the anchor solves never launched the GNC kernel")
+    return {"launches": launches["gnc_batch"]}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from psulvsb_tpu_torch.ops import gnc, hist
+    from psulvsb_tpu_torch.ops import gnc, hist, pairs
 
     gnc.KERNEL_LAUNCHES = 0
+    pairs.KERNEL_LAUNCHES = 0
     for name in hist.KERNEL_LAUNCHES:
         hist.KERNEL_LAUNCHES[name] = 0
 
 
 def read_launches() -> dict:
-    from psulvsb_tpu_torch.ops import gnc, hist
+    from psulvsb_tpu_torch.ops import gnc, hist, pairs
 
-    return {"gnc_batch": gnc.KERNEL_LAUNCHES, **hist.KERNEL_LAUNCHES}
+    return {
+        "gnc_batch": gnc.KERNEL_LAUNCHES, **hist.KERNEL_LAUNCHES,
+        "consistency_degree": pairs.KERNEL_LAUNCHES,
+    }
 
 
 def hist_inputs(c, seed, device, test_scale):
@@ -339,120 +525,187 @@ def phase_pair_kernels(device) -> dict:
                 lambda: hist.pair_beta_count_reference(src, dst, 0.1, act),
             ),
         }
+        bounds = {
+            "hist coarse 128/16": pair_grid_bound("pair_ratio_hist", act, 128 * 8),
+            "hist exact_hist 512": pair_grid_bound("pair_ratio_hist", act, 512 * 8),
+            "beta 0.1": pair_grid_bound("pair_beta_count", act, 8),
+        }
         for label, (kern, plain) in cases.items():
             ms = median_ms(kern)
             plain_ms = median_ms(plain)
-            times[(label, c)] = (ms, plain_ms)
+            times[(label, c)] = (ms, plain_ms, bounds[label])
             print(f"[pairs] C={c} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  "(median of 20, CUDA events)")
+                  f"(median of 20, CUDA events); bound {bounds[label][0]:.6f} ms by "
+                  f"{bounds[label][1]}")
     return {"max_diff": worst, "times": times}
 
 
-def run_solve(tag, params, pair, seed, device, route):
-    """One solve through RobustRegistrationSolver on the card, gated by the
-    protocol's success criteria (valid, RE < 5 deg, TE < 0.3, scale error
-    <= 0.1) and by the init route it must take."""
-    from psulvsb_tpu_torch import RobustRegistrationSolver
-    from psulvsb_tpu_torch.eval.synthetic import registration_errors
-
-    src = torch.as_tensor(pair.src, device=device)
-    dst = torch.as_tensor(pair.dst, device=device)
-    solver = RobustRegistrationSolver(params, seed=seed)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sol = solver.solve(src, dst)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if sol.rotation.device != device:
-        raise AssertionError(f"the solve ran on {sol.rotation.device}, not {device}")
-    rot = sol.rotation.cpu().numpy()
-    trans = sol.translation.cpu().numpy()
-    scale = float(sol.scale)
-    if not (np.isfinite(rot).all() and np.isfinite(trans).all() and np.isfinite(scale)):
-        raise AssertionError(f"{tag}: non-finite solution")
-    re, te, se = registration_errors(pair, scale, rot, trans)
-    valid = bool(sol.valid)
-    info = solver._info
-    print(f"[{tag}] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} scale={scale:.4f} "
-          f"(true {float(pair.transform.scale):.4f}, error {se:.5f}) init={info['init_mode']} "
-          f"rounds={info['rounds']} batches={info['total_local_batches']} "
-          f"host_syncs={info['host_syncs']} wall={wall * 1e3:.2f} ms")
-    if info["init_mode"] != route:
-        raise AssertionError(f"{tag}: init took {info['init_mode']!r}, expected {route!r}")
-    if not (valid and re < 5.0 and te < 0.3 and se <= 0.1):
-        raise AssertionError(f"{tag} solve failed: valid={valid} RE={re} TE={te} scale error={se}")
-    return wall, info
-
-
-def unknown_scale_pair(c, seed):
-    """The 3DMatch unknownScale protocol: noise 0.01, 85% mismatch
-    outliers, dst stretched by a test scale drawn in [1, 5) from the seed."""
-    from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
-
-    rng = np.random.default_rng(seed)
-    test_scale = 1.0 + 4.0 * rng.uniform()
-    return make_synthetic_pair(
-        rng, synthetic_cloud(c, seed=seed), 0.01, UNKNOWN_RATE, outlier_mode="mismatch",
-        test_scale=test_scale,
-    )
-
-
-def unknown_scale_params():
-    from psulvsb_tpu_torch import InlierSelectionMode, SolverParams
-
-    return SolverParams.preset_3dmatch(
-        estimate_scaling=True, sampled_cap=2048, basic_cap=256, hypothesis_batch=4,
-        clique_init="off", inlier_selection_mode=InlierSelectionMode.NONE,
-    )
-
-
 def phase_unknown_scale(device, card: str) -> dict:
-    from psulvsb_tpu_torch import psulvsb_solve
-
-    params = unknown_scale_params()
-    pair = unknown_scale_pair(UNKNOWN_C, 5)
-    reset_launches()
-    run_solve("unknown", params, pair, 0, device, "dense")  # warm-up
-    runs = [run_solve("unknown", params, pair, 100 + i, device, "dense")
-            for i in range(N_TIMED_SOLVES)]
-    launches = read_launches()
+    _, launches = drive_path("unknown", device, card, route="dense")
     if launches["pair_ratio_hist"] <= 0 or launches["gnc_batch"] <= 0:
         raise AssertionError(f"the unknown-scale solves did not launch both kernels: {launches}")
-    walls = [w for w, _ in runs]
-    print(f"[unknown] C={UNKNOWN_C}: median wall {statistics.median(walls) * 1e3:.2f} ms over "
-          f"{N_TIMED_SOLVES} solves (min {min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}); "
-          f"host syncs per solve {[i['host_syncs'] for _, i in runs]}; launches over "
-          f"{N_TIMED_SOLVES + 1} solves {launches}; card: {card}")
-    _, info = psulvsb_solve(
-        torch.as_tensor(pair.src, device=device), torch.as_tensor(pair.dst, device=device),
-        torch.ones(UNKNOWN_C, dtype=torch.int64, device=device), params,
-        torch.Generator(device=device).manual_seed(7), profile=True,
-    )
-    stages = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in info["stage_s"].items())
-    print(f"[unknown] profiled solve stages: {stages}")
     return {"launches": launches}
 
 
 def phase_wide(device) -> dict:
     from psulvsb_tpu_torch import SolverParams
-    from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 
-    known = make_synthetic_pair(
-        np.random.default_rng(3), synthetic_cloud(WIDE_C, seed=3), 0.05, 0.9
-    )
     reset_launches()
-    run_solve("wide", SolverParams.preset_anchor(), known, 1, device, "exact_beta")
+    run_solve("wide", SolverParams.preset_anchor(), anchor_case(WIDE_C, data_seed=3, cloud_seed=3),
+              1, device, "exact_beta")
     beta = read_launches()
     if beta["pair_beta_count"] <= 0 or beta["gnc_batch"] <= 0:
         raise AssertionError(f"the C={WIDE_C} known-scale solve missed a kernel: {beta}")
     reset_launches()
-    run_solve("wide", unknown_scale_params(), unknown_scale_pair(WIDE_C, 4), 1, device,
+    run_solve("wide", unknown_scale_params(), unknown_scale_case(WIDE_C, 4), 1, device,
               "exact_hist")
     hist_run = read_launches()
     if hist_run["pair_ratio_hist"] <= 0 or hist_run["gnc_batch"] <= 0:
         raise AssertionError(f"the C={WIDE_C} unknown-scale solve missed a kernel: {hist_run}")
     print(f"[wide] C={WIDE_C}: launches, known scale {beta}; unknown scale {hist_run}")
     return {"beta": beta, "hist": hist_run}
+
+
+def degree_inputs(c, seed, device):
+    """An anchor-protocol pair of C points (noise 0.05, 90% displaced
+    outliers) and an active mask with about 20% of the points off."""
+    from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+
+    rng = np.random.default_rng(seed)
+    pair = make_synthetic_pair(rng, synthetic_cloud(c, seed=seed), 0.05, 0.9)
+    act = rng.uniform(size=c) >= 0.2
+    return tuple(torch.as_tensor(x, device=device) for x in (pair.src, pair.dst, act))
+
+
+def phase_degree_kernel(device) -> dict:
+    from psulvsb_tpu_torch.ops import pairs
+
+    worst = 0
+    for c in DEGREE_SIZES:
+        src, dst, act = degree_inputs(c, c, device)
+        for tau in GROR_TAUS:
+            got = pairs.consistency_degree(src, dst, tau, act)
+            want = pairs.consistency_degree_reference(src, dst, tau, act)
+            torch.cuda.synchronize()
+            # A flipped pair moves two degrees by one each.
+            diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().sum())
+            worst = max(worst, diff)
+            print(f"[degree] C={c} tau={tau}: mean degree {float(want.float().mean()):.2f}, "
+                  f"max {int(want.max())}, kernel vs plain difference {diff}")
+            if diff > 2 * MAX_FLIPS or bool(got[~act].any()):
+                raise AssertionError(f"C={c} tau={tau}: degrees differ by {diff}")
+    x = torch.zeros(3, 5, device=device)
+    if pairs.consistency_degree(x, x, 0.1, torch.zeros(5, dtype=torch.bool, device=device)).any():
+        raise AssertionError("an all-inactive input must give zero degrees")
+    try:
+        pairs.consistency_degree(x[:, :0], x[:, :0], 0.1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("C = 0 must raise ValueError")
+    print("[degree] all-inactive input -> zeros; C=0 raises")
+
+    times = {}
+    for c in DEGREE_TIMED_SIZES:
+        src, dst, act = degree_inputs(c, c, device)
+        ms = median_ms(lambda: pairs.consistency_degree(src, dst, 0.1, act))
+        plain_ms = median_ms(lambda: pairs.consistency_degree_reference(src, dst, 0.1, act))
+        bound = pair_grid_bound("consistency_degree", act, 4 * c)
+        times[c] = (ms, plain_ms, bound)
+        print(f"[degree] C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, "
+              f"CUDA events); bound {bound[0]:.6f} ms by {bound[1]}")
+    return {"max_diff": worst, "times": times}
+
+
+def phase_gror_slice(device, card: str) -> dict:
+    infos, launches = drive_path("gror", device, card)
+    if not all(i["gror_init"] for i in infos):
+        raise AssertionError("GROR's seed was not adopted")
+    if launches["consistency_degree"] != N_TIMED_SOLVES + 1 or launches["gnc_batch"] <= 0:
+        raise AssertionError(f"the GROR solves must launch the degree kernel once each: {launches}")
+    return {"launches": launches}
+
+
+def phase_frontend(device, card: str) -> dict:
+    from psulvsb_tpu_torch.eval.frontend_protocol import frontend_solver_params
+
+    params = frontend_solver_params(**CAPS)
+    reset_launches()
+    summary = {}
+    for tag in FRONTEND_TAGS:
+        case = frontend_case(tag)
+        results = [
+            run_solve(f"frontend {tag}", params, case, seed, device,
+                      limits=KITTI_LIMITS, gate=tag == FRONTEND_GATED)
+            for seed in range(N_TIMED_SOLVES)
+        ]
+        summary[tag] = sum(ok for _, _, ok in results)
+        walls = [w for w, _, _ in results]
+        print(f"[frontend] {tag} (C={case[0].shape[1]}): {summary[tag]} of {N_TIMED_SOLVES} "
+              f"pass the KITTI gates; rescue adopted in "
+              f"{sum(bool(i['translation_rescued']) for _, i, _ in results)}; median wall "
+              f"{statistics.median(walls) * 1e3:.2f} ms")
+    launches = read_launches()
+    print(f"[frontend] launches over {len(FRONTEND_TAGS) * N_TIMED_SOLVES} solves {launches}; "
+          f"card: {card}")
+    for name in ("consistency_degree", "pair_ratio_hist", "gnc_batch"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the front-end solves never launched {name}: {launches}")
+    return {"launches": launches, "passed": summary}
+
+
+def phase_clique(device, card: str) -> dict:
+    from psulvsb_tpu_torch import SolverParams
+    from psulvsb_tpu_torch.clique import triangle_scores
+
+    # (a) the eager seed on the anchor pair.
+    reset_launches()
+    _, info, _ = run_solve(
+        "clique eager", SolverParams.preset_artificial_gror(clique_init="eager", **CAPS),
+        anchor_case(), 0, device,
+    )
+    eager = read_launches()
+    if not info["clique_seeded"] or eager["gnc_batch"] <= 0:
+        raise AssertionError(f"the eager clique seed did not run and adopt: {info['clique_seeded']}")
+    print(f"[clique] eager seed adopted; launches {eager}")
+
+    # (b) the lazy seed and the b_rate == 1.0 round at 99% displaced outliers.
+    case = anchor_case(rate=HOSTILE_RATE, data_seed=HOSTILE_DATA_SEED)
+    params = SolverParams.preset_artificial(**CAPS)  # the bench anchor's program
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    runs = [run_solve("clique hostile", params, case, seed, device, gate=False)
+            for seed in HOSTILE_SOLVE_SEEDS]
+    hostile = read_launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    seeded = sum(bool(i["clique_seeded"]) for _, i, _ in runs)
+    rounds = sum(i["clique_rounds"] for _, i, _ in runs)
+    with_rounds = sum(i["clique_rounds"] > 0 for _, i, _ in runs)
+    print(f"[clique] {HOSTILE_RATE:.0%} displaced, C={ANCHOR_C}, data seed {HOSTILE_DATA_SEED}: "
+          f"lazy seed adopted in {seeded} of {len(runs)} solves, b_rate == 1.0 clique rounds "
+          f"{rounds} in {with_rounds} solves; recall {sum(ok for _, _, ok in runs)}/{len(runs)} "
+          f"(JAX on the CPU: "
+          f"{JAX_CPU_HOSTILE_RECALL}); peak device memory {peak / 2**20:.1f} MiB; launches "
+          f"{hostile}; card: {card}")
+    if seeded == 0 or rounds == 0:
+        raise AssertionError(f"the clique stages did not run: seeded {seeded}, rounds {rounds}")
+
+    # (c) memory of the clique round's batched products at C = 8192.
+    c = CLIQUE_MEMORY_C
+    gen = torch.Generator(device=device).manual_seed(0)
+    adj = torch.rand((4, c, c), generator=gen, device=device) < 0.01
+    adj = adj | adj.transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    scores = triangle_scores(adj)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(scores).all()):
+        raise AssertionError("non-finite triangle scores")
+    print(f"[clique] triangle_scores over (4, {c}, {c}) graphs: {ms:.2f} ms, peak device "
+          f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    return {"seeded": seeded, "rounds": rounds}
 
 
 def build_all() -> None:
@@ -490,42 +743,34 @@ def main() -> int:
     pairs = phase_pair_kernels(device)
     unknown = phase_unknown_scale(device, card)
     wide = phase_wide(device)
+    degree = phase_degree_kernel(device)
+    gror = phase_gror_slice(device, card)
+    phase_frontend(device, card)
+    phase_clique(device, card)
 
-    ms, plain_ms = kern["times"][(4, 256)]
-    hist_ms, hist_plain = pairs["times"][("hist coarse 128/16", UNKNOWN_C)]
-    beta_ms, beta_plain = pairs["times"][("beta 0.1", 16384)]
+    def row(name, source, replaces, launches, err, timed):
+        ms, plain_ms, (bound, bound_by) = timed
+        return {
+            "name": name, "route": "cuda", "source": f"psulvsb_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            # No single PyTorch call computes any of these functions.
+            "library_ms": None,
+        }
+
     print(card_line())
     print(json.dumps({"kernels": [
-        {
-            "name": "gnc_batch",
-            "route": "cuda",
-            "source": "psulvsb_tpu_torch/csrc/gnc_batch.cu",
-            "replaces": "psulvsb_tpu/ops/pallas_gnc.py:235",
-            "launches": sl["launches"],
-            "max_abs_err": kern["max_abs_err"],
-            "ms": ms,
-            "plain_ms": plain_ms,
-        },
-        {
-            "name": "pair_ratio_hist",
-            "route": "cuda",
-            "source": "psulvsb_tpu_torch/csrc/pair_ratio_hist.cu",
-            "replaces": "psulvsb_tpu/ops/pallas_hist.py:120",
-            "launches": unknown["launches"]["pair_ratio_hist"],
-            "max_abs_err": pairs["max_diff"]["hist"],
-            "ms": hist_ms,
-            "plain_ms": hist_plain,
-        },
-        {
-            "name": "pair_beta_count",
-            "route": "cuda",
-            "source": "psulvsb_tpu_torch/csrc/pair_beta_count.cu",
-            "replaces": "psulvsb_tpu/ops/pallas_hist.py:241",
-            "launches": wide["beta"]["pair_beta_count"],
-            "max_abs_err": pairs["max_diff"]["beta"],
-            "ms": beta_ms,
-            "plain_ms": beta_plain,
-        },
+        row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235",
+            sl["launches"], kern["max_abs_err"], kern["times"][(4, 256)]),
+        row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",
+            unknown["launches"]["pair_ratio_hist"], pairs["max_diff"]["hist"],
+            pairs["times"][("hist coarse 128/16", UNKNOWN_C)]),
+        row("pair_beta_count", "pair_beta_count.cu", "psulvsb_tpu/ops/pallas_hist.py:241",
+            wide["beta"]["pair_beta_count"], pairs["max_diff"]["beta"],
+            pairs["times"][("beta 0.1", 16384)]),
+        row("consistency_degree", "consistency_degree.cu",
+            "psulvsb_tpu/ops/pallas_pairs.py:53", gror["launches"]["consistency_degree"],
+            degree["max_diff"], degree["times"][ANCHOR_C]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

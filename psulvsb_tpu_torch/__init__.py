@@ -1,11 +1,11 @@
 """psulvsb_tpu_torch — the PSULVSB point-cloud registration solver on
-PyTorch, with its GNC-TLS loop and its pair-grid sweeps in CUDA kernels for
-NVIDIA Hopper.
+PyTorch, with its GNC-TLS loop, its pair-grid sweeps and GROR's
+consistency degrees in CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package `psulvsb_tpu`, which stays the reference: the
 modules mirror its paths and names. This package imports torch and numpy
-only. It runs the solve at known or estimated scale, at any C, without the
-clique stages;
+only. It runs the solve at known or estimated scale, at any C, with the
+clique stages, GROR initial alignment and the translation rescue;
 `SolverParams.check_port_supported` names the settings that still raise.
 """
 

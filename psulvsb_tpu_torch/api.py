@@ -48,14 +48,17 @@ class RobustRegistrationSolver:
     """Class-shaped facade over the functional solver (parity with
     registration.h:326-832).
 
-    The solve runs on the device of the tensors given to `solve` (numpy
-    input runs on the CPU). Each solve draws from its own generator, seeded
-    from a CPU generator seeded with `seed`."""
+    Every input, numpy or tensor, is moved to `device` and the solve runs
+    there: the card unless the caller asks for the CPU (device="cpu"). With
+    no CUDA device the move raises; nothing falls back to the CPU. Each
+    solve draws from its own generator, seeded from a CPU generator seeded
+    with `seed`."""
 
     Params = SolverParams
 
-    def __init__(self, params: SolverParams | None = None, seed: int = 0):
+    def __init__(self, params: SolverParams | None = None, seed: int = 0, device="cuda"):
         self.params = params or SolverParams()
+        self.device = torch.device(device)
         self._seeds = torch.Generator().manual_seed(seed)
         self._solution: RegistrationSolution | None = None
         self._info: dict = {}
@@ -74,7 +77,7 @@ class RobustRegistrationSolver:
         """solve(src_points, dst_points, correspondences) with (3, N) clouds
         and (i, j) index pairs (registration.cc:511-524), or solve(src_corr,
         dst_corr) with pre-matched (3, C) sets (registration.cc:622)."""
-        device = src.device if isinstance(src, torch.Tensor) else torch.device("cpu")
+        device = self.device
         src = _as_float32(src).to(device)
         dst = _as_float32(dst).to(device)
         if correspondences is not None:

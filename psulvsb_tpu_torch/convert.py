@@ -14,6 +14,7 @@ import enum
 import numpy as np
 import torch
 
+from psulvsb_tpu_torch.gror.gror import GRORResult
 from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.config import SolverParams
 from psulvsb_tpu_torch.solver.psulvsb import HostState
@@ -54,6 +55,18 @@ def warm_state_from_numpy(d, device="cpu") -> WarmState:
         rotation=_tensor(d["rotation"], device, f32),
         translation=_tensor(d["translation"], device, f32),
         first_time=bool(np.asarray(d["first_time"])),
+    )
+
+
+def gror_result_from_numpy(d, device="cpu") -> GRORResult:
+    """GRORResult from numpy arrays keyed by field name."""
+    d = _fields(d)
+    f32 = torch.float32
+    return GRORResult(
+        rotation=_tensor(d["rotation"], device, f32),
+        translation=_tensor(d["translation"], device, f32),
+        best_count=_tensor(d["best_count"], device, torch.int64),
+        inliers=_tensor(d["inliers"], device, torch.bool),
     )
 
 

@@ -90,3 +90,44 @@ def solve_translation_endpoints(
     points_c = scatter_or(c, gi, first)
     inliers_c = scatter_or(c, gi, inl & first)
     return t_s, inliers_c, points_c, beta
+
+
+def global_translation_vote(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    rotation: torch.Tensor,
+    scale: torch.Tensor,
+    real: torch.Tensor,
+    noise_bound: float,
+    cbar2: float,
+    current_translation: torch.Tensor,
+    chunk: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Joint 1-point translation consensus over all real correspondences,
+    the repeated-geometry aliasing rescue (psulvsb_tpu/robust/translation.py
+    ::global_translation_vote).
+
+    Every correspondence proposes t_i = dst_i - s R src_i and votes for every
+    proposal within the per-axis noise box (AND over axes) in (chunk, C)
+    sweeps; the first proposal with the most votes wins and its box members
+    are averaged. Returns (t_new (3,) divided by the scale, support_new ()
+    int64, support_cur () int64 — the box count at `current_translation`);
+    the caller adopts t_new only on a strict support gain."""
+    c = src.shape[1]
+    dtype, dev = src.dtype, src.device
+    beta = torch.tensor(noise_bound, dtype=dtype, device=dev) * torch.sqrt(
+        torch.tensor(cbar2, dtype=dtype, device=dev)
+    )
+    d = (dst - scale * mm(rotation, src)).T  # (C, 3) proposals, s-scaled
+    votes = torch.cat([
+        ((torch.abs(d[r0:r0 + chunk, None, :] - d[None, :, :]) <= beta).all(-1) & real[None]).sum(1)
+        for r0 in range(0, c, chunk)
+    ])
+    votes = torch.where(real, votes, -1)
+    i = torch.argmax(votes)
+    member = (torch.abs(d - d[i]) <= beta).all(-1) & real
+    denom = torch.clamp(member.sum().to(dtype), min=1.0)
+    center = torch.where(member[:, None], d, torch.zeros_like(d)).sum(0) / denom
+    s_safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    cur_box = (torch.abs(d - scale * current_translation) <= beta).all(-1) & real
+    return center / s_safe, member.sum(), cur_box.sum()

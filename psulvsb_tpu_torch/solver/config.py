@@ -6,7 +6,8 @@ Field-by-field parity with teaser::RobustRegistrationSolver::Params
 (registration.h:378-473) plus the constants the reference hard-codes in
 registration.cc (noise bounds, loop limits, the rate schedule, the 60 s
 budget). `check_port_supported` names the settings this package does not
-run yet and the ROADMAP item that ports each.
+run yet (the native exact-clique callback, FGR, the "eigh" rotation) and
+the ROADMAP item that ports each.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ class SolverParams:
     inlier_selection_mode: InlierSelectionMode = InlierSelectionMode.PMC_EXACT
     kcore_heuristic_threshold: float = 0.5
     # Route the escalated clique round through the native exact clique
-    # solver instead of the greedy heuristic (clique stage: not ported yet).
+    # solver instead of the greedy heuristic (not ported yet).
     exact_clique_callback: bool = False
     use_max_clique: bool = True  # deprecated upstream; kept for parity
     max_clique_exact_solution: bool = True  # deprecated upstream
@@ -181,24 +182,28 @@ class SolverParams:
             mode = InlierSelectionMode.PMC_HEU
         return mode
 
+    @property
+    def clique_eager(self) -> bool:
+        """Seed before round 0 (clique_init="eager"; True is an alias)."""
+        self._check_clique_init()
+        return self.clique_init in (True, "eager")
+
+    @property
+    def clique_lazy(self) -> bool:
+        """Seed once, in-loop, on the first escalation (clique_init="auto")."""
+        self._check_clique_init()
+        return self.clique_init == "auto"
+
     def check_port_supported(self) -> None:
         """Raise NotImplementedError, naming the ROADMAP.md item that ports
-        it, for any setting outside the port's clique-free slice."""
+        it, for any setting the port does not run yet."""
         self._check_clique_init()
         unsupported = []
-        if self.clique_init not in ("off", False):
-            unsupported.append(
-                f"clique_init={self.clique_init!r} (Queue 1 item 10)"
-            )
         mode = self.resolve_inlier_selection()
-        if mode != InlierSelectionMode.NONE:
+        if mode == InlierSelectionMode.PMC_EXACT and self.exact_clique_callback:
             unsupported.append(
-                f"inlier_selection_mode={mode.name} (Queue 1 item 10)"
+                "exact_clique_callback=True with PMC_EXACT (Queue 1 item 19)"
             )
-        if self.gror_init:
-            unsupported.append("gror_init=True (Queue 1 item 14)")
-        if self.translation_rescue:
-            unsupported.append("translation_rescue=True (Queue 1 item 14)")
         if self.rotation_estimation_algorithm != RotationEstimationAlgorithm.GNC_TLS:
             unsupported.append(
                 f"rotation_estimation_algorithm="

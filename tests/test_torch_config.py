@@ -85,13 +85,11 @@ def test_params_from_jax_maps_enums_by_value():
 
 
 UNSUPPORTED = [
-    ({"clique_init": "auto"}, "item 10"),
-    ({"clique_init": "eager"}, "item 10"),
-    ({"clique_init": True}, "item 10"),
-    ({"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT}, "item 10"),
-    ({"max_clique_exact_solution": False}, "item 10"),  # resolves to PMC_HEU
-    ({"gror_init": True}, "item 14"),
-    ({"translation_rescue": True}, "item 14"),
+    (
+        {"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT,
+         "exact_clique_callback": True},
+        "item 19",
+    ),
     ({"rotation_estimation_algorithm": tcfg.RotationEstimationAlgorithm.FGR}, "item 11"),
     ({"gnc_rot_method": "eigh"}, "item 17"),
 ]
@@ -117,12 +115,37 @@ SUPPORTED = [
     {"init_mode": "exact_beta"},
     {"dense_init_max_c": 1000},  # C = 1889 leaves the dense window
     {"estimate_scaling": True, "scale_estimator": "vote"},
+    # Queue 1 items 10 and 14: the clique stages, GROR and the rescue.
+    {"clique_init": "auto"},
+    {"clique_init": "eager"},
+    {"clique_init": True},
+    {"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT},
+    {"max_clique_exact_solution": False},  # resolves to PMC_HEU
+    {"gror_init": True},
+    {"translation_rescue": True},
+    # The callback only routes PMC_EXACT; other modes ignore it.
+    {"inlier_selection_mode": tcfg.InlierSelectionMode.KCORE_HEU, "exact_clique_callback": True},
 ]
 
 
 @pytest.mark.parametrize("kw", SUPPORTED)
 def test_supported_variants_do_not_raise(kw):
     tcfg.SolverParams.preset_anchor(**kw).check_port_supported()
+
+
+def test_gror_presets_run_unmodified():
+    """Both presets that turn GROR on pass at their own defaults (clique
+    "auto", PMC_EXACT on the greedy, the rescue on the front-end preset)."""
+    from psulvsb_tpu.eval.frontend_protocol import frontend_solver_params as jax_frontend
+    from psulvsb_tpu_torch.eval.frontend_protocol import NOISE_BOUND, frontend_solver_params
+
+    tcfg.SolverParams.preset_artificial_gror().check_port_supported()
+    tp = frontend_solver_params()
+    tp.check_port_supported()
+    assert params_from_jax(jax_frontend()) == tp
+    assert tp.gror_init and tp.translation_rescue and tp.noise_bound == NOISE_BOUND == 0.3
+    assert tp.clique_lazy and not tp.clique_eager
+    assert tcfg.SolverParams(clique_init=True).clique_eager
 
 
 @pytest.mark.parametrize("preset", ["preset_3dmatch", "preset_kitti", "preset_whu_tls"])
@@ -149,7 +172,9 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import psulvsb_tpu_torch\n"
         "from psulvsb_tpu_torch import convert, api\n"
-        "from psulvsb_tpu_torch.ops import gnc, hist\n"
+        "from psulvsb_tpu_torch.ops import gnc, hist, pairs\n"
+        "from psulvsb_tpu_torch import gror, clique\n"
+        "from psulvsb_tpu_torch.eval import frontend_protocol\n"
         "from psulvsb_tpu_torch.pairs import tims\n"
         "from psulvsb_tpu_torch.eval import synthetic\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'psulvsb_tpu.'))"

@@ -62,7 +62,7 @@ def test_recall_matches_jax():
             jax.random.PRNGKey(k),
         )
         jax_ok.append(bool(sol_j.valid) and _success(pair, sol_j.rotation, sol_j.translation))
-        sol_t = RobustRegistrationSolver(params, seed=k).solve(pair.src, pair.dst)
+        sol_t = RobustRegistrationSolver(params, seed=k, device="cpu").solve(pair.src, pair.dst)
         assert sol_t.rotation.dtype == torch.float32
         assert torch.isfinite(sol_t.rotation).all() and torch.isfinite(sol_t.translation).all()
         port_ok.append(bool(sol_t.valid) and _success(pair, sol_t.rotation, sol_t.translation))
@@ -73,7 +73,7 @@ def test_recall_matches_jax():
 def test_solver_api_surface():
     params = params_from_jax(JPARAMS)
     pair = _pair(0)
-    solver = RobustRegistrationSolver(params, seed=3)
+    solver = RobustRegistrationSolver(params, seed=3, device="cpu")
     with pytest.raises(RuntimeError):
         solver.getSolution()
     with warnings.catch_warnings(record=True) as caught:
@@ -88,12 +88,15 @@ def test_solver_api_surface():
     assert solver.getRotationInliersMask().shape == b_i.shape == b_j.shape
     assert solver.getTranslationInliersMask().shape == (C,)
     # The same seed replays bit for bit.
-    again = RobustRegistrationSolver(params, seed=3).solve(pair.src, pair.dst)
+    again = RobustRegistrationSolver(params, seed=3, device="cpu").solve(pair.src, pair.dst)
     assert torch.equal(again.rotation, sol.rotation)
     with pytest.raises(NotImplementedError, match="item 11"):
         solver.solve_decoupled(pair.src, pair.dst)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        RobustRegistrationSolver(params.replace(clique_init="auto")).solve(pair.src, pair.dst)
+    callback = params.replace(
+        inlier_selection_mode=InlierSelectionMode.PMC_EXACT, exact_clique_callback=True
+    )
+    with pytest.raises(NotImplementedError, match="item 19"):
+        RobustRegistrationSolver(callback, device="cpu").solve(pair.src, pair.dst)
 
 
 def test_correspondence_overload_and_keep_mask():
@@ -102,7 +105,7 @@ def test_correspondence_overload_and_keep_mask():
     perm = np.random.default_rng(0).permutation(C)
     dst_shuffled = pair.dst[:, perm]
     corr = np.stack([np.arange(C), np.argsort(perm)], axis=1)
-    sol = RobustRegistrationSolver(params, seed=0).solve(pair.src, dst_shuffled, corr)
+    sol = RobustRegistrationSolver(params, seed=0, device="cpu").solve(pair.src, dst_shuffled, corr)
     assert _success(pair, sol.rotation, sol.translation)
     keep = np.ones(C, np.int64)
     keep[pair.outlier_mask.nonzero()[0][:50]] = -1
@@ -154,7 +157,7 @@ def test_estimated_scale_recall_and_quantiles_match_jax():
                 np.asarray(sol_j.translation),
             )
         )
-        sol_t = RobustRegistrationSolver(params, seed=k).solve(pair.src, pair.dst)
+        sol_t = RobustRegistrationSolver(params, seed=k, device="cpu").solve(pair.src, pair.dst)
         assert torch.isfinite(sol_t.scale) and torch.isfinite(sol_t.translation).all()
         errs["port"].append(
             (bool(sol_t.valid),) + registration_errors(
@@ -171,3 +174,75 @@ def test_estimated_scale_recall_and_quantiles_match_jax():
             port_q = np.quantile([e[col] for e in errs["port"]], q)
             jax_q = np.quantile([e[col] for e in errs["jax"]], q)
             assert port_q <= 2.0 * jax_q + floor, (col, q, port_q, jax_q)
+
+
+N_GROR = 6
+C_GROR = 350
+JPARAMS_GROR = JParams.preset_artificial_gror(
+    sampled_cap=512, basic_cap=128, hypothesis_batch=4, gror_k_optimal=200
+)
+
+
+def _gror_pair(k):
+    src = synthetic_cloud(C_GROR, seed=80 + k)
+    return make_synthetic_pair(np.random.default_rng(90 + k), src, 0.05, 0.9)
+
+
+def test_gror_preset_recall_matches_jax():
+    """The artificial GROR preset at its own clique settings (clique "auto",
+    PMC_EXACT on the greedy): GROR seeds every solve, and the port's recall
+    is at least JAX's minus one pair in six."""
+    params = params_from_jax(JPARAMS_GROR)
+    assert params.clique_init == "auto"
+    assert params.inlier_selection_mode == InlierSelectionMode.PMC_EXACT
+    keep = jax.numpy.ones((C_GROR,), jax.numpy.int32)
+    jax_ok, port_ok = [], []
+    for k in range(N_GROR):
+        pair = _gror_pair(k)
+        sol_j, info_j = jax_psulvsb_solve(
+            jax.numpy.asarray(pair.src), jax.numpy.asarray(pair.dst), keep, JPARAMS_GROR,
+            jax.random.PRNGKey(k),
+        )
+        jax_ok.append(bool(sol_j.valid) and _success(pair, sol_j.rotation, sol_j.translation))
+        solver = RobustRegistrationSolver(params, seed=k, device="cpu")
+        sol_t = solver.solve(pair.src, pair.dst)
+        assert solver._info["gror_init"] == info_j["gror_init"] is True
+        assert torch.isfinite(sol_t.rotation).all() and torch.isfinite(sol_t.translation).all()
+        port_ok.append(bool(sol_t.valid) and _success(pair, sol_t.rotation, sol_t.translation))
+    assert sum(port_ok) >= sum(jax_ok) - 1, (port_ok, jax_ok)
+    assert sum(port_ok) >= N_GROR - 1
+
+
+def test_frontend_preset_on_real_pair_matches_jax():
+    """pair_seed1375 (real FPFH correspondences, C = 1250, 12 true inliers)
+    through frontend_solver_params of both packages at the bench caps: both
+    pass the KITTI gates (RE < 5 deg, TE < 0.6) and the port's RE is within
+    0.5 deg of JAX's."""
+    import os
+
+    from psulvsb_tpu.eval.frontend_protocol import frontend_solver_params as jax_frontend
+    from psulvsb_tpu_torch.eval.frontend_protocol import frontend_solver_params
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "frontend_aliasing")
+    corr = np.loadtxt(os.path.join(here, "pair_seed1375_corr.txt")).astype(np.float32)
+    gt = np.loadtxt(os.path.join(here, "pair_seed1375_gt.txt"))
+    src, dst = corr[:, :3].T.copy(), corr[:, 3:].T.copy()
+    caps = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)
+    jp = jax_frontend(**caps)
+    params = frontend_solver_params(**caps)
+    assert params_from_jax(jp) == params
+    params.check_port_supported()
+    sol_j, _ = jax_psulvsb_solve(
+        jax.numpy.asarray(src), jax.numpy.asarray(dst),
+        jax.numpy.ones((src.shape[1],), jax.numpy.int32), jp, jax.random.PRNGKey(0),
+    )
+    solver = RobustRegistrationSolver(params, seed=0, device="cpu")
+    sol_t = solver.solve(src, dst)
+    errs = []
+    for rot, trans in ((sol_j.rotation, sol_j.translation), (sol_t.rotation, sol_t.translation)):
+        re = angular_error_deg_np(gt[:3, :3], np.asarray(rot, np.float64))
+        te = float(np.linalg.norm(np.asarray(trans, np.float64) - gt[:3, 3]))
+        errs.append((re, te))
+        assert re < 5.0 and te < 0.6, errs
+    assert abs(errs[1][0] - errs[0][0]) <= 0.5, errs
+    assert solver._info["gror_init"]

@@ -255,12 +255,13 @@ def test_host_and_finalize_carry_the_scale(round_idx):
     assert bool(take) == bool(w_take)
     assert int(hs.best_count) == int(w_hs.best_count)
     np.testing.assert_allclose(float(hs.best.scale), float(w_hs.best.scale), rtol=1e-6)
-    rot, trans, better = tps._finalize_stage(
+    rot, trans, better, rescued = tps._finalize_stage(
         _t(ch["src"]), _t(ch["dst"]), host_state_from_numpy(ch["hs_final"], "cpu"),
         warm_state_from_numpy(ch["rounds"][-1]["local"].best), params_from_jax(ch["params"]),
     )
     w_rot, w_trans, w_better = ch["finalize"]
     assert bool(better) == bool(w_better)
+    assert not bool(rescued)  # the rescue is off in these presets
     np.testing.assert_allclose(rot.numpy(), w_rot, atol=1e-4)
     np.testing.assert_allclose(trans.numpy(), w_trans, atol=1e-4)
 
@@ -304,11 +305,12 @@ def test_self_update_pairs(round_idx):
 
 def test_finalize_stage():
     ch = _jax_chain()
-    rot, trans, better = tps._finalize_stage(
+    rot, trans, better, rescued = tps._finalize_stage(
         _t(ch["src"]), _t(ch["dst"]), host_state_from_numpy(ch["hs_final"], "cpu"),
         warm_state_from_numpy(ch["rounds"][-1]["local"].best), params_from_jax(ch["params"]),
     )
     w_rot, w_trans, w_better = ch["finalize"]
     assert bool(better) == bool(w_better)
+    assert not bool(rescued)  # the rescue is off in these presets
     np.testing.assert_allclose(rot.numpy(), w_rot, atol=1e-4)
     np.testing.assert_allclose(trans.numpy(), w_trans, atol=1e-4)
