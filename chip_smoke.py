@@ -13,11 +13,16 @@ and prints no result line):
    together, and print ptxas's register lines;
 3. kernel vs plain — ops.gnc.gnc_batch (the kernel) against
    gnc_batch_reference (plain PyTorch) on the card, at (B, N) = (4, 256),
-   (16, 1024), (4, 2048), (3, 197), with 30% gross outliers, half the
-   columns masked, with and without a warm start: max |dR| <= 1e-4 and
-   inlier masks agreeing on >= 99.5% of active columns; an all-inactive
-   hypothesis gives the identity and no inliers; N = 0 raises; medians of
-   20 timed runs (CUDA events) at (4, 256) and (16, 1024);
+   (16, 1024), (4, 2048), (3, 197) and at B = 1 and 16 for N = 1, 10, 11,
+   32, 255, 256, 257, 1024, 1025, 2048 (the edges of the kernel's
+   variants), with 30% gross outliers, half the columns masked, with and
+   without a warm start: max |dR| <= 1e-4 and inlier masks agreeing on
+   >= 99.5% of active columns; the <= 10-inlier fail-safe at 10 and 11
+   fitting columns and the noise floor (a bound of 5e-9) as the plain
+   version; an all-inactive hypothesis gives the identity and no inliers;
+   N = 0 raises; medians of 20 timed runs (CUDA events) at (4, 256) and
+   (16, 1024), and the profiler's device time a launch there, where a call
+   must run one kernel and no other device operation;
 4. slice — the bench anchor pair (C = 1889, 90% displaced outliers, noise
    0.05) solved through RobustRegistrationSolver(SolverParams.
    preset_anchor()) on the card: one warm-up and 5 timed solves with
@@ -27,20 +32,24 @@ and prints no result line):
    pair_beta_count (the kernels) against their plain PyTorch versions on
    the card at C = 197, 1889, 5000, 12000 with about 20% of the points
    inactive: the coarse window (128 bins, stride 16, clamped), the fine
-   window (48 bins, stride 1, dropped, lo > 0) and the exact_hist window
-   (512 bins, clamped), and beta at the 3DMatch and artificial presets'
-   values; counts must be equal (a razor-edge flip would be allowed up to
-   2 pairs per call with equal totals and argmax, and is printed).
-   exact_peak_bin's peak, count and certificate must equal the plain
-   version's, and a 200x scale must not be certified. Medians of 20 timed
-   runs (CUDA events) at C = 5000 and 16384;
+   window (48 bins, stride 1, dropped, lo > 0), the exact_hist window (512
+   bins, clamped), exact_peak_bin's full pass (2065 bins, clamped) and the
+   widest window (4096 bins, dropped, lo on the device), histogram counts
+   equal; and beta at the 3DMatch and artificial presets' values (a
+   razor-edge flip would be allowed up to 2 pairs per call, and is
+   printed). exact_peak_bin must launch the kernel once a call and give
+   the plain two-pass version's peak, count and certificate, and a 200x
+   scale must not be certified. Medians of 20 timed runs (CUDA events) at
+   C = 1250, 5000 and 16384, and exact_peak_bin's device time a launch
+   (profiler), where a call must run the kernel and the zeroing of its
+   counts only;
 6. slice, unknown scale — the 3DMatch unknownScale protocol at C = 5000
    (noise 0.01, 85% mismatch outliers, dst stretched by a test scale drawn
    in [1, 5) from the seed) solved through RobustRegistrationSolver(
    SolverParams.preset_3dmatch(estimate_scaling=True, ...)) with the clique
    stages off: one warm-up and 5 timed solves, each valid with RE < 5 deg,
-   TE < 0.3 and scale error <= 0.1; the histogram kernel and the GNC
-   kernel must have launched;
+   TE < 0.3 and scale error <= 0.1; the histogram kernel must have launched
+   once a solve (exact_peak_bin) and the GNC kernel must have launched;
 7. slice, beyond the dense window — at C = 12000 one known-scale solve
    (preset_anchor, the anchor protocol) routed to "exact_beta", which must
    launch the beta-count kernel, and one unknown-scale solve (the protocol
@@ -63,8 +72,8 @@ and prints no result line):
    of tests/data/frontend_aliasing/ through eval.frontend_protocol.
    frontend_solver_params(caps (2048, 256, 4)), 5 seeds each:
    pair_seed1375 must pass the KITTI gates (RE < 5 deg, TE < 0.6) on every
-   seed, pair_seed10300 is printed; the degree, histogram and GNC kernels
-   must each have launched;
+   seed, pair_seed10300 is printed; the degree and GNC kernels must have
+   launched, the histogram kernel once a solve;
 11. clique stages — (a) one preset_artificial_gror(clique_init="eager")
    solve of the anchor pair, which must adopt the clique seed and pass the
    anchor's gates; (b) the anchor protocol at 99% displaced outliers with
@@ -99,7 +108,12 @@ import torch
 ROT_TOL = 1e-4  # float32 sums in another order over <= 100 iterations
 MASK_AGREE = 0.995
 KERNEL_SHAPES = [(4, 256), (16, 1024), (4, 2048), (3, 197)]
+# Both kernel variants (a warp a hypothesis up to N = 256, a block beyond)
+# and every column count a thread, at their edges.
+BOUNDARY_N = (1, 10, 11, 32, 255, 256, 257, 1024, 1025, 2048)
+BOUNDARY_B = (1, 16)
 TIMED_SHAPES = [(4, 256), (16, 1024)]
+PROFILED_REPS = 10
 LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
 ANCHOR_C = 1889
 N_TIMED_SOLVES = 5
@@ -145,7 +159,8 @@ OPS_PER_PAIR = {
 GNC_OPS_PER_COLUMN = 52
 GNC_OPS_PER_ITERATION = 5 * 2 * 64
 HIST_SIZES = [197, 1889, 5000, 12000]
-HIST_TIMED_SIZES = [5000, 16384]
+HIST_TIMED_SIZES = [1250, 5000, 16384]  # the front end's C, the unknown-scale C, wide
+PEAK_BINS = (128 + 1) * 16 + 1  # exact_peak_bin's full pass at its defaults
 BETAS = {"3dmatch": 0.02, "artificial": 0.1}  # 2 noise_bound sqrt(cbar2)
 MAX_FLIPS = 2  # pairs per call a razor-edge ratio may move (none expected)
 UNKNOWN_C = 5000  # bench.py:102, the mean 3DMatch pair size
@@ -212,29 +227,101 @@ def median_ms(fn, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def profiled_kernels(fn, reps=PROFILED_REPS) -> dict:
+    """{device operation name: [device microseconds of each]} over `reps`
+    calls of fn under torch.profiler, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return out
+
+
+def kernel_device_us(ops: dict, kernel: str, reps=PROFILED_REPS, others=0) -> float:
+    """Mean device microseconds of `kernel`'s launches in profiled_kernels'
+    output; fails unless it launched once a call and the calls ran at most
+    `others` other device operations each."""
+    runs = [us for name, v in ops.items() if f"{kernel}_kernel" in name for us in v]
+    rest = sum(len(v) for name, v in ops.items() if f"{kernel}_kernel" not in name)
+    if len(runs) != reps or rest > others * reps:
+        raise AssertionError(f"{reps} calls must launch {kernel} {reps} times with at most "
+                             f"{others * reps} other device operations: {ops.keys()}")
+    return statistics.mean(runs)
+
+
+def check_gnc(what, rk, ik, rr, ir, act) -> float:
+    """max |dR| of kernel vs plain; fails beyond ROT_TOL, on masks agreeing
+    on fewer than MASK_AGREE of the active columns, or an inactive inlier."""
+    torch.cuda.synchronize()
+    err = float((rk - rr).abs().max())
+    agree = float(((ik == ir) & act).sum() / act.sum()) if bool(act.any()) else 1.0
+    print(f"[kernel] {what}: max|dR|={err:.3e} mask agreement={agree:.5f}")
+    if not err <= ROT_TOL:
+        raise AssertionError(f"{what}: rotation mismatch {err} > {ROT_TOL}")
+    if not agree >= MASK_AGREE:
+        raise AssertionError(f"{what}: inlier masks agree on {agree} < {MASK_AGREE}")
+    if (ik & ~act).any():
+        raise AssertionError(f"{what}: kernel marked an inactive column as inlier")
+    return err
+
+
+def fail_safe_problem(rng, k, device, n=40):
+    """One hypothesis of n active columns, k of them fitting the rotation
+    and the rest gross outliers, with the true rotation as warm start."""
+    src, dst, _, _, rot = gnc_problem(rng, 1, n, device)
+    dst = torch.einsum("ij,bjn->bin", rot, src)
+    dst[:, :, k:] += 10.0
+    return src, dst, torch.ones(1, n, dtype=torch.bool, device=device), rot
+
+
 def phase_kernel_vs_plain(device) -> dict:
     from psulvsb_tpu_torch.ops import gnc
 
     rng = np.random.default_rng(0)
     max_err = 0.0
-    for b, n in KERNEL_SHAPES:
+    shapes = KERNEL_SHAPES + [(b, n) for n in BOUNDARY_N for b in BOUNDARY_B]
+    for b, n in shapes:
         for use_warm in (False, True):
             src, dst, act, nb, warm = gnc_problem(rng, b, n, device)
             args = (src, dst, act, nb, warm, use_warm)
             rk, ik = gnc.gnc_batch(*args, **LOOP)
             rr, ir = gnc.gnc_batch_reference(*args, **LOOP)
-            torch.cuda.synchronize()
-            err = float((rk - rr).abs().max())
-            agree = float(((ik == ir) & act).sum() / act.sum())
-            print(f"[kernel] B={b} N={n} warm={use_warm}: max|dR|={err:.3e} "
-                  f"mask agreement={agree:.5f}")
-            if not err <= ROT_TOL:
-                raise AssertionError(f"rotation mismatch {err} > {ROT_TOL} at B={b} N={n}")
-            if not agree >= MASK_AGREE:
-                raise AssertionError(f"inlier masks agree on {agree} < {MASK_AGREE}")
-            if (ik & ~act).any():
-                raise AssertionError("kernel marked an inactive column as inlier")
-            max_err = max(max_err, err)
+            max_err = max(max_err, check_gnc(f"B={b} N={n} warm={use_warm}", rk, ik, rr, ir, act))
+
+    # The front door's rules, now inside the kernel: the <= 10-inlier
+    # fail-safe and the noise-bound floor (a tight threshold runs the loop
+    # until the outliers drop out).
+    for k in (10, 11):
+        src, dst, act, rot = fail_safe_problem(rng, k, device)
+        one = torch.full((1,), 0.1, device=device)
+        rk, ik = gnc.gnc_batch(src, dst, act, one, rot, True, **LOOP)
+        rr, ir = gnc.gnc_batch_reference(src, dst, act, one, rot, True, **LOOP)
+        max_err = max(max_err, check_gnc(f"{k} fitting columns of 40", rk, ik, rr, ir, act))
+        if not torch.equal(ik, ir) or int(ik.sum()) != (40 if k <= 10 else k):
+            raise AssertionError(f"fail-safe at {k} inliers: kernel kept {int(ik.sum())}")
+    tight = dict(LOOP, cost_threshold=1e-6)
+    src, dst, act, _, warm = gnc_problem(rng, 4, 256, device)
+    floored = {}
+    for nbv in (5e-9, 0.1):
+        nb = torch.full((4,), nbv, device=device)
+        rk, ik = gnc.gnc_batch(src, dst, act, nb, warm, False, **tight)
+        rr, ir = gnc.gnc_batch_reference(src, dst, act, nb, warm, False, **tight)
+        max_err = max(max_err, check_gnc(f"noise bound {nbv}", rk, ik, rr, ir, act))
+        floored[nbv] = ik
+    # Unfloored, a bound of 5e-9 rejects every column and the fail-safe
+    # keeps them all; floored, it keeps what 0.1 keeps.
+    if not int(floored[5e-9].sum()) < int(act.sum()):
+        raise AssertionError("a noise bound of 5e-9 must take the 1e-2 floor")
+    print("[kernel] fail-safe at 10 and 11 inliers and the noise floor as the plain version")
 
     # Edge cases of the front door on the card.
     src, dst, act, nb, _ = gnc_problem(rng, 3, 64, device)
@@ -260,6 +347,10 @@ def phase_kernel_vs_plain(device) -> dict:
         args = (src, dst, act, nb, warm, False)
         ms = median_ms(lambda: gnc.gnc_batch(*args, **LOOP))
         plain = median_ms(lambda: gnc.gnc_batch_reference(*args, **LOOP))
+        # One launch and no other device operation a call.
+        dev_us = kernel_device_us(
+            profiled_kernels(lambda: gnc.gnc_batch(*args, **LOOP)), "gnc_batch"
+        )
         # The bound counts the iterations these inputs run (the plain loop's
         # count) over each hypothesis' active columns.
         _, _, _, iters = gnc_tls_batched(
@@ -270,8 +361,11 @@ def phase_kernel_vs_plain(device) -> dict:
         # a noise bound and a rotation per hypothesis, the warm start.
         bound = bound_ms(b * n * (4 * 3 + 4 * 3 + 1 + 1) + b * (4 + 36) + 36, ops)
         times[(b, n)] = (ms, plain, bound)
+        # The launch lasts as long as its longest hypothesis.
         print(f"[kernel] B={b} N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-              f"(median of 20, CUDA events); iterations {iters.tolist()}, bound "
+              f"(median of 20, CUDA events); device {dev_us:.2f} us a launch (profiler, mean "
+              f"of {PROFILED_REPS}), {dev_us / int(iters.max()):.3f} us an iteration of the "
+              f"longest hypothesis; iterations {iters.tolist()}, bound "
               f"{bound[0]:.6f} ms by {bound[1]}")
     return {"max_abs_err": max_err, "times": times}
 
@@ -322,7 +416,8 @@ def frontend_case(tag):
 
 def path_case(name):
     """(params, case) of a solve path that chip_smoke times:
-    anchor, unknown, gror or frontend."""
+    anchor, unknown, gror, frontend or wide (the anchor protocol at
+    C = 12000, routed to "exact_beta")."""
     from psulvsb_tpu_torch import SolverParams
     from psulvsb_tpu_torch.eval.frontend_protocol import frontend_solver_params
 
@@ -334,6 +429,8 @@ def path_case(name):
         return SolverParams.preset_artificial_gror(**CAPS), anchor_case()
     if name == "frontend":
         return frontend_solver_params(**CAPS), frontend_case(FRONTEND_GATED)
+    if name == "wide":
+        return SolverParams.preset_anchor(), anchor_case(WIDE_C, data_seed=3, cloud_seed=3)
     raise ValueError(f"unknown path {name!r}")
 
 
@@ -453,13 +550,13 @@ def hist_inputs(c, seed, device, test_scale):
     return tuple(torch.as_tensor(x, device=device) for x in (pair.src, pair.dst, act))
 
 
-def compare_counts(what: str, got: torch.Tensor, want: torch.Tensor) -> int:
-    """Total count difference between kernel and plain; more than
-    MAX_FLIPS pairs, or different totals or argmax, is a failure."""
+def compare_counts(what: str, got: torch.Tensor, want: torch.Tensor, flips=MAX_FLIPS) -> int:
+    """Total count difference between kernel and plain; more than `flips`
+    pairs, or different totals or argmax, is a failure."""
     g = got.cpu().numpy().reshape(-1)
     w = want.cpu().numpy().reshape(-1)
     diff = int(np.abs(g - w).sum())
-    if diff and (diff > MAX_FLIPS or (g.size > 1 and (g.sum() != w.sum() or g.argmax() != w.argmax()))):
+    if diff and (diff > flips or (g.size > 1 and (g.sum() != w.sum() or g.argmax() != w.argmax()))):
         raise AssertionError(f"{what}: kernel counts differ from the plain version's by {diff}")
     return diff
 
@@ -480,11 +577,15 @@ def phase_pair_kernels(device) -> dict:
             "coarse 128/16 clamp": dict(num_bins=128, stride=16, clamp_overflow=True),
             f"fine 48/1 drop lo={lo}": dict(num_bins=48, lo_bin=lo, stride=1, clamp_overflow=False),
             "exact_hist 512 clamp": dict(num_bins=512, clamp_overflow=True),
+            f"full {PEAK_BINS}/1 clamp": dict(num_bins=PEAK_BINS, clamp_overflow=True),
+            f"widest {hist.MAX_BINS}/1 drop lo={lo} (device)": dict(
+                num_bins=hist.MAX_BINS, lo_bin=torch.tensor(lo, device=device),
+                clamp_overflow=False),
         }
         for wname, kw in windows.items():
             got = hist.pair_ratio_histogram(src, dst, act, **kw)
             want = hist.pair_ratio_histogram_reference(src, dst, act, **kw)
-            diff = compare_counts(f"C={c} {wname}", got, want)
+            diff = compare_counts(f"C={c} {wname}", got, want, flips=0)
             worst["hist"] = max(worst["hist"], diff)
             print(f"[pairs] C={c} histogram {wname}: total {int(want.sum())}, "
                   f"peak bin {int(want.argmax())}, count difference {diff}")
@@ -496,11 +597,15 @@ def phase_pair_kernels(device) -> dict:
             worst["beta"] = max(worst["beta"], diff)
             print(f"[pairs] C={c} beta count ({preset}, beta={beta}): {int(want)}, "
                   f"difference {diff}")
+        before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
         k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
+        if hist.KERNEL_LAUNCHES["pair_ratio_hist"] != before + 1:
+            raise AssertionError("exact_peak_bin must launch the histogram kernel once a call")
         p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
         if k != p:
             raise AssertionError(f"C={c}: exact_peak_bin {k} != plain {p}")
-        print(f"[pairs] C={c} exact_peak_bin (peak, count, certified) = {tuple(k)}, as plain")
+        print(f"[pairs] C={c} exact_peak_bin (peak, count, certified) = {tuple(k)}, as the "
+              f"plain two passes, in one launch")
     src, dst, act = hist_inputs(1889, 7, device, 200.0)
     k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
     p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
@@ -512,6 +617,10 @@ def phase_pair_kernels(device) -> dict:
     for c in HIST_TIMED_SIZES:
         src, dst, act = hist_inputs(c, c, device, 3.7)
         cases = {
+            "exact_peak_bin": (
+                lambda: hist.exact_peak_bin(src, dst, act),
+                lambda: hist.exact_peak_bin_reference(src, dst, act),
+            ),
             "hist coarse 128/16": (
                 lambda: hist.pair_ratio_histogram(src, dst, act, num_bins=128, stride=16),
                 lambda: hist.pair_ratio_histogram_reference(src, dst, act, num_bins=128, stride=16),
@@ -526,6 +635,8 @@ def phase_pair_kernels(device) -> dict:
             ),
         }
         bounds = {
+            # The full pass's counts, the peak, its count and the certificate.
+            "exact_peak_bin": pair_grid_bound("pair_ratio_hist", act, PEAK_BINS * 8 + 17),
             "hist coarse 128/16": pair_grid_bound("pair_ratio_hist", act, 128 * 8),
             "hist exact_hist 512": pair_grid_bound("pair_ratio_hist", act, 512 * 8),
             "beta 0.1": pair_grid_bound("pair_beta_count", act, 8),
@@ -537,22 +648,28 @@ def phase_pair_kernels(device) -> dict:
             print(f"[pairs] C={c} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                   f"(median of 20, CUDA events); bound {bounds[label][0]:.6f} ms by "
                   f"{bounds[label][1]}")
+        # One launch and the zeroing of its counts a call.
+        dev_us = kernel_device_us(
+            profiled_kernels(lambda: hist.exact_peak_bin(src, dst, act)), "pair_ratio_hist",
+            others=1,
+        )
+        print(f"[pairs] C={c} exact_peak_bin: device {dev_us:.2f} us a launch (profiler, mean "
+              f"of {PROFILED_REPS})")
     return {"max_diff": worst, "times": times}
 
 
 def phase_unknown_scale(device, card: str) -> dict:
     _, launches = drive_path("unknown", device, card, route="dense")
-    if launches["pair_ratio_hist"] <= 0 or launches["gnc_batch"] <= 0:
-        raise AssertionError(f"the unknown-scale solves did not launch both kernels: {launches}")
+    # exact_peak_bin: one histogram launch a solve.
+    if launches["pair_ratio_hist"] != N_TIMED_SOLVES + 1 or launches["gnc_batch"] <= 0:
+        raise AssertionError(f"the unknown-scale solves must launch the histogram kernel once "
+                             f"each and the GNC kernel: {launches}")
     return {"launches": launches}
 
 
 def phase_wide(device) -> dict:
-    from psulvsb_tpu_torch import SolverParams
-
     reset_launches()
-    run_solve("wide", SolverParams.preset_anchor(), anchor_case(WIDE_C, data_seed=3, cloud_seed=3),
-              1, device, "exact_beta")
+    run_solve("wide", *path_case("wide"), 1, device, "exact_beta")
     beta = read_launches()
     if beta["pair_beta_count"] <= 0 or beta["gnc_batch"] <= 0:
         raise AssertionError(f"the C={WIDE_C} known-scale solve missed a kernel: {beta}")
@@ -651,6 +768,9 @@ def phase_frontend(device, card: str) -> dict:
     for name in ("consistency_degree", "pair_ratio_hist", "gnc_batch"):
         if launches[name] <= 0:
             raise AssertionError(f"the front-end solves never launched {name}: {launches}")
+    if launches["pair_ratio_hist"] != len(FRONTEND_TAGS) * N_TIMED_SOLVES:
+        raise AssertionError(f"exact_peak_bin must launch the histogram kernel once a solve: "
+                             f"{launches}")
     return {"launches": launches, "passed": summary}
 
 
@@ -764,7 +884,7 @@ def main() -> int:
             sl["launches"], kern["max_abs_err"], kern["times"][(4, 256)]),
         row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",
             unknown["launches"]["pair_ratio_hist"], pairs["max_diff"]["hist"],
-            pairs["times"][("hist coarse 128/16", UNKNOWN_C)]),
+            pairs["times"][("exact_peak_bin", UNKNOWN_C)]),
         row("pair_beta_count", "pair_beta_count.cu", "psulvsb_tpu/ops/pallas_hist.py:241",
             wide["beta"]["pair_beta_count"], pairs["max_diff"]["beta"],
             pairs["times"][("beta 0.1", 16384)]),

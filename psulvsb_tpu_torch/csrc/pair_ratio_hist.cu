@@ -1,51 +1,68 @@
-// Windowed histogram of pair distance ratios over all active pairs i < j.
+// Windowed histogram of pair distance ratios over all active pairs i < j,
+// and the exact histogram peak of exact_peak_bin in the same launch.
 //
 // Replaces psulvsb_tpu/ops/pallas_hist.py::_pair_ratio_histogram_impl (the
-// Pallas kernel _hist_kernel behind pair_ratio_histogram, which
-// exact_peak_bin calls twice). For each active pair i < j of a (3, C) cloud
-// pair:
+// Pallas kernel _hist_kernel behind pair_ratio_histogram) and the two
+// passes exact_peak_bin makes over it. For each active pair i < j of a
+// (3, C) cloud pair:
 //   v1 = |s_j - s_i|, v2 = |d_j - d_i|, ratio = v2 / (v1 > 0 ? v1 : 1),
 //   fine = max(floor(ratio * bins_per_unit), 0),
 //   idx = floor((fine - lo) / stride)  (floor division),
-// then idx is clamped into [0, num_bins) (coarse pass) or the pair is dropped
-// when idx falls outside it (fine pass). (lo, stride) come from device
-// memory, so the fine pass can take its window from the coarse pass without
-// a host read.
+// then idx is clamped into [0, num_bins) (clamp_overflow) or the pair is
+// dropped when idx falls outside it. lo comes from device memory or from
+// the call.
+//
+// exact_peak_bin in one pass. Its coarse pass (nc bins of `cs` fine bins,
+// the tail clamped) and its fine pass (3 cs fine bins from the coarse
+// argmax - 1) both read off one full-resolution pass with lo = 0, stride 1,
+// the tail clamped, and (nc + 1) cs + 1 bins (2065 at the defaults): coarse
+// bin k < nc - 1 is the sum of full bins [k cs, (k + 1) cs), coarse bin
+// nc - 1 the sum of [(nc - 1) cs, end), and the fine window ends at most at
+// (nc + 1) cs, below the clamp bin. When asked, the last block to finish
+// (a device counter after __threadfence) derives (peak, count, certified)
+// with the two-pass rule (pallas_hist.py:317-344), first maximum winning
+// every argmax, so the result is the two passes' bit for bit, with no
+// second launch and no host read.
 //
 // Numerics. Distances come from direct differences, the squares summed in
 // the order x, y, z with round-to-nearest intrinsics (no contraction into
 // FMAs), and sqrt and the division are IEEE, so every ratio is bit for bit
 // what the plain PyTorch version (ops/hist.py) computes and the counts are
-// equal, not close. The Pallas kernel's |a|^2 + |b|^2 - 2ab form is not
-// used. Counts are exact integers: 32-bit in shared memory (a block sees at
-// most kRows * kThreads pairs) and 64-bit in device memory (one bin can
-// hold all C(C-1)/2 pairs, which overflows 32 bits beyond C of about 65k).
+// equal, not close. Counts are exact integers: 32-bit in shared memory (a
+// block sees at most ~2e9 pairs below C = 2^20) and 64-bit in device memory
+// (one bin can hold all C(C-1)/2 pairs).
 //
-// Design. A 2-D grid of (column tile, row tile) blocks over the pair grid;
-// tiles wholly at or below the diagonal exit at once. A block stages its
-// kRows row points in shared memory; each of its kThreads threads owns one
-// column point in registers and walks the rows, so a warp reads one row
-// point at a time (a shared-memory broadcast). Each pair's bin goes to a
-// shared-memory histogram of num_bins <= 512 counters; lanes of a warp that
-// hit the same bin are merged first (__match_any_sync), so the one shared
-// atomic per distinct bin absorbs the inlier spike where most pairs of a
-// warp share a bin. At the end each block adds its nonzero bins to the
-// 64-bit device counts with one atomic each.
+// What bounds it on the card. C(C-1)/2 pairs (0.78M at C = 1250, 12.5M at
+// C = 5000, 72M at C = 12000) of about 30 floating-point operations each,
+// two square roots and one division, over inputs of 28 bytes a point that
+// stay in L2: arithmetic, and the shared atomics of hot bins. At the
+// front end's C the old fixed 256 x 128 tiles filled 30 of 132 SMs.
 //
-// What bounds it on the card. C(C-1)/2 pairs (12.5M at C = 5000, 134M at
-// C = 16384) of about 30 floating-point operations each, two square roots
-// and one division; the inputs are 28 bytes a point and stay in L2. It is
-// bound by arithmetic and by the shared atomics on a few hot bins, not by
-// memory.
+// Design. Square tiles of T = 32 J rows by T columns (J = 1, 2 or 4), T
+// the largest that still gives four tiles per SM, and only tiles on or
+// above the diagonal, from a 1-D triangular index. A grid of four blocks
+// per SM walks the tiles; each block keeps one shared histogram of up to
+// 4096 32-bit counters for all its tiles, and flushes only its nonzero
+// bins, with one 64-bit atomic each, once. In a tile each lane of a warp
+// owns J columns in registers (J independent pairs a row, for ILP) and
+// each warp walks every eighth row, read as a broadcast from L1; a pair
+// adds one to its bin with one shared atomic (merging the lanes of a warp
+// that share a bin first, with __match_any_sync, was slower on the card at
+// every C measured: the peak bins are not hot enough to pay for it).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // columns per block, one per thread
-constexpr int kRows = 128;     // rows per block
-constexpr int kMaxBins = 512;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSM = 4;  // blocks of the grid, each with its own histogram
+constexpr int kMaxJ = 4;         // columns a lane: tiles of at most 128 x 128 pairs
+constexpr int kMaxBins = 4096;
+constexpr int kMaxCoarse = kMaxBins / 2;   // coarse u64 counts reuse the histogram
+constexpr int kMaxC = 1 << 20;
 constexpr float kFineCap = 1073741824.0f;  // 2^30: any larger fine bin is out of every window
+constexpr long long kLoLimit = 1LL << 30;  // |lo| beyond 2^30 windows nothing more
 
 __device__ __forceinline__ float dist3(float ax, float ay, float az, float bx, float by,
                                        float bz) {
@@ -56,78 +73,186 @@ __device__ __forceinline__ float dist3(float ax, float ay, float az, float bx, f
   return __fsqrt_rn(s);
 }
 
-template <bool kClamp>
+struct Peak {
+  unsigned int* done;             // block counter, zeroed by the caller; null: no peak
+  int coarse_bins, coarse_stride;  // exact_peak_bin's num_bins and stride
+  long long* out;                 // peak fine bin, its count
+  unsigned char* certified;
+};
+
+// First maximum over the lanes of a warp: (value, index), lower index on ties.
+__device__ __forceinline__ void warp_argmax(unsigned long long& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// exact_peak_bin's rule over the full-resolution counts, by the last block.
+__device__ void derive_peak(const unsigned long long* counts, int num_bins, const Peak& p,
+                            unsigned long long* coarse) {
+  const int nc = p.coarse_bins, cs = p.coarse_stride;
+  for (int k = threadIdx.x; k < nc; k += kThreads) {
+    const int end = k < nc - 1 ? (k + 1) * cs : num_bins;
+    unsigned long long sum = 0;
+    for (int f = k * cs; f < end; ++f) sum += __ldcg(counts + f);
+    coarse[k] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  // Coarse argmax.
+  unsigned long long best = 0;
+  int cpeak = kMaxBins;
+  for (int k = lane; k < nc; k += 32) {
+    if (cpeak == kMaxBins || coarse[k] > best) {
+      best = coarse[k];
+      cpeak = k;
+    }
+  }
+  warp_argmax(best, cpeak);
+  // Fine argmax over the 3 cs full bins from the coarse argmax - 1.
+  const int lo = (cpeak > 0 ? cpeak - 1 : 0) * cs;
+  unsigned long long fbest = 0;
+  int fpeak = kMaxBins;
+  for (int f = lane; f < 3 * cs; f += 32) {
+    const unsigned long long v = __ldcg(counts + lo + f);
+    if (fpeak == kMaxBins || v > fbest) {
+      fbest = v;
+      fpeak = f;
+    }
+  }
+  warp_argmax(fbest, fpeak);
+  // Certificate: no coarse bin outside the window (the clamp bin is never
+  // inside it) holds as much as the fine peak, and the peak is not on the
+  // clamp bin.
+  unsigned long long outside = 0;
+  for (int k = lane; k < nc; k += 32) {
+    const bool in_window = (k - cpeak <= 1 && cpeak - k <= 1) && k < nc - 1;
+    if (!in_window && coarse[k] > outside) outside = coarse[k];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xffffffffu, outside, off);
+    outside = o > outside ? o : outside;
+  }
+  if (lane == 0) {
+    p.out[0] = lo + fpeak;
+    p.out[1] = static_cast<long long>(fbest);
+    *p.certified = (outside < (fbest > 0 ? fbest : 1ull)) && cpeak < nc - 1;
+  }
+}
+
+template <int J, bool kClamp>
 __global__ void __launch_bounds__(kThreads)
     pair_ratio_hist_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                            const unsigned char* __restrict__ act, int c, float bins_per_unit,
-                           const int* __restrict__ window, int num_bins,
-                           unsigned long long* __restrict__ counts) {
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kThreads;
-  // No pair i < j in this tile: every row is at or past every column.
-  if (row0 >= col0 + kThreads - 1) return;
-
-  __shared__ unsigned int hist[kMaxBins];
-  __shared__ float rs[3][kRows];
-  __shared__ float rd[3][kRows];
-  __shared__ unsigned char ra[kRows];
+                           const long long* __restrict__ lo_ptr, long long lo_imm, int stride,
+                           int num_bins, int tiles_per_side,
+                           unsigned long long* __restrict__ counts, const Peak peak) {
+  constexpr int kTile = 32 * J;
+  __shared__ __align__(8) unsigned int hist[kMaxBins];
+  __shared__ bool is_last;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   for (int k = tid; k < num_bins; k += kThreads) hist[k] = 0u;
-  if (tid < kRows) {
-    const int i = row0 + tid;
-    const bool in = i < c;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      rs[d][tid] = in ? src[static_cast<size_t>(d) * c + i] : 0.0f;
-      rd[d][tid] = in ? dst[static_cast<size_t>(d) * c + i] : 0.0f;
-    }
-    ra[tid] = in ? act[i] : 0;
-  }
+  long long lo64 = lo_ptr != nullptr ? *lo_ptr : lo_imm;
+  lo64 = lo64 < -(kLoLimit - 1) ? -(kLoLimit - 1) : (lo64 > kLoLimit + 1 ? kLoLimit + 1 : lo64);
+  const int lo = static_cast<int>(lo64);  // fine - lo stays inside int32
   __syncthreads();
 
-  const int lo = window[0];
-  const int stride = window[1];
-  const int j = col0 + tid;
-  const bool col_in = j < c;
-  const bool col_ok = col_in && act[j] != 0;
-  float sx = 0.f, sy = 0.f, sz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (col_in) {
-    sx = src[j];
-    sy = src[static_cast<size_t>(c) + j];
-    sz = src[2 * static_cast<size_t>(c) + j];
-    dx = dst[j];
-    dy = dst[static_cast<size_t>(c) + j];
-    dz = dst[2 * static_cast<size_t>(c) + j];
-  }
-  const int lane = tid & 31;
+  const long long tiles = static_cast<long long>(tiles_per_side) * (tiles_per_side + 1) / 2;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // Tile (ti, tj), ti <= tj, from tile = tj (tj + 1) / 2 + ti.
+    long long tj = static_cast<long long>((sqrtf(8.0f * tile + 1.0f) - 1.0f) * 0.5f);
+    while (tj * (tj + 1) / 2 > tile) --tj;
+    while ((tj + 1) * (tj + 2) / 2 <= tile) ++tj;
+    const int row0 = static_cast<int>(tile - tj * (tj + 1) / 2) * kTile;
+    const int col0 = static_cast<int>(tj) * kTile;
 
-  // Every lane of a warp runs every row, so the warp stays converged for
-  // __match_any_sync; invalid pairs vote with key -1 and add nothing.
-  for (int r = 0; r < kRows; ++r) {
-    bool valid = col_ok && ra[r] != 0 && (row0 + r) < j;
-    const float v1 = dist3(sx, sy, sz, rs[0][r], rs[1][r], rs[2][r]);
-    const float v2 = dist3(dx, dy, dz, rd[0][r], rd[1][r], rd[2][r]);
-    const float ratio = __fdiv_rn(v2, v1 > 0.0f ? v1 : 1.0f);
-    float f = floorf(__fmul_rn(ratio, bins_per_unit));
-    f = fminf(fmaxf(f, 0.0f), kFineCap);
-    const int fine = static_cast<int>(f);
-    const int d = fine - lo;
-    int idx = d >= 0 ? d / stride : -((stride - 1 - d) / stride);
-    if (kClamp) {
-      idx = min(max(idx, 0), num_bins - 1);
-    } else {
-      valid = valid && idx >= 0 && idx < num_bins;
+    float sx[J], sy[J], sz[J], dx[J], dy[J], dz[J];
+    int col[J];
+    bool col_ok[J];
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+      const int j = col0 + lane + 32 * k;
+      col[k] = j;
+      col_ok[k] = j < c && (act == nullptr || act[j] != 0);
+      const int jj = j < c ? j : 0;
+      sx[k] = src[jj];
+      sy[k] = src[c + jj];
+      sz[k] = src[2 * c + jj];
+      dx[k] = dst[jj];
+      dy[k] = dst[c + jj];
+      dz[k] = dst[2 * c + jj];
     }
-    const int key = valid ? idx : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[key], __popc(peers));
+    for (int r = warp; r < kTile; r += kWarps) {
+      const int i = row0 + r;
+      if (i >= c) break;                               // uniform in the warp
+      if (act != nullptr && act[i] == 0) continue;     // uniform in the warp
+      const float rx = src[i], ry = src[c + i], rz = src[2 * c + i];
+      const float qx = dst[i], qy = dst[c + i], qz = dst[2 * c + i];
+#pragma unroll
+      for (int k = 0; k < J; ++k) {
+        const float v1 = dist3(sx[k], sy[k], sz[k], rx, ry, rz);
+        const float v2 = dist3(dx[k], dy[k], dz[k], qx, qy, qz);
+        const float ratio = __fdiv_rn(v2, v1 > 0.0f ? v1 : 1.0f);
+        float f = floorf(__fmul_rn(ratio, bins_per_unit));
+        f = fminf(fmaxf(f, 0.0f), kFineCap);
+        const int d = static_cast<int>(f) - lo;
+        int idx = d;
+        if (stride != 1) {  // floor division
+          idx = d / stride;
+          if (d % stride != 0 && d < 0) --idx;
+        }
+        bool valid = col_ok[k] && i < col[k];
+        if (kClamp) {
+          idx = min(max(idx, 0), num_bins - 1);
+        } else {
+          valid = valid && idx >= 0 && idx < num_bins;
+        }
+        if (valid) atomicAdd(&hist[idx], 1u);
+      }
+    }
   }
   __syncthreads();
 
   for (int k = tid; k < num_bins; k += kThreads) {
     const unsigned int h = hist[k];
     if (h != 0u) atomicAdd(&counts[k], static_cast<unsigned long long>(h));
+  }
+  if (peak.done == nullptr) return;  // uniform: no peak asked for
+
+  // The last block to finish derives the peak from every block's counts.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(peak.done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  derive_peak(counts, num_bins, peak, reinterpret_cast<unsigned long long*>(hist));
+}
+
+template <int J>
+void launch(bool clamp, dim3 grid, cudaStream_t st, const float* src, const float* dst,
+            const unsigned char* act, int c, float bins_per_unit, const long long* lo_ptr,
+            long long lo_imm, int stride, int num_bins, int tiles_per_side,
+            unsigned long long* counts, const Peak& peak) {
+  if (clamp) {
+    pair_ratio_hist_kernel<J, true><<<grid, kThreads, 0, st>>>(
+        src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride, num_bins, tiles_per_side,
+        counts, peak);
+  } else {
+    pair_ratio_hist_kernel<J, false><<<grid, kThreads, 0, st>>>(
+        src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride, num_bins, tiles_per_side,
+        counts, peak);
   }
 }
 
@@ -136,25 +261,59 @@ __global__ void __launch_bounds__(kThreads)
 // Adds the histogram of the active pairs i < j to `counts` (num_bins
 // 64-bit integers the caller zeroed) on `stream`; returns
 // cudaGetLastError() as an int (0 on success). src and dst are (3, c)
-// contiguous float32, act c bytes of 0/1, window two int32 (lo, stride)
-// with stride >= 1, all device pointers.
+// contiguous float32, act c bytes of 0/1 or null (all active); the window
+// starts at *lo_ptr (int64 on the device) or, when lo_ptr is null, at
+// lo_imm, with stride >= 1. With done non-null (a zeroed uint32 on the
+// device), the window must be exact_peak_bin's full pass (lo 0, stride 1,
+// clamped, num_bins = (coarse_bins + 1) coarse_stride + 1), and the last
+// block writes the peak fine bin and its count to peak_out[0..1] and the
+// certificate to *certified.
 extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const unsigned char* act,
-                                      int c, float bins_per_unit, const int* window, int num_bins,
+                                      int c, float bins_per_unit, const long long* lo_ptr,
+                                      long long lo_imm, int stride, int num_bins,
                                       int clamp_overflow, unsigned long long* counts,
+                                      unsigned int* done, int coarse_bins, int coarse_stride,
+                                      long long* peak_out, unsigned char* certified,
                                       void* stream) {
-  if (c < 0 || num_bins < 1 || num_bins > kMaxBins) {
+  if (c < 0 || c > kMaxC || num_bins < 1 || num_bins > kMaxBins || stride < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (c < 2) return static_cast<int>(cudaGetLastError());
+  if (done != nullptr &&
+      (coarse_bins < 2 || coarse_bins > kMaxCoarse || coarse_stride < 1 ||
+       (coarse_bins + 1) * coarse_stride + 1 != num_bins || !clamp_overflow || stride != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int min_tiles = kBlocksPerSM * sms;
+  // The largest tile that still gives every block of the grid a tile.
+  int j = kMaxJ;
+  while (j > 1) {
+    const long long side = (c + 32LL * j - 1) / (32LL * j);
+    if (side * (side + 1) / 2 >= min_tiles) break;
+    j /= 2;
+  }
+  const int side = c > 0 ? (c + 32 * j - 1) / (32 * j) : 0;
+  const long long tiles = static_cast<long long>(side) * (side + 1) / 2;
+  // One block even with no pair, so that the peak is always derived.
+  const dim3 grid(static_cast<unsigned int>(tiles < min_tiles ? (tiles > 0 ? tiles : 1)
+                                                              : min_tiles));
+  const Peak peak{done, coarse_bins, coarse_stride, peak_out, certified};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c + kThreads - 1) / kThreads, (c + kRows - 1) / kRows);
-  const dim3 block(kThreads);
-  if (clamp_overflow) {
-    pair_ratio_hist_kernel<true><<<grid, block, 0, st>>>(src, dst, act, c, bins_per_unit, window,
-                                                         num_bins, counts);
-  } else {
-    pair_ratio_hist_kernel<false><<<grid, block, 0, st>>>(src, dst, act, c, bins_per_unit, window,
-                                                          num_bins, counts);
+  const bool clamp = clamp_overflow != 0;
+  switch (j) {
+    case 4:
+      launch<4>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
+                num_bins, side, counts, peak);
+      break;
+    case 2:
+      launch<2>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
+                num_bins, side, counts, peak);
+      break;
+    default:
+      launch<1>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
+                num_bins, side, counts, peak);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 Each kernel is one `csrc/<name>.cu` file with a plain C entry point. At
 first use it is compiled by nvcc for Hopper (sm_90a) into a shared library
 under `build/psulvsb_tpu_torch/` beside the package, named by a hash of the
-source so an edited kernel is rebuilt, and loaded with ctypes. Nothing is
+source so an edited kernel is rebuilt, and loaded with ctypes; `launcher`
+hands out its C entry point with the argument types set once. Nothing is
 built when a module is imported.
 """
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: dict[str, ctypes._CFuncPtr] = {}
 # name -> {"seconds": build time (0.0 when the library was already built),
 # "log": nvcc's output, including ptxas's register and shared-memory report}
 BUILD_INFO: dict[str, dict] = {}
@@ -74,3 +76,15 @@ def load_library(name: str) -> ctypes.CDLL:
     _LOADED[name] = lib
     BUILD_INFO[name] = info
     return lib
+
+
+def launcher(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point `<name>_launch` of csrc/<name>.cu, built and loaded
+    on first use, with its int result and `argtypes` set once."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        fn = getattr(load_library(name), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _LAUNCHERS[name] = fn
+    return fn

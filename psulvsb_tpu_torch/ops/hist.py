@@ -1,7 +1,8 @@
 """Pair-grid sweeps of the init stage: the ratio histogram
 (`csrc/pair_ratio_hist.cu`) and the known-scale window count
 (`csrc/pair_beta_count.cu`), each with its plain PyTorch version, and
-`exact_peak_bin`, the two-pass exact histogram peak.
+`exact_peak_bin`, the two-pass exact histogram peak read off one
+full-resolution pass (on the card, one launch of the histogram kernel).
 
 The functions keep the signatures of the JAX package's front doors
 (psulvsb_tpu/ops/pallas_hist.py): points as (3, C), an optional (C,)
@@ -17,32 +18,48 @@ adds one to `KERNEL_LAUNCHES[name]`.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_longlong, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import load_library
+from psulvsb_tpu_torch.ops._build import launcher
 
-MAX_BINS = 512  # the histogram kernel keeps its bins in shared memory
+MAX_BINS = 4096  # the histogram kernel keeps its bins in 16 KB of shared memory
+MAX_COARSE_BINS = 2048  # exact_peak_bin's coarse counts reuse that memory as int64
 KERNEL_LAUNCHES = {"pair_ratio_hist": 0, "pair_beta_count": 0}
 _FINE_CAP = float(1 << 30)  # fine bins past 2^30 fall outside every window
 _ROW_CHUNK = 1024  # rows per step of the plain versions' sweep
+# pair_ratio_hist_launch: src, dst, mask (null: all active), C,
+# bins_per_unit, lo pointer (null: lo_imm), lo_imm, stride, num_bins, clamp,
+# counts, block counter, coarse bins, coarse stride, peak out, certified
+# out, stream.
+_HIST_ARGTYPES = (
+    [c_void_p] * 3 + [c_int, c_float, c_void_p, c_longlong] + [c_int] * 3
+    + [c_void_p] * 2 + [c_int] * 2 + [c_void_p] * 3
+)
+# pair_beta_count_launch: src, dst, mask, C, beta, count, stream.
+_BETA_ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
 
 
-def _check(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor:
-    """Validate (3, C) inputs; return the (C,) bool active mask."""
+def _check_clouds(src: torch.Tensor, dst: torch.Tensor) -> None:
     if src.dim() != 2 or src.shape[0] != 3 or tuple(dst.shape) != tuple(src.shape):
         raise ValueError(
             f"src and dst must both be (3, C), got {tuple(src.shape)} and {tuple(dst.shape)}"
         )
+    if dst.device != src.device:
+        raise ValueError(f"dst is on {dst.device}, expected {src.device}")
+
+
+def _check(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor:
+    """Validate (3, C) inputs; return the (C,) bool active mask."""
+    _check_clouds(src, dst)
     c = src.shape[1]
     if active is None:
         return torch.ones(c, dtype=torch.bool, device=src.device)
     if tuple(active.shape) != (c,):
         raise ValueError(f"active must be ({c},), got {tuple(active.shape)}")
-    for name, t in (("dst", dst), ("active", active)):
-        if t.device != src.device:
-            raise ValueError(f"{name} is on {t.device}, expected {src.device}")
+    if active.device != src.device:
+        raise ValueError(f"active is on {active.device}, expected {src.device}")
     return active.to(torch.bool)
 
 
@@ -126,12 +143,43 @@ def pair_beta_count_reference(
 
 
 def _cuda_inputs(src, dst, active):
+    """Contiguous float32 (3, C) clouds and the checked bool mask (None:
+    all active) for a kernel, which reads the mask's bytes; no device
+    operation when the inputs already are so."""
     f32 = torch.float32
-    return (
-        src.to(f32).contiguous(),
-        dst.to(f32).contiguous(),
-        active.to(torch.uint8).contiguous(),
-    )
+    a = None if active is None else active.contiguous()
+    return src.to(f32).contiguous(), dst.to(f32).contiguous(), a
+
+
+def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow,
+                 counts, peak=None):
+    """One launch of csrc/pair_ratio_hist.cu adding into `counts`; `peak`:
+    device addresses and window of exact_peak_bin's full pass (block
+    counter, coarse bins, coarse stride, (peak, count) out, certified out),
+    or None."""
+    if active is None:
+        _check_clouds(src, dst)
+    else:
+        active = _check(src, dst, active)
+    dev = src.device
+    s, d, a = _cuda_inputs(src, dst, active)
+    if isinstance(lo_bin, torch.Tensor):
+        lo = lo_bin.to(device=dev, dtype=torch.int64)
+        lo_ptr, lo_imm = lo.data_ptr(), 0
+    else:
+        lo_ptr, lo_imm = None, int(lo_bin)
+    done, coarse_bins, coarse_stride, out, cert = peak or (None, 0, 0, None, None)
+    fn = launcher("pair_ratio_hist", _HIST_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(
+            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[1],
+            float(bins_per_unit), lo_ptr, lo_imm, stride, num_bins, int(bool(clamp_overflow)),
+            counts.data_ptr(), done, coarse_bins, coarse_stride, out, cert,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pair_ratio_hist kernel launch failed with CUDA error {err}")
+    KERNEL_LAUNCHES["pair_ratio_hist"] += 1
 
 
 def pair_ratio_histogram(
@@ -156,28 +204,9 @@ def pair_ratio_histogram(
         return pair_ratio_histogram_reference(
             src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow
         )
-    active = _check(src, dst, active)
     _check_window(num_bins, stride)
-    dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active)
-    lo = torch.as_tensor(lo_bin, device=dev).to(torch.int32).reshape(1)
-    window = torch.cat([lo, torch.full((1,), stride, dtype=torch.int32, device=dev)])
-    counts = torch.zeros(num_bins, dtype=torch.int64, device=dev)
-    lib = load_library("pair_ratio_hist")
-    fn = lib.pair_ratio_hist_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p] + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            s.data_ptr(), d.data_ptr(), a.data_ptr(), s.shape[1], float(bins_per_unit),
-            window.data_ptr(), num_bins, int(bool(clamp_overflow)), counts.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pair_ratio_hist kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES["pair_ratio_hist"] += 1
+    counts = torch.zeros(num_bins, dtype=torch.int64, device=src.device)
+    _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow, counts)
     return counts
 
 
@@ -198,12 +227,7 @@ def pair_beta_count(
     dev = src.device
     s, d, a = _cuda_inputs(src, dst, active)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
-    lib = load_library("pair_beta_count")
-    fn = lib.pair_beta_count_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    fn = launcher("pair_beta_count", _BETA_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -216,19 +240,25 @@ def pair_beta_count(
     return count[0]
 
 
-def _exact_peak_bin(hist, src, dst, active, bins_per_unit, num_bins, stride):
-    """exact_peak_bin over the histogram function `hist`."""
-    coarse = hist(
-        src, dst, active, bins_per_unit=bins_per_unit, num_bins=num_bins,
-        lo_bin=0, stride=stride, clamp_overflow=True,
-    )
+def _check_peak_window(num_bins: int, stride: int) -> int:
+    """Validate exact_peak_bin's window; return the bins of its full pass,
+    (num_bins + 1) stride + 1."""
+    full = (num_bins + 1) * stride + 1
+    if num_bins < 2 or stride < 1 or num_bins > MAX_COARSE_BINS or full > MAX_BINS:
+        raise ValueError(
+            f"exact_peak_bin needs 2 <= num_bins <= {MAX_COARSE_BINS}, stride >= 1 and "
+            f"(num_bins + 1) stride + 1 <= {MAX_BINS}, got num_bins={num_bins}, stride={stride}"
+        )
+    return full
+
+
+def _peak_rule(coarse, fine_from, num_bins, stride):
+    """exact_peak_bin's rule (pallas_hist.py:317-344) from the coarse counts
+    and fine_from(lo), the 3 stride fine counts from fine bin lo."""
     cpeak = torch.argmax(coarse)
     # Fine window: the coarse argmax bin ±1, aligned down to the stride.
     lo = torch.clamp(cpeak - 1, min=0) * stride
-    fine = hist(
-        src, dst, active, bins_per_unit=bins_per_unit, num_bins=3 * stride,
-        lo_bin=lo, stride=1, clamp_overflow=False,
-    )
+    fine = fine_from(lo)
     fpeak = torch.argmax(fine)
     peak_count = fine.index_select(0, fpeak.reshape(1))[0]
     # Certificate: every fine bin under coarse bin k counts at most
@@ -242,6 +272,21 @@ def _exact_peak_bin(hist, src, dst, active, bins_per_unit, num_bins, stride):
     return lo + fpeak, peak_count, certified
 
 
+def peak_from_full_histogram(
+    full: torch.Tensor, num_bins: int = 128, stride: int = 16
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """exact_peak_bin's (peak, count, certified) from one full-resolution
+    histogram (lo 0, stride 1, tail clamped, (num_bins + 1) stride + 1
+    bins): coarse bin k < num_bins - 1 sums full bins [k stride, (k + 1)
+    stride), the last coarse bin sums the rest, and the fine window, which
+    ends at most at (num_bins + 1) stride, is read off the full bins. The
+    plain version of the derivation the kernel's last block makes."""
+    head = (num_bins - 1) * stride
+    coarse = torch.cat([full[:head].reshape(num_bins - 1, stride).sum(1), full[head:].sum()[None]])
+    offsets = torch.arange(3 * stride, device=full.device)
+    return _peak_rule(coarse, lambda lo: full.index_select(0, lo + offsets), num_bins, stride)
+
+
 def exact_peak_bin(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -250,16 +295,34 @@ def exact_peak_bin(
     num_bins: int = 128,
     stride: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exact global-argmax fine bin from a coarse pass (num_bins bins of
-    `stride` fine bins, tail clamped) and a fine pass over the coarse
-    argmax ±1 (rules of pallas_hist.py:317-344). Returns (peak fine bin,
-    its count, certified): `certified` is false when a coarse bin outside
-    the refined window could hold a larger fine bin, or the coarse argmax
-    is the clamp bin; the caller then falls back. All three are 0-d
-    tensors on the input's device; nothing is read on the host."""
-    return _exact_peak_bin(
-        pair_ratio_histogram, src, dst, active, bins_per_unit, num_bins, stride
+    """Exact global-argmax fine bin by the two-pass rule of
+    pallas_hist.py:317-344 (a coarse pass of num_bins bins of `stride` fine
+    bins, tail clamped, then a fine pass over the coarse argmax ±1), read
+    off one full-resolution pass (`peak_from_full_histogram`). Returns
+    (peak fine bin, its count, certified): `certified` is false when a
+    coarse bin outside the refined window could hold a larger fine bin, or
+    the coarse argmax is the clamp bin; the caller then falls back. All
+    three are 0-d tensors on the input's device; nothing is read on the
+    host. CPU tensors run the plain full pass and derivation; CUDA tensors
+    one kernel launch, whose last block derives the three (no fallback)."""
+    full_bins = _check_peak_window(num_bins, stride)
+    if not src.is_cuda:
+        full = pair_ratio_histogram_reference(
+            src, dst, active, bins_per_unit, full_bins, 0, 1, clamp_overflow=True
+        )
+        return peak_from_full_histogram(full, num_bins, stride)
+    dev = src.device
+    # Full counts, then the block counter (a uint32 in an int64 slot), the
+    # peak and its count.
+    buf = torch.zeros(full_bins + 3, dtype=torch.int64, device=dev)
+    certified = torch.empty((), dtype=torch.bool, device=dev)
+    base = buf.data_ptr()
+    _launch_hist(
+        src, dst, active, bins_per_unit, full_bins, 0, 1, True, buf,
+        peak=(base + 8 * full_bins, num_bins, stride, base + 8 * (full_bins + 1),
+              certified.data_ptr()),
     )
+    return buf[full_bins + 1], buf[full_bins + 2], certified
 
 
 def exact_peak_bin_reference(
@@ -270,7 +333,18 @@ def exact_peak_bin_reference(
     num_bins: int = 128,
     stride: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`exact_peak_bin` over the plain histogram on any device."""
-    return _exact_peak_bin(
-        pair_ratio_histogram_reference, src, dst, active, bins_per_unit, num_bins, stride
+    """The two-pass exact_peak_bin over the plain histogram, on any device:
+    a coarse pass and a fine pass."""
+    _check_peak_window(num_bins, stride)
+    coarse = pair_ratio_histogram_reference(
+        src, dst, active, bins_per_unit=bins_per_unit, num_bins=num_bins,
+        lo_bin=0, stride=stride, clamp_overflow=True,
     )
+
+    def fine_from(lo):
+        return pair_ratio_histogram_reference(
+            src, dst, active, bins_per_unit=bins_per_unit, num_bins=3 * stride,
+            lo_bin=lo, stride=1, clamp_overflow=False,
+        )
+
+    return _peak_rule(coarse, fine_from, num_bins, stride)

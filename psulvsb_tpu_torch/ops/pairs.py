@@ -16,14 +16,16 @@ adds one to `KERNEL_LAUNCHES`.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import load_library
+from psulvsb_tpu_torch.ops._build import launcher
 from psulvsb_tpu_torch.ops.hist import _check
 
 KERNEL_LAUNCHES = 0
+# consistency_degree_launch: src, dst, mask, C, tau, degrees, stream.
+_ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
 _ROW_CHUNK = 512  # rows per step of the plain version's sweep
 
 
@@ -81,12 +83,7 @@ def consistency_degree(
     a = active.to(torch.uint8).contiguous()
     c = s.shape[1]
     deg = torch.empty(c, dtype=torch.int32, device=dev)
-    lib = load_library("consistency_degree")
-    fn = lib.consistency_degree_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    fn = launcher("consistency_degree", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(s.data_ptr(), d.data_ptr(), a.data_ptr(), c, float(tau), deg.data_ptr(), stream)

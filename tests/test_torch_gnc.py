@@ -64,15 +64,15 @@ def _problem(rng, b, n, outliers=0.3, masked=0.0):
     return src, dst, act, rots
 
 
-def _both(jref, src, dst, act, nb, warm, use_warm):
+def _both(jref, src, dst, act, nb, warm, use_warm, loop=LOOP):
     jnp = jref.jnp
     rj, ij = jref.gnc_batch(
         jnp.asarray(src), jnp.asarray(dst), jnp.asarray(act), jnp.asarray(nb),
-        jnp.asarray(warm), jnp.asarray(use_warm), **LOOP,
+        jnp.asarray(warm), jnp.asarray(use_warm), **loop,
     )
     rt, it = tops.gnc_batch(
         torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(act),
-        torch.as_tensor(nb), torch.as_tensor(warm), use_warm, **LOOP,
+        torch.as_tensor(nb), torch.as_tensor(warm), use_warm, **loop,
     )
     return np.asarray(rj), np.asarray(ij), rt.numpy(), it.numpy()
 
@@ -175,6 +175,45 @@ def test_all_inactive_hypothesis_gives_identity_and_no_inliers(jref, rng):
     assert not np.asarray(ij)[1].any()
 
 
+def _fail_safe_problem(rng, k, n=40):
+    """One hypothesis of n active columns of which k fit the rotation and
+    the rest are gross outliers; the true rotation as the warm start."""
+    r = _rotation(rng)
+    src = rng.normal(size=(1, 3, n)).astype(np.float32)
+    dst = np.einsum("ij,bjn->bin", r, src).astype(np.float32)
+    dst[:, :, k:] += rng.normal(size=(1, 3, n - k)).astype(np.float32) * 5.0 + 10.0
+    return src, dst, np.ones((1, n), bool), r
+
+
+@pytest.mark.parametrize("k", [10, 11])
+def test_fail_safe_edge(jref, rng, k):
+    """At most 10 columns with w >= 0.5 give every active column; 11 give
+    those 11 (registration.cc:1685-1690)."""
+    src, dst, act, r = _fail_safe_problem(rng, k)
+    rj, ij, rt, it = _both(jref, src, dst, act, np.full((1,), 0.1, np.float32), r, True)
+    _assert_agree(rj, ij, rt, it, act)
+    expect = act[0] if k <= 10 else np.arange(act.shape[1]) < k
+    np.testing.assert_array_equal(it[0], expect)
+    np.testing.assert_array_equal(ij[0], expect)
+
+
+def test_noise_floor(jref, rng):
+    """A noise bound whose square is below 1e-16 takes the 1e-2 floor: the
+    result of 5e-9 is that of 0.1; 2e-8 (square 4e-16) is not floored. A
+    tight cost threshold runs the loop until the outliers drop out."""
+    src, dst, act, _ = _problem(rng, 3, 64, masked=0.3)
+    warm = np.eye(3, dtype=np.float32)
+    loop = dict(LOOP, cost_threshold=1e-6)
+    out = {nb: _both(jref, src, dst, act, np.full((3,), nb, np.float32), warm, False, loop)
+           for nb in (5e-9, 0.1, 2e-8)}
+    for rj, ij, rt, it in out.values():
+        _assert_agree(rj, ij, rt, it, act)
+    # 0.1 ** 2 is 1e-2 up to float32 rounding.
+    np.testing.assert_allclose(out[5e-9][2], out[0.1][2], atol=ROT_TOL)
+    np.testing.assert_array_equal(out[5e-9][3], out[0.1][3])
+    assert out[0.1][3].sum() < act.sum() and np.array_equal(out[2e-8][3], act)
+
+
 @pytest.mark.parametrize("b,n", [(2, 0), (0, 8), (1, tops.MAX_N + 1)])
 def test_bad_sizes_raise(b, n):
     src = torch.zeros(b, 3, n)
@@ -200,3 +239,46 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, n, use_warm):
     assert tops.KERNEL_LAUNCHES == before + 1
     rr, ir = tops.gnc_batch_reference(*args, **LOOP)
     _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 10, 11, 32, 255, 256, 257, 1024, 1025, 2048])
+@pytest.mark.parametrize("b", [1, 16])
+def test_cuda_kernel_boundary_shapes(cuda_device, b, n):
+    """Both kernel variants (a warp a hypothesis up to N = 256, a block
+    beyond) and every column count, against the plain version."""
+    rng = np.random.default_rng(7 * n + b)
+    src, dst, act, rots = _problem(rng, b, n, masked=0.3)
+    args = [
+        torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device),
+        torch.as_tensor(act, device=cuda_device), torch.full((b,), 0.1, device=cuda_device),
+        torch.as_tensor(rots[0], device=cuda_device),
+    ]
+    for use_warm in (False, True):
+        rk, ik = tops.gnc_batch(*args, use_warm, **LOOP)
+        rr, ir = tops.gnc_batch_reference(*args, use_warm, **LOOP)
+        _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)
+
+
+@pytest.mark.cuda
+def test_cuda_front_door_rules(cuda_device):
+    """The noise floor and the <= 10-inlier fail-safe, now in the kernel."""
+    rng = np.random.default_rng(5)  # no conftest fixtures on the card
+    t = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    for k in (10, 11):
+        src, dst, act, r = _fail_safe_problem(rng, k)
+        rk, ik = tops.gnc_batch(t(src), t(dst), t(act), t(np.full((1,), 0.1, np.float32)), t(r),
+                                True, **LOOP)
+        rr, ir = tops.gnc_batch_reference(t(src), t(dst), t(act),
+                                          t(np.full((1,), 0.1, np.float32)), t(r), True, **LOOP)
+        assert torch.equal(ik, ir) and int(ik.sum()) == (40 if k == 10 else 11)
+        np.testing.assert_allclose(rk.cpu().numpy(), rr.cpu().numpy(), atol=ROT_TOL)
+    src, dst, act, _ = _problem(rng, 3, 64, masked=0.3)
+    loop = dict(LOOP, cost_threshold=1e-6)
+    for nb in (5e-9, 0.0, 2e-8, 0.1):
+        args = [t(src), t(dst), t(act), t(np.full((3,), nb, np.float32)),
+                t(np.eye(3, dtype=np.float32)), False]
+        rk, ik = tops.gnc_batch(*args, **loop)
+        rr, ir = tops.gnc_batch_reference(*args, **loop)
+        _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)
+

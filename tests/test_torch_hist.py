@@ -12,9 +12,12 @@ distances from direct differences in float32). Against the Pallas kernels,
 whose distances come from |a|^2 + |b|^2 - 2ab, at most 2 pairs per call may
 move to a neighbouring bin or across the beta edge, with equal totals for
 clamped windows and the same argmax; exact_peak_bin's peak, count and
-certificate equal. The CUDA cases hold each kernel against its plain version
-on the card and skip here; they need no JAX (`python -m pytest
-tests/test_torch_hist.py -m cuda --noconftest`).
+certificate equal. exact_peak_bin reads the two-pass rule off one
+full-resolution histogram (2065 bins at its defaults); the plain two passes
+and the Pallas front door hold it. The CUDA cases hold each kernel against
+its plain version on the card (histogram counts equal) and skip here; they
+need no JAX (`python -m pytest tests/test_torch_hist.py -m cuda
+--noconftest`).
 """
 
 import types
@@ -156,6 +159,77 @@ def test_exact_peak_bin_matches_pallas(jref, case):
     assert bool(got[2]) == (case == "clustered")
 
 
+def _peak_case(case):
+    """Inputs of the one-launch peak rule's cases, as numpy arrays."""
+    rng = np.random.default_rng(11)
+    if case == "inside_3.7x":  # the peak (fine bin ~74) inside the coarse window
+        return _inputs(150, 4)
+    if case == "coarse_peak_at_0":  # ratio 0.3: fine bin 6, coarse bin 0, lo = 0
+        src = rng.normal(size=(3, 120)).astype(np.float32)
+        dst = (src * 0.3 + rng.normal(size=(3, 120)) * 0.002).astype(np.float32)
+        return src, dst, np.ones(120, bool)
+    if case == "clamp_bin_200x":  # every ratio past the last coarse bin
+        src = rng.normal(size=(3, 100)).astype(np.float32)
+        dst = (src * 200.0 + rng.normal(size=(3, 100)) * 0.01).astype(np.float32)
+        return src, dst, np.ones(100, bool)
+    if case == "fine_tie":  # 3 pairs, ratios 1.52, 1.57, 1.62: fine bins 30, 31, 32 once each
+        src = np.array([[0, 1, 0], [0, 0, 1], [0, 0, 0]], np.float32)
+        dst = np.array([[0, 1.52, 0], [0, 0, 1.62], [0, 0, 0]], np.float32)
+        return src, dst, np.ones(3, bool)
+    if case == "all_inactive":
+        src = rng.normal(size=(3, 50)).astype(np.float32)
+        return src, src * 2.0, np.zeros(50, bool)
+    assert case == "c2"
+    return np.array([[0, 1], [0, 0], [0, 0]], np.float32), np.array(
+        [[0, 2.5], [0, 0], [0, 0]], np.float32), np.ones(2, bool)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["inside_3.7x", "coarse_peak_at_0", "clamp_bin_200x", "fine_tie", "all_inactive", "c2"],
+)
+def test_one_launch_peak_rule(jref, case):
+    """(peak, count, certified) read off one 2065-bin full pass equal the
+    two-pass rule's, plain and Pallas (interpret mode)."""
+    src, dst, act = _peak_case(case)
+    s, d, a = (torch.as_tensor(x) for x in (src, dst, act))
+    full_bins = (128 + 1) * 16 + 1
+    full = hist.pair_ratio_histogram_reference(s, d, a, num_bins=full_bins)
+    assert full_bins == 2065 and int(full.sum()) == int(a.sum()) * (int(a.sum()) - 1) // 2
+    got = [int(x) for x in hist.peak_from_full_histogram(full, 128, 16)]
+    assert got == [int(x) for x in hist.exact_peak_bin(s, d, a)]
+    assert got == [int(x) for x in hist.exact_peak_bin_reference(s, d, a)]
+    jnp = jref.jnp
+    want = [int(x) for x in jref.ph.exact_peak_bin(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(act)
+    )]
+    assert got == want
+    coarse = hist.pair_ratio_histogram_reference(s, d, a, num_bins=128, stride=16)
+    cpeak = int(coarse.argmax())
+    if case == "coarse_peak_at_0":
+        assert cpeak == 0 and got[0] < 16
+    if case == "clamp_bin_200x":
+        assert cpeak == 127 and not got[2]
+    if case == "fine_tie":
+        lo = max(cpeak - 1, 0) * 16
+        window = full[lo:lo + 48]
+        assert int((window == window.max()).sum()) == 3 and got[:2] == [30, 1]
+    if case == "all_inactive":
+        assert got == [0, 0, 1]  # an empty histogram certifies bin 0, as the two passes do
+    if case == "c2":
+        assert got[:2] == [50, 1]
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(num_bins=1), dict(stride=0), dict(num_bins=255, stride=16), dict(num_bins=2049, stride=1)],
+)
+def test_bad_peak_windows_raise(kw):
+    x = torch.zeros(3, 8)
+    with pytest.raises(ValueError):
+        hist.exact_peak_bin(x, x, **kw)
+
+
 def test_reference_and_front_door_agree_on_cpu():
     src, dst, act = (torch.as_tensor(x) for x in _inputs(90, 5))
     for kw in WINDOWS.values():
@@ -227,3 +301,31 @@ def test_cuda_small_inputs(cuda_device):
         x = torch.zeros(3, c, device=cuda_device)
         assert int(hist.pair_ratio_histogram(x, x, num_bins=8).sum()) == 0
         assert int(hist.pair_beta_count(x, x, 0.1)) == 0
+        assert [int(v) for v in hist.exact_peak_bin(x, x)] == [
+            int(v) for v in hist.exact_peak_bin_reference(x, x)
+        ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 63, 64, 65, 1250, 16384])
+def test_cuda_histogram_equals_plain(cuda_device, c):
+    """Counts equal the plain version's (difference 0) on every window,
+    exact_peak_bin's full 2065-bin pass and the 4096-bin limit included, and
+    exact_peak_bin launches the kernel once a call."""
+    src, dst, act = (torch.as_tensor(x, device=cuda_device) for x in _inputs(c, c))
+    windows = dict(
+        WINDOWS,
+        full=dict(num_bins=2065, stride=1, clamp_overflow=True),
+        widest=dict(num_bins=hist.MAX_BINS, lo_bin=torch.tensor(7, device=cuda_device),
+                    stride=1, clamp_overflow=False),
+    )
+    for name, kw in windows.items():
+        got = hist.pair_ratio_histogram(src, dst, act, **kw)
+        want = hist.pair_ratio_histogram_reference(src, dst, act, **kw)
+        assert torch.equal(got.cpu(), want.cpu()), name
+    for a in (act, None, torch.zeros_like(act)):
+        before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+        k = [int(x) for x in hist.exact_peak_bin(src, dst, a)]
+        assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+        assert k == [int(x) for x in hist.exact_peak_bin_reference(src, dst, a)]
+

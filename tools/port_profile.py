@@ -1,6 +1,6 @@
 """Device-time breakdown of the PyTorch port's solve paths on one CUDA card.
 
-    python tools/port_profile.py [anchor|unknown|gror|frontend ...]
+    python tools/port_profile.py [anchor|unknown|gror|frontend|wide ...]
 
 For each named path, two warm-up solves, then 5 solves through
 RobustRegistrationSolver under torch.profiler (CPU and CUDA activities).
@@ -18,7 +18,9 @@ and device time per launch. The paths are chip_smoke.py's (`path_case`):
   estimation and the clique stages off;
 - gror: SolverParams.preset_artificial_gror() at the caps on the anchor pair;
 - frontend: eval.frontend_protocol.frontend_solver_params() at the caps on
-  tests/data/frontend_aliasing/pair_seed1375 (C = 1250).
+  tests/data/frontend_aliasing/pair_seed1375 (C = 1250);
+- wide: SolverParams.preset_anchor() on the anchor protocol at C = 12000,
+  beyond the dense init: the "exact_beta" route (not in the default list).
 """
 
 from __future__ import annotations
