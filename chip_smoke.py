@@ -9,8 +9,9 @@ and prints no result line):
    is a failure;
 2. build — compile the four kernels (csrc/gnc_batch.cu,
    csrc/pair_ratio_hist.cu, csrc/pair_beta_count.cu,
-   csrc/consistency_degree.cu) with nvcc, one process each, all started
-   together, and print ptxas's register lines;
+   csrc/consistency_degree.cu; the last three share csrc/pair_sweep.cuh)
+   with nvcc, one process each, all started together, and print ptxas's
+   register lines;
 3. kernel vs plain — ops.gnc.gnc_batch (the kernel) against
    gnc_batch_reference (plain PyTorch) on the card, at (B, N) = (4, 256),
    (16, 1024), (4, 2048), (3, 197) and at B = 1 and 16 for N = 1, 10, 11,
@@ -34,15 +35,18 @@ and prints no result line):
    inactive: the coarse window (128 bins, stride 16, clamped), the fine
    window (48 bins, stride 1, dropped, lo > 0), the exact_hist window (512
    bins, clamped), exact_peak_bin's full pass (2065 bins, clamped) and the
-   widest window (4096 bins, dropped, lo on the device), histogram counts
-   equal; and beta at the 3DMatch and artificial presets' values (a
-   razor-edge flip would be allowed up to 2 pairs per call, and is
-   printed). exact_peak_bin must launch the kernel once a call and give
-   the plain two-pass version's peak, count and certificate, and a 200x
-   scale must not be certified. Medians of 20 timed runs (CUDA events) at
-   C = 1250, 5000 and 16384, and exact_peak_bin's device time a launch
-   (profiler), where a call must run the kernel and the zeroing of its
-   counts only;
+   widest window (4096 bins, dropped, lo on the device), and beta at the
+   3DMatch and artificial presets' values: counts equal. The beta count
+   also at the edges of the tile sizes (C = 1, 2, 31 ... 4097) with all,
+   80% and one of the points active, and on the edge-of-beta fixture
+   (pairs whose difference is beta - 2 ... beta + 2 ulp exactly, on an axis
+   and turned), at beta and 3 ulp to either side: counts equal.
+   exact_peak_bin must launch the kernel once a call and give the plain
+   two-pass version's peak, count and certificate, and a 200x scale must
+   not be certified. Medians of 20 timed runs (CUDA events) at C = 1250,
+   5000 and 16384 (the beta count at 5000, 12000 and 16384), and
+   exact_peak_bin's and the beta count's device time a launch (profiler),
+   where a call must run the kernel and the zeroing of its counts only;
 6. slice, unknown scale — the 3DMatch unknownScale protocol at C = 5000
    (noise 0.01, 85% mismatch outliers, dst stretched by a test scale drawn
    in [1, 5) from the seed) solved through RobustRegistrationSolver(
@@ -57,10 +61,12 @@ and prints no result line):
    kernel, each gated like its protocol;
 8. consistency degree vs plain — ops.pairs.consistency_degree (the kernel)
    against consistency_degree_reference on the card at C = 197, 1250, 1889,
-   5000, 8192 with about 20% of the points inactive, tau = 0.1 and 0.2:
-   degrees must be equal (2 flipped pairs per call would be allowed and
-   printed; none is expected). C = 0 raises; an all-inactive input gives
-   zeros. Medians of 20 timed runs (CUDA events) at C = 1889 and 8192;
+   5000, 8192 and at the edges of the tile sizes (C = 1, 2, 31 ... 4097)
+   with all, 80% and one of the points active, tau = 0.1 and 0.2: degrees
+   must be equal. C = 0 raises; an all-inactive input gives zeros. Medians
+   of 20 timed runs (CUDA events) at C = 1250, 1889 and 8192, and the
+   device time a launch (profiler), where a call must run the kernel and
+   the zeroing of its degrees only;
 9. slice, artificial GROR preset — the anchor pair through
    RobustRegistrationSolver(SolverParams.preset_artificial_gror(caps
    (2048, 256, 4))) at its own defaults (clique "auto", PMC_EXACT on the
@@ -114,13 +120,18 @@ BOUNDARY_N = (1, 10, 11, 32, 255, 256, 257, 1024, 1025, 2048)
 BOUNDARY_B = (1, 16)
 TIMED_SHAPES = [(4, 256), (16, 1024)]
 PROFILED_REPS = 10
+PROFILER_MARGIN_S = 0.02
+PROFILER_ATTEMPTS = 6
 LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
 ANCHOR_C = 1889
 N_TIMED_SOLVES = 5
 KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree")
 CAPS = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)  # bench.py:95
 DEGREE_SIZES = [197, 1250, 1889, 5000, 8192]
-DEGREE_TIMED_SIZES = [1889, 8192]
+DEGREE_TIMED_SIZES = [1250, 1889, 8192]  # the front end's C, the anchor's, the dense limit
+# The edges of the pair sweep's tiles (32, 64 or 128 points a side, by C).
+EDGE_SIZES = (1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 2047, 2048, 2049, 4095, 4096, 4097)
+MASKS = ("all", "80%", "one")  # active points of a pair-grid input
 GROR_TAUS = (0.1, 0.2)  # 2 gror_resolution: the artificial preset, the default
 FRONTEND_DIR = Path(__file__).resolve().parent / "tests" / "data" / "frontend_aliasing"
 FRONTEND_TAGS = ("pair_seed1375", "pair_seed10300")
@@ -160,9 +171,10 @@ GNC_OPS_PER_COLUMN = 52
 GNC_OPS_PER_ITERATION = 5 * 2 * 64
 HIST_SIZES = [197, 1889, 5000, 12000]
 HIST_TIMED_SIZES = [1250, 5000, 16384]  # the front end's C, the unknown-scale C, wide
+BETA_TIMED_SIZES = [5000, 12000, 16384]  # the wide path's C = 12000 between two earlier sizes
+EDGE_PAIRS = 512  # points a cluster of the edge-of-beta fixture
 PEAK_BINS = (128 + 1) * 16 + 1  # exact_peak_bin's full pass at its defaults
 BETAS = {"3dmatch": 0.02, "artificial": 0.1}  # 2 noise_bound sqrt(cbar2)
-MAX_FLIPS = 2  # pairs per call a razor-edge ratio may move (none expected)
 UNKNOWN_C = 5000  # bench.py:102, the mean 3DMatch pair size
 UNKNOWN_RATE = 0.85  # eval/make_dataset.py:38
 WIDE_C = 12000  # beyond dense_init_max_c = 8192
@@ -229,16 +241,20 @@ def median_ms(fn, reps=20, warmup=3) -> float:
 
 def profiled_kernels(fn, reps=PROFILED_REPS) -> dict:
     """{device operation name: [device microseconds of each]} over `reps`
-    calls of fn under torch.profiler, after one warm-up call."""
+    calls of fn under torch.profiler, after one warm-up call. The window is
+    idle for a while at both ends, so that records whose device time stamps
+    are mapped a little off the host's clock still fall inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_MARGIN_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
     out = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -246,12 +262,19 @@ def profiled_kernels(fn, reps=PROFILED_REPS) -> dict:
     return out
 
 
-def kernel_device_us(ops: dict, kernel: str, reps=PROFILED_REPS, others=0) -> float:
-    """Mean device microseconds of `kernel`'s launches in profiled_kernels'
-    output; fails unless it launched once a call and the calls ran at most
-    `others` other device operations each."""
-    runs = [us for name, v in ops.items() if f"{kernel}_kernel" in name for us in v]
-    rest = sum(len(v) for name, v in ops.items() if f"{kernel}_kernel" not in name)
+def kernel_device_us(fn, kernel: str, reps=PROFILED_REPS, others=0) -> float:
+    """Mean device microseconds of `kernel`'s launches over `reps` profiled
+    calls of fn; fails unless it launched once a call and the calls ran at
+    most `others` other device operations each. The profiler now and then
+    loses a window's device records: a window with fewer launches than
+    calls is taken again, up to PROFILER_ATTEMPTS times."""
+    for _ in range(PROFILER_ATTEMPTS):
+        ops = profiled_kernels(fn, reps)
+        runs = [us for name, v in ops.items() if f"{kernel}_kernel" in name for us in v]
+        rest = sum(len(v) for name, v in ops.items() if f"{kernel}_kernel" not in name)
+        if len(runs) >= reps:
+            break
+        print(f"[profiler] {len(runs)} {kernel} launches recorded over {reps} calls: again")
     if len(runs) != reps or rest > others * reps:
         raise AssertionError(f"{reps} calls must launch {kernel} {reps} times with at most "
                              f"{others * reps} other device operations: {ops.keys()}")
@@ -348,9 +371,7 @@ def phase_kernel_vs_plain(device) -> dict:
         ms = median_ms(lambda: gnc.gnc_batch(*args, **LOOP))
         plain = median_ms(lambda: gnc.gnc_batch_reference(*args, **LOOP))
         # One launch and no other device operation a call.
-        dev_us = kernel_device_us(
-            profiled_kernels(lambda: gnc.gnc_batch(*args, **LOOP)), "gnc_batch"
-        )
+        dev_us = kernel_device_us(lambda: gnc.gnc_batch(*args, **LOOP), "gnc_batch")
         # The bound counts the iterations these inputs run (the plain loop's
         # count) over each hypothesis' active columns.
         _, _, _, iters = gnc_tls_batched(
@@ -550,15 +571,60 @@ def hist_inputs(c, seed, device, test_scale):
     return tuple(torch.as_tensor(x, device=device) for x in (pair.src, pair.dst, act))
 
 
-def compare_counts(what: str, got: torch.Tensor, want: torch.Tensor, flips=MAX_FLIPS) -> int:
-    """Total count difference between kernel and plain; more than `flips`
-    pairs, or different totals or argmax, is a failure."""
-    g = got.cpu().numpy().reshape(-1)
-    w = want.cpu().numpy().reshape(-1)
+def compare_counts(what: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """Total count difference between kernel and plain, which must be 0."""
+    g = got.cpu().numpy().reshape(-1).astype(np.int64)
+    w = want.cpu().numpy().reshape(-1).astype(np.int64)
     diff = int(np.abs(g - w).sum())
-    if diff and (diff > flips or (g.size > 1 and (g.sum() != w.sum() or g.argmax() != w.argmax()))):
+    if diff:
         raise AssertionError(f"{what}: kernel counts differ from the plain version's by {diff}")
     return diff
+
+
+def mask_of(kind: str, c: int, rng, device):
+    """An active mask of C points: None (all active), about 80% of them, or
+    one of them."""
+    if kind == "all":
+        return None
+    act = rng.uniform(size=c) >= 0.2 if kind == "80%" else np.arange(c) == rng.integers(c)
+    return torch.as_tensor(act, device=device)
+
+
+def beta_edge_inputs(beta: float, seed: int, device, turned: bool, n: int = EDGE_PAIRS):
+    """Clouds of 2n points whose pairs sit on the edge of the beta window:
+    n points at the origin of both clouds and n on the x axis at v1 (source)
+    and v2 (destination), with v2 - v1 = float32(beta) + m ulp(beta), m in
+    -2 ... 2, exactly: v2 lies in the binade above beta's on its grid of
+    2 ulp and v1 = v2 - beta - m ulp below it on the grid of ulp, and
+    sqrt(x x) = x in IEEE arithmetic, so each of the n n pairs between the
+    clusters has the difference beta + m ulp to the last bit. `turned`: each
+    cloud rotated and shifted, which moves every difference by a few ulp
+    either way. Returns (src, dst) on the device."""
+    rng = np.random.default_rng(seed)
+    b = float(np.float32(beta))
+    e = int(np.floor(np.log2(b)))
+    ulp = 2.0 ** (e - 23)
+    v2 = 2.0 ** (e + 1) + 2 * ulp * rng.integers(0, 2 ** 22, size=n)
+    v1 = v2 - b - ulp * rng.integers(-2, 3, size=n)
+    for v in (v1, v2):
+        if not ((v > 0).all() and (v.astype(np.float32).astype(np.float64) == v).all()):
+            raise AssertionError(f"the edge fixture for beta={beta} is not exact in float32")
+    clouds = []
+    for v in (v1, v2):
+        pts = np.zeros((3, 2 * n))
+        pts[0, n:] = v
+        if turned:
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            pts = q @ pts + rng.normal(size=(3, 1))
+        clouds.append(torch.as_tensor(pts.astype(np.float32), device=device))
+    return tuple(clouds)
+
+
+def beta_thresholds(beta: float) -> list[float]:
+    """float32(beta) and the values 3 ulp to either side of it."""
+    b = np.float32(beta)
+    ulp = float(np.spacing(b))
+    return [float(b) - 3 * ulp, float(b), float(b) + 3 * ulp]
 
 
 def phase_pair_kernels(device) -> dict:
@@ -585,7 +651,7 @@ def phase_pair_kernels(device) -> dict:
         for wname, kw in windows.items():
             got = hist.pair_ratio_histogram(src, dst, act, **kw)
             want = hist.pair_ratio_histogram_reference(src, dst, act, **kw)
-            diff = compare_counts(f"C={c} {wname}", got, want, flips=0)
+            diff = compare_counts(f"C={c} {wname}", got, want)
             worst["hist"] = max(worst["hist"], diff)
             print(f"[pairs] C={c} histogram {wname}: total {int(want.sum())}, "
                   f"peak bin {int(want.argmax())}, count difference {diff}")
@@ -606,6 +672,32 @@ def phase_pair_kernels(device) -> dict:
             raise AssertionError(f"C={c}: exact_peak_bin {k} != plain {p}")
         print(f"[pairs] C={c} exact_peak_bin (peak, count, certified) = {tuple(k)}, as the "
               f"plain two passes, in one launch")
+    rng = np.random.default_rng(0)
+    for c in EDGE_SIZES:
+        src1, dst1, _ = hist_inputs(c, c, device, 1.0)
+        for kind in MASKS:
+            act = mask_of(kind, c, rng, device)
+            for beta in BETAS.values():
+                compare_counts(f"C={c} {kind} active, beta {beta}",
+                               hist.pair_beta_count(src1, dst1, beta, act),
+                               hist.pair_beta_count_reference(src1, dst1, beta, act))
+    print(f"[pairs] beta count at C = {', '.join(map(str, EDGE_SIZES))} with {', '.join(MASKS)} "
+          f"of the points active, beta {list(BETAS.values())}: difference 0")
+    for beta in BETAS.values():
+        for turned in (False, True):
+            src1, dst1 = beta_edge_inputs(beta, 17, device, turned)
+            counts = []
+            for b in beta_thresholds(beta):
+                want = hist.pair_beta_count_reference(src1, dst1, b)
+                compare_counts(f"edge of beta {beta}, threshold {b!r}",
+                               hist.pair_beta_count(src1, dst1, b), want)
+                counts.append(int(want))
+            # The fixture is on the edge: 3 ulp of beta move pairs across it.
+            if not counts[0] < counts[1] < counts[2]:
+                raise AssertionError(f"edge fixture for beta {beta} is off the edge: {counts}")
+            print(f"[pairs] edge of beta {beta} ({'turned' if turned else 'on an axis'}, "
+                  f"C={src1.shape[1]}): counts {counts} at beta - 3 ulp, beta, beta + 3 ulp, "
+                  f"difference 0")
     src, dst, act = hist_inputs(1889, 7, device, 200.0)
     k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
     p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
@@ -629,17 +721,12 @@ def phase_pair_kernels(device) -> dict:
                 lambda: hist.pair_ratio_histogram(src, dst, act, num_bins=512),
                 lambda: hist.pair_ratio_histogram_reference(src, dst, act, num_bins=512),
             ),
-            "beta 0.1": (
-                lambda: hist.pair_beta_count(src, dst, 0.1, act),
-                lambda: hist.pair_beta_count_reference(src, dst, 0.1, act),
-            ),
         }
         bounds = {
             # The full pass's counts, the peak, its count and the certificate.
             "exact_peak_bin": pair_grid_bound("pair_ratio_hist", act, PEAK_BINS * 8 + 17),
             "hist coarse 128/16": pair_grid_bound("pair_ratio_hist", act, 128 * 8),
             "hist exact_hist 512": pair_grid_bound("pair_ratio_hist", act, 512 * 8),
-            "beta 0.1": pair_grid_bound("pair_beta_count", act, 8),
         }
         for label, (kern, plain) in cases.items():
             ms = median_ms(kern)
@@ -650,11 +737,23 @@ def phase_pair_kernels(device) -> dict:
                   f"{bounds[label][1]}")
         # One launch and the zeroing of its counts a call.
         dev_us = kernel_device_us(
-            profiled_kernels(lambda: hist.exact_peak_bin(src, dst, act)), "pair_ratio_hist",
-            others=1,
+            lambda: hist.exact_peak_bin(src, dst, act), "pair_ratio_hist", others=1
         )
         print(f"[pairs] C={c} exact_peak_bin: device {dev_us:.2f} us a launch (profiler, mean "
               f"of {PROFILED_REPS})")
+    for c in BETA_TIMED_SIZES:
+        src, dst, act = hist_inputs(c, c, device, 1.0)
+        ms = median_ms(lambda: hist.pair_beta_count(src, dst, 0.1, act))
+        plain_ms = median_ms(lambda: hist.pair_beta_count_reference(src, dst, 0.1, act))
+        bound = pair_grid_bound("pair_beta_count", act, 8)
+        times[("beta 0.1", c)] = (ms, plain_ms, bound)
+        # One launch and the zeroing of its count a call.
+        dev_us = kernel_device_us(
+            lambda: hist.pair_beta_count(src, dst, 0.1, act), "pair_beta_count", others=1
+        )
+        print(f"[pairs] C={c} beta 0.1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+              f"20, CUDA events); device {dev_us:.2f} us a launch (profiler, mean of "
+              f"{PROFILED_REPS}); bound {bound[0]:.6f} ms by {bound[1]}")
     return {"max_diff": worst, "times": times}
 
 
@@ -698,19 +797,27 @@ def phase_degree_kernel(device) -> dict:
     from psulvsb_tpu_torch.ops import pairs
 
     worst = 0
-    for c in DEGREE_SIZES:
-        src, dst, act = degree_inputs(c, c, device)
-        for tau in GROR_TAUS:
-            got = pairs.consistency_degree(src, dst, tau, act)
-            want = pairs.consistency_degree_reference(src, dst, tau, act)
-            torch.cuda.synchronize()
-            # A flipped pair moves two degrees by one each.
-            diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().sum())
-            worst = max(worst, diff)
-            print(f"[degree] C={c} tau={tau}: mean degree {float(want.float().mean()):.2f}, "
-                  f"max {int(want.max())}, kernel vs plain difference {diff}")
-            if diff > 2 * MAX_FLIPS or bool(got[~act].any()):
-                raise AssertionError(f"C={c} tau={tau}: degrees differ by {diff}")
+    rng = np.random.default_rng(0)
+    for c in DEGREE_SIZES + list(EDGE_SIZES):
+        src, dst, _ = degree_inputs(c, c, device)
+        for kind in MASKS:
+            act = mask_of(kind, c, rng, device)
+            for tau in GROR_TAUS:
+                before = pairs.KERNEL_LAUNCHES
+                got = pairs.consistency_degree(src, dst, tau, act)
+                if pairs.KERNEL_LAUNCHES != before + 1:
+                    raise AssertionError("consistency_degree must launch its kernel once a call")
+                want = pairs.consistency_degree_reference(src, dst, tau, act)
+                torch.cuda.synchronize()
+                what = f"C={c} {kind} active, tau={tau}"
+                worst = max(worst, compare_counts(what, got, want))
+                if act is not None and bool(got[~act].any()):
+                    raise AssertionError(f"{what}: an inactive point has a degree")
+                if c in DEGREE_SIZES:
+                    print(f"[degree] {what}: mean degree {float(want.float().mean()):.2f}, "
+                          f"max {int(want.max())}, kernel vs plain difference 0")
+    print(f"[degree] C = {', '.join(map(str, EDGE_SIZES))} with {', '.join(MASKS)} of the "
+          f"points active, tau {list(GROR_TAUS)}: difference 0")
     x = torch.zeros(3, 5, device=device)
     if pairs.consistency_degree(x, x, 0.1, torch.zeros(5, dtype=torch.bool, device=device)).any():
         raise AssertionError("an all-inactive input must give zero degrees")
@@ -729,8 +836,13 @@ def phase_degree_kernel(device) -> dict:
         plain_ms = median_ms(lambda: pairs.consistency_degree_reference(src, dst, 0.1, act))
         bound = pair_grid_bound("consistency_degree", act, 4 * c)
         times[c] = (ms, plain_ms, bound)
+        # One launch and the zeroing of its degrees a call.
+        dev_us = kernel_device_us(
+            lambda: pairs.consistency_degree(src, dst, 0.1, act), "consistency_degree", others=1
+        )
         print(f"[degree] C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, "
-              f"CUDA events); bound {bound[0]:.6f} ms by {bound[1]}")
+              f"CUDA events); device {dev_us:.2f} us a launch (profiler, mean of "
+              f"{PROFILED_REPS}); bound {bound[0]:.6f} ms by {bound[1]}")
     return {"max_diff": worst, "times": times}
 
 
@@ -887,7 +999,7 @@ def main() -> int:
             pairs["times"][("exact_peak_bin", UNKNOWN_C)]),
         row("pair_beta_count", "pair_beta_count.cu", "psulvsb_tpu/ops/pallas_hist.py:241",
             wide["beta"]["pair_beta_count"], pairs["max_diff"]["beta"],
-            pairs["times"][("beta 0.1", 16384)]),
+            pairs["times"][("beta 0.1", WIDE_C)]),
         row("consistency_degree", "consistency_degree.cu",
             "psulvsb_tpu/ops/pallas_pairs.py:53", gror["launches"]["consistency_degree"],
             degree["max_diff"], degree["times"][ANCHOR_C]),

@@ -17,18 +17,28 @@ from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 
 
 def register_pair(
-    src: torch.Tensor,
-    dst: torch.Tensor,
+    src,
+    dst,
     params: SolverParams,
     generator: torch.Generator | None = None,
-    keep_mask: torch.Tensor | None = None,
+    keep_mask=None,
+    device="cuda",
 ) -> tuple[RegistrationSolution, dict]:
     """Functional PSULVSB registration of one correspondence set.
 
-    src/dst: (3, C) tensors; the solve runs on their device. keep_mask:
-    optional (C,) {1, 0, -1} pre-filter mask (default: all kept)."""
+    src/dst: (3, C) points and keep_mask, an optional (C,) {1, 0, -1}
+    pre-filter mask (default: all kept), as tensors or numpy arrays. All are
+    moved to `device` and the solve runs there: the card unless the caller
+    asks for the CPU (device="cpu"). With no CUDA device the move raises;
+    nothing falls back to the CPU. `generator` must be a generator of that
+    device; psulvsb_solve makes one there when none is given."""
+    device = torch.device(device)
+    src = _as_float32(src).to(device)
+    dst = _as_float32(dst).to(device)
     if keep_mask is None:
-        keep_mask = torch.ones(src.shape[1], dtype=torch.int64, device=src.device)
+        keep_mask = torch.ones(src.shape[1], dtype=torch.int64, device=device)
+    else:
+        keep_mask = torch.as_tensor(keep_mask).to(device)
     return psulvsb_solve(src, dst, keep_mask, params, generator)
 
 
@@ -89,7 +99,7 @@ class RobustRegistrationSolver:
             else torch.as_tensor(np.asarray(keep_mask), dtype=torch.int64, device=device)
         )
         sol, info = register_pair(
-            src, dst, self.params, self._next_generator(device), keep_mask=keep
+            src, dst, self.params, self._next_generator(device), keep_mask=keep, device=device
         )
         self._solution = sol
         self._info = info

@@ -5,116 +5,135 @@
 // Pallas kernel _degree_kernel behind consistency_degree), which GROR's
 // node reliability calls once per solve (gror/gror.py).
 //
-// Numerics. Distances come from direct differences with the squares summed
-// x, y, z in round-to-nearest without contraction and an IEEE square root,
-// as in pair_ratio_hist.cu: each test is bit for bit the plain PyTorch
-// version's (ops/pairs.py), so the degrees are equal as integers. (The
-// Pallas kernel uses |a|^2 + |b|^2 - 2ab through a float32 dot product,
-// which can move a pair at the edge of the window.) The comparison is the
-// strict < of the reference; inactive rows give 0; the self pair is never
-// counted; there is no padding, C is any size >= 1.
+// Numerics. Distances by pair_sweep.cuh's dist3 (direct differences, no
+// contraction, IEEE square root): each test is bit for bit the plain
+// PyTorch version's (ops/pairs.py), and the degrees are sums of integers,
+// which commute, so they are equal as integers whatever the order of the
+// atomics. (The Pallas kernel uses |a|^2 + |b|^2 - 2ab through a float32
+// dot product, which can move a pair at the edge of the window.) The
+// comparison is the strict < of the reference; inactive rows give 0; the
+// self pair is never counted; C is any size from 1 to 2^20.
 //
-// Design. A full-row sweep, not the i < j triangle, so that every row's
-// count is finished inside one block and nothing is added across blocks: no
-// atomics and no (C, C) matrix. A block owns kRows = 32 rows, one row per
-// lane; its kSplit warps hold the same 32 rows and share out the columns.
-// The block stages column tiles of (s_j, t_j, active_j) in shared memory,
-// one column per thread; each warp reads its slice of the tile as
-// broadcasts. Each thread keeps its partial count in a register; at the end
-// warp 0 sums the kSplit partials of its row in a fixed order and writes the
-// degree once.
+// What bounds it on the card. About 36 issued instructions a pair (two
+// distances of 8 rounded operations and an 8-instruction IEEE root each)
+// over C (C - 1) / 2 pairs: 1.8M pairs at C = 1889, a few microseconds of
+// arithmetic on 132 SMs, so at the solve paths' sizes the launch, the
+// staging and the flush set the time, and every SM must have work.
 //
-// What bounds it on the card. About 20 floating-point operations and two
-// square roots per ordered pair over C^2 pairs; the inputs (25 bytes a
-// point) stay in L1/L2, so it is bound by arithmetic, and at a few thousand
-// points by the launch and the few blocks it has.
+// Design. The test is symmetric, so the kernel sweeps the triangle i < j
+// (pair_sweep.cuh: upper-triangle tiles sized from C, J columns a lane in
+// registers, rows as broadcast 16-byte shared loads) and a passing pair
+// adds one to both ends. The column end is counted in the lane's registers
+// and added to a shared counter at the end of the tile; the row end is one
+// warp-wide integer sum a row, stored by one lane (a row of a tile belongs
+// to one warp). After the tile, the thread that staged a point flushes that
+// point's nonzero counter into deg with one 32-bit atomicAdd and zeroes it.
+// A counter holds at most a tile's 128 pairs a point and deg at most C - 1.
+// deg is zeroed on the stream before the launch.
+//
+// Inactive points. An inactive row is skipped on its flag; an inactive
+// column never counts, but its lane still runs beside its neighbours. A
+// compaction of the active indices inside the launch was tried and is not
+// kept. Every block counted the active points of 256 runs of the mask (a
+// scan into shared memory), walked tiles over ranks, and staged the point
+// of a rank by a binary search over the runs and a walk of one. With 80%
+// of the points active a launch at C = 8192 took 60.1 us with it and 60.1
+// us without, and with every point active 71.2 us against 63.8 us; at
+// C = 1250 and 1889 it added 1.2 and 1.9 us to launches of 5.0 and 7.8 us
+// (tools/kernel_phases.py on both trees in one call, H100 at 700 W). The
+// same launch on the active points alone, the most any compaction could
+// reach, took 3.4, 5.8 and 43.0 us at C = 1250, 1889 and 8192; the solve
+// paths' mask is all ones unless the caller filtered correspondences out
+// beforehand.
 
-#include <cuda_runtime.h>
+#include "pair_sweep.cuh"
 
 namespace {
 
-constexpr int kRows = 32;
-constexpr int kSplit = 8;
-constexpr int kThreads = kRows * kSplit;
-constexpr int kTile = kThreads;  // columns staged per pass
+using pair_sweep::kThreads;
 
-__device__ __forceinline__ float dist3(float ax, float ay, float az, float bx, float by,
-                                       float bz) {
-  const float ex = __fsub_rn(ax, bx);
-  const float ey = __fsub_rn(ay, by);
-  const float ez = __fsub_rn(az, bz);
-  const float s = __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(ez, ez));
-  return __fsqrt_rn(s);
-}
+// Tiles (and blocks of the grid) an SM before the tile grows: at 1, 2, 4 and
+// 8 a launch took 14.2, 8.4, 8.8 and 7.8 us at C = 1889 and 149, 86, 62 and
+// 61 us at C = 8192 on an H100 (700 W).
+constexpr int kBlocksPerSM = 8;
 
+template <int J>
 __global__ void __launch_bounds__(kThreads)
     consistency_degree_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                               const unsigned char* __restrict__ act, int c, float tau,
-                              int* __restrict__ deg) {
-  __shared__ float cs[3][kTile];
-  __shared__ float cd[3][kTile];
-  __shared__ unsigned char ca[kTile];
-  __shared__ int partial[kSplit][kRows];
+                              int tiles_per_side, int* __restrict__ deg) {
+  constexpr int kSize = pair_sweep::Tile<J>::kSize;
+  __shared__ pair_sweep::Tile<J> tile;
+  __shared__ unsigned int count[2 * kSize];  // by staged slot: rows, then columns
 
   const int tid = threadIdx.x;
-  const int lane = tid % kRows;
-  const int warp = tid / kRows;
-  const int i = blockIdx.x * kRows + lane;
-  const bool row_on = i < c && act[i] != 0;
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  if (row_on) {
-    sx = src[i];
-    sy = src[static_cast<size_t>(c) + i];
-    sz = src[2 * static_cast<size_t>(c) + i];
-    dx = dst[i];
-    dy = dst[static_cast<size_t>(c) + i];
-    dz = dst[2 * static_cast<size_t>(c) + i];
-  }
+  const int lane = tid & 31;
+  if (tid < 2 * kSize) count[tid] = 0u;
 
-  int n = 0;
-  const int per_warp = kTile / kSplit;
-  for (int col0 = 0; col0 < c; col0 += kTile) {
-    const int jt = col0 + tid;
-    const bool in = jt < c;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      cs[d][tid] = in ? src[static_cast<size_t>(d) * c + jt] : 0.0f;
-      cd[d][tid] = in ? dst[static_cast<size_t>(d) * c + jt] : 0.0f;
-    }
-    ca[tid] = in ? act[jt] : 0;
+  const long long tiles = pair_sweep::tile_count(tiles_per_side);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int row0, col0;
+    pair_sweep::tile_origin(t, kSize, row0, col0);
+    pair_sweep::stage(tile, src, dst, act, c, row0, col0);
     __syncthreads();
-    if (row_on) {
-      const int k0 = warp * per_warp;
-      for (int k = k0; k < k0 + per_warp; ++k) {
-        const int j = col0 + k;
-        const float v1 = dist3(sx, sy, sz, cs[0][k], cs[1][k], cs[2][k]);
-        const float v2 = dist3(dx, dy, dz, cd[0][k], cd[1][k], cd[2][k]);
-        n += (ca[k] != 0 && j != i && fabsf(__fsub_rn(v1, v2)) < tau) ? 1 : 0;
+
+    unsigned int n[J] = {};
+    pair_sweep::sweep(tile, row0 == col0,
+                      [&](int r, const float4& a, const float4& b,
+                          const pair_sweep::Columns<J>& cols) {
+      unsigned int row_n = 0u;
+#pragma unroll
+      for (int k = 0; k < J; ++k) {
+        const float v1 = pair_sweep::dist3(cols.s[k], a);
+        const float v2 = pair_sweep::dist3(cols.d[k], b);
+        const unsigned int ok = (r < cols.limit[k] && fabsf(__fsub_rn(v1, v2)) < tau) ? 1u : 0u;
+        n[k] += ok;
+        row_n += ok;
+      }
+      row_n = __reduce_add_sync(0xffffffffu, row_n);
+      if (lane == 0) count[r] = row_n;
+    });
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+      if (n[k] != 0u) atomicAdd(&count[kSize + lane + 32 * k], n[k]);
+    }
+    __syncthreads();
+
+    // Thread t owns slot t from here to the next tile's first barrier: it
+    // flushes and zeroes the counter, then stages the slot's next point.
+    if (tid < 2 * kSize) {
+      const unsigned int v = count[tid];
+      if (v != 0u) {
+        atomicAdd(deg + pair_sweep::Tile<J>::point(tid, row0, col0), static_cast<int>(v));
+        count[tid] = 0u;
       }
     }
-    __syncthreads();
-  }
-  partial[warp][lane] = n;
-  __syncthreads();
-  if (warp == 0 && i < c) {
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < kSplit; ++w) total += partial[w][lane];
-    deg[i] = row_on ? total : 0;
   }
 }
 
 }  // namespace
 
-// Writes the (c,) int32 degrees into `deg` on `stream`; returns
-// cudaGetLastError() as an int (0 on success). src and dst are (3, c)
-// contiguous float32 and act c bytes of 0/1, all device pointers; c >= 1.
+// Writes the (c,) int32 degrees into `deg` on `stream`; returns the CUDA
+// error as an int (0 on success). src and dst are (3, c) contiguous float32
+// and act c bytes of 0/1 or null (all active), all device pointers;
+// 1 <= c <= 2^20.
 extern "C" int consistency_degree_launch(const float* src, const float* dst,
                                          const unsigned char* act, int c, float tau, int* deg,
                                          void* stream) {
-  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1 || c > pair_sweep::kMaxC) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c + kRows - 1) / kRows);
-  consistency_degree_kernel<<<grid, kThreads, 0, st>>>(src, dst, act, c, tau, deg);
+  const cudaError_t zeroed = cudaMemsetAsync(deg, 0, sizeof(int) * static_cast<size_t>(c), st);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM);
+  switch (p.j) {
+    case 4:
+      consistency_degree_kernel<4><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
+      break;
+    case 2:
+      consistency_degree_kernel<2><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
+      break;
+    default:
+      consistency_degree_kernel<1><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
+  }
   return static_cast<int>(cudaGetLastError());
 }

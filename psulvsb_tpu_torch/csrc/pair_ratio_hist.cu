@@ -24,13 +24,12 @@
 // every argmax, so the result is the two passes' bit for bit, with no
 // second launch and no host read.
 //
-// Numerics. Distances come from direct differences, the squares summed in
-// the order x, y, z with round-to-nearest intrinsics (no contraction into
-// FMAs), and sqrt and the division are IEEE, so every ratio is bit for bit
-// what the plain PyTorch version (ops/hist.py) computes and the counts are
-// equal, not close. Counts are exact integers: 32-bit in shared memory (a
-// block sees at most ~2e9 pairs below C = 2^20) and 64-bit in device memory
-// (one bin can hold all C(C-1)/2 pairs).
+// Numerics. Distances by pair_sweep.cuh's dist3 (direct differences, no
+// contraction into FMAs, IEEE square root) and an IEEE division, so every
+// ratio is bit for bit what the plain PyTorch version (ops/hist.py)
+// computes and the counts are equal, not close. Counts are exact integers:
+// 32-bit in shared memory (a block sees at most ~2e9 pairs below C = 2^20)
+// and 64-bit in device memory (one bin can hold all C(C-1)/2 pairs).
 //
 // What bounds it on the card. C(C-1)/2 pairs (0.78M at C = 1250, 12.5M at
 // C = 5000, 72M at C = 12000) of about 30 floating-point operations each,
@@ -38,40 +37,27 @@
 // stay in L2: arithmetic, and the shared atomics of hot bins. At the
 // front end's C the old fixed 256 x 128 tiles filled 30 of 132 SMs.
 //
-// Design. Square tiles of T = 32 J rows by T columns (J = 1, 2 or 4), T
-// the largest that still gives four tiles per SM, and only tiles on or
-// above the diagonal, from a 1-D triangular index. A grid of four blocks
-// per SM walks the tiles; each block keeps one shared histogram of up to
-// 4096 32-bit counters for all its tiles, and flushes only its nonzero
-// bins, with one 64-bit atomic each, once. In a tile each lane of a warp
-// owns J columns in registers (J independent pairs a row, for ILP) and
-// each warp walks every eighth row, read as a broadcast from L1; a pair
+// Design. pair_sweep.cuh's walk: upper-triangle tiles of T = 32 J points a
+// side, T the largest that still gives four tiles per SM, a grid of four
+// blocks per SM, a tile's points staged packed in shared memory, J columns
+// a lane in registers and rows as broadcast 16-byte loads. Each block keeps
+// one shared histogram of up to 4096 32-bit counters for all its tiles, and
+// flushes only its nonzero bins, with one 64-bit atomic each, once. A pair
 // adds one to its bin with one shared atomic (merging the lanes of a warp
 // that share a bin first, with __match_any_sync, was slower on the card at
 // every C measured: the peak bins are not hot enough to pay for it).
 
-#include <cuda_runtime.h>
+#include "pair_sweep.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using pair_sweep::kThreads;
+
 constexpr int kBlocksPerSM = 4;  // blocks of the grid, each with its own histogram
-constexpr int kMaxJ = 4;         // columns a lane: tiles of at most 128 x 128 pairs
 constexpr int kMaxBins = 4096;
 constexpr int kMaxCoarse = kMaxBins / 2;   // coarse u64 counts reuse the histogram
-constexpr int kMaxC = 1 << 20;
 constexpr float kFineCap = 1073741824.0f;  // 2^30: any larger fine bin is out of every window
 constexpr long long kLoLimit = 1LL << 30;  // |lo| beyond 2^30 windows nothing more
-
-__device__ __forceinline__ float dist3(float ax, float ay, float az, float bx, float by,
-                                       float bz) {
-  const float ex = __fsub_rn(ax, bx);
-  const float ey = __fsub_rn(ay, by);
-  const float ez = __fsub_rn(az, bz);
-  const float s = __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(ez, ez));
-  return __fsqrt_rn(s);
-}
 
 struct Peak {
   unsigned int* done;             // block counter, zeroed by the caller; null: no peak
@@ -155,54 +141,31 @@ __global__ void __launch_bounds__(kThreads)
                            const long long* __restrict__ lo_ptr, long long lo_imm, int stride,
                            int num_bins, int tiles_per_side,
                            unsigned long long* __restrict__ counts, const Peak peak) {
-  constexpr int kTile = 32 * J;
+  constexpr int kSize = pair_sweep::Tile<J>::kSize;
   __shared__ __align__(8) unsigned int hist[kMaxBins];
+  __shared__ pair_sweep::Tile<J> points;
   __shared__ bool is_last;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   for (int k = tid; k < num_bins; k += kThreads) hist[k] = 0u;
   long long lo64 = lo_ptr != nullptr ? *lo_ptr : lo_imm;
   lo64 = lo64 < -(kLoLimit - 1) ? -(kLoLimit - 1) : (lo64 > kLoLimit + 1 ? kLoLimit + 1 : lo64);
   const int lo = static_cast<int>(lo64);  // fine - lo stays inside int32
   __syncthreads();
 
-  const long long tiles = static_cast<long long>(tiles_per_side) * (tiles_per_side + 1) / 2;
+  const long long tiles = pair_sweep::tile_count(tiles_per_side);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    // Tile (ti, tj), ti <= tj, from tile = tj (tj + 1) / 2 + ti.
-    long long tj = static_cast<long long>((sqrtf(8.0f * tile + 1.0f) - 1.0f) * 0.5f);
-    while (tj * (tj + 1) / 2 > tile) --tj;
-    while ((tj + 1) * (tj + 2) / 2 <= tile) ++tj;
-    const int row0 = static_cast<int>(tile - tj * (tj + 1) / 2) * kTile;
-    const int col0 = static_cast<int>(tj) * kTile;
-
-    float sx[J], sy[J], sz[J], dx[J], dy[J], dz[J];
-    int col[J];
-    bool col_ok[J];
-#pragma unroll
-    for (int k = 0; k < J; ++k) {
-      const int j = col0 + lane + 32 * k;
-      col[k] = j;
-      col_ok[k] = j < c && (act == nullptr || act[j] != 0);
-      const int jj = j < c ? j : 0;
-      sx[k] = src[jj];
-      sy[k] = src[c + jj];
-      sz[k] = src[2 * c + jj];
-      dx[k] = dst[jj];
-      dy[k] = dst[c + jj];
-      dz[k] = dst[2 * c + jj];
-    }
-    for (int r = warp; r < kTile; r += kWarps) {
-      const int i = row0 + r;
-      if (i >= c) break;                               // uniform in the warp
-      if (act != nullptr && act[i] == 0) continue;     // uniform in the warp
-      const float rx = src[i], ry = src[c + i], rz = src[2 * c + i];
-      const float qx = dst[i], qy = dst[c + i], qz = dst[2 * c + i];
+    int row0, col0;
+    pair_sweep::tile_origin(tile, kSize, row0, col0);
+    pair_sweep::stage(points, src, dst, act, c, row0, col0);
+    __syncthreads();
+    pair_sweep::sweep(points, row0 == col0,
+                      [&](int r, const float4& a, const float4& b,
+                          const pair_sweep::Columns<J>& cols) {
 #pragma unroll
       for (int k = 0; k < J; ++k) {
-        const float v1 = dist3(sx[k], sy[k], sz[k], rx, ry, rz);
-        const float v2 = dist3(dx[k], dy[k], dz[k], qx, qy, qz);
+        const float v1 = pair_sweep::dist3(cols.s[k], a);
+        const float v2 = pair_sweep::dist3(cols.d[k], b);
         const float ratio = __fdiv_rn(v2, v1 > 0.0f ? v1 : 1.0f);
         float f = floorf(__fmul_rn(ratio, bins_per_unit));
         f = fminf(fmaxf(f, 0.0f), kFineCap);
@@ -212,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
           idx = d / stride;
           if (d % stride != 0 && d < 0) --idx;
         }
-        bool valid = col_ok[k] && i < col[k];
+        bool valid = r < cols.limit[k];
         if (kClamp) {
           idx = min(max(idx, 0), num_bins - 1);
         } else {
@@ -220,9 +183,9 @@ __global__ void __launch_bounds__(kThreads)
         }
         if (valid) atomicAdd(&hist[idx], 1u);
       }
-    }
+    });
+    __syncthreads();  // the tile is read no more: the next one may be staged
   }
-  __syncthreads();
 
   for (int k = tid; k < num_bins; k += kThreads) {
     const unsigned int h = hist[k];
@@ -275,7 +238,7 @@ extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const 
                                       unsigned int* done, int coarse_bins, int coarse_stride,
                                       long long* peak_out, unsigned char* certified,
                                       void* stream) {
-  if (c < 0 || c > kMaxC || num_bins < 1 || num_bins > kMaxBins || stride < 1) {
+  if (c < 0 || c > pair_sweep::kMaxC || num_bins < 1 || num_bins > kMaxBins || stride < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (done != nullptr &&
@@ -283,22 +246,9 @@ extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const 
        (coarse_bins + 1) * coarse_stride + 1 != num_bins || !clamp_overflow || stride != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int min_tiles = kBlocksPerSM * sms;
-  // The largest tile that still gives every block of the grid a tile.
-  int j = kMaxJ;
-  while (j > 1) {
-    const long long side = (c + 32LL * j - 1) / (32LL * j);
-    if (side * (side + 1) / 2 >= min_tiles) break;
-    j /= 2;
-  }
-  const int side = c > 0 ? (c + 32 * j - 1) / (32 * j) : 0;
-  const long long tiles = static_cast<long long>(side) * (side + 1) / 2;
-  // One block even with no pair, so that the peak is always derived.
-  const dim3 grid(static_cast<unsigned int>(tiles < min_tiles ? (tiles > 0 ? tiles : 1)
-                                                              : min_tiles));
+  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM);
+  const dim3 grid(p.grid);
+  const int j = p.j, side = p.side;
   const Peak peak{done, coarse_bins, coarse_stride, peak_out, certified};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool clamp = clamp_overflow != 0;

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C entry point. At
-first use it is compiled by nvcc for Hopper (sm_90a) into a shared library
-under `build/psulvsb_tpu_torch/` beside the package, named by a hash of the
-source so an edited kernel is rebuilt, and loaded with ctypes; `launcher`
-hands out its C entry point with the argument types set once. Nothing is
-built when a module is imported.
+Each kernel is one `csrc/<name>.cu` file with a plain C entry point, which
+may include headers that lie under `csrc/` too. At first use it is compiled
+by nvcc for Hopper (sm_90a) into a shared library under
+`build/psulvsb_tpu_torch/` beside the package, named by a hash of the source
+and of every header under `csrc/` it includes, so an edited kernel or header
+is rebuilt, and loaded with ctypes; `launcher` hands out its C entry point
+with the argument types set once. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +28,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: dict[str, ctypes._CFuncPtr] = {}
@@ -44,13 +48,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def source_files(name: str) -> list[Path]:
+    """csrc/<name>.cu and the files under csrc/ that it includes with
+    `#include "..."`, directly or through one another."""
+    todo = [CSRC_DIR / f"{name}.cu"]
+    found: list[Path] = []
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [
+            CSRC_DIR / inc for inc in _INCLUDE.findall(path.read_text())
+            if (CSRC_DIR / inc).is_file()
+        ]
+    return found
+
+
+def source_digest(name: str) -> str:
+    """Hash of everything under csrc/ that csrc/<name>.cu is compiled from."""
+    h = hashlib.sha256()
+    for path in sorted(source_files(name)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu on first use and return the loaded library."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     info = {"seconds": 0.0, "log": ""}
     if not out.exists():
@@ -61,7 +90,7 @@ def load_library(name: str) -> ctypes.CDLL:
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, str(src)],
             capture_output=True, text=True,
         )
         info = {

@@ -37,7 +37,8 @@ _HIST_ARGTYPES = (
     [c_void_p] * 3 + [c_int, c_float, c_void_p, c_longlong] + [c_int] * 3
     + [c_void_p] * 2 + [c_int] * 2 + [c_void_p] * 3
 )
-# pair_beta_count_launch: src, dst, mask, C, beta, count, stream.
+# pair_beta_count_launch: src, dst, mask (null: all active), C, beta, count,
+# stream.
 _BETA_ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
 
 
@@ -143,11 +144,16 @@ def pair_beta_count_reference(
 
 
 def _cuda_inputs(src, dst, active):
-    """Contiguous float32 (3, C) clouds and the checked bool mask (None:
-    all active) for a kernel, which reads the mask's bytes; no device
-    operation when the inputs already are so."""
+    """Validate (3, C) inputs for a kernel; return the contiguous float32
+    clouds and the contiguous bool mask, whose bytes the kernel reads, or
+    None for it when every point is active (the kernel then gets a null
+    mask). No device operation when the inputs already are so."""
     f32 = torch.float32
-    a = None if active is None else active.contiguous()
+    if active is None:
+        _check_clouds(src, dst)
+        a = None
+    else:
+        a = _check(src, dst, active).contiguous()
     return src.to(f32).contiguous(), dst.to(f32).contiguous(), a
 
 
@@ -157,10 +163,6 @@ def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clam
     device addresses and window of exact_peak_bin's full pass (block
     counter, coarse bins, coarse stride, (peak, count) out, certified out),
     or None."""
-    if active is None:
-        _check_clouds(src, dst)
-    else:
-        active = _check(src, dst, active)
     dev = src.device
     s, d, a = _cuda_inputs(src, dst, active)
     if isinstance(lo_bin, torch.Tensor):
@@ -223,7 +225,6 @@ def pair_beta_count(
     fallback)."""
     if not src.is_cuda:
         return pair_beta_count_reference(src, dst, beta, active)
-    active = _check(src, dst, active)
     dev = src.device
     s, d, a = _cuda_inputs(src, dst, active)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -231,8 +232,8 @@ def pair_beta_count(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            s.data_ptr(), d.data_ptr(), a.data_ptr(), s.shape[1], float(beta),
-            count.data_ptr(), stream,
+            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[1],
+            float(beta), count.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"pair_beta_count kernel launch failed with CUDA error {err}")

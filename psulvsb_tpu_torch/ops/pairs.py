@@ -21,10 +21,11 @@ from ctypes import c_float, c_int, c_void_p
 import torch
 
 from psulvsb_tpu_torch.ops._build import launcher
-from psulvsb_tpu_torch.ops.hist import _check
+from psulvsb_tpu_torch.ops.hist import _check, _cuda_inputs
 
 KERNEL_LAUNCHES = 0
-# consistency_degree_launch: src, dst, mask, C, tau, degrees, stream.
+# consistency_degree_launch: src, dst, mask (null: all active), C, tau,
+# degrees, stream.
 _ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
 _ROW_CHUNK = 512  # rows per step of the plain version's sweep
 
@@ -70,23 +71,24 @@ def consistency_degree(
 ) -> torch.Tensor:
     """deg[i] = #{j != i, both active : | |s_i - s_j| - |t_i - t_j| | < tau}
     (strict), tau rounded to float32; inactive rows give 0. src/dst (3, C),
-    C >= 1. Returns (C,) int32. CPU tensors run the plain version; CUDA
-    tensors the kernel (no fallback)."""
+    1 <= C <= 2^20. Returns (C,) int32. CPU tensors run the plain version;
+    CUDA tensors the kernel (no fallback): one allocation and one call,
+    which zeroes the degrees on the stream and launches the kernel."""
     global KERNEL_LAUNCHES
     if not src.is_cuda:
         return consistency_degree_reference(src, dst, tau, active)
     _check_nonempty(src)
-    active = _check(src, dst, active)
     dev = src.device
-    s = src.to(torch.float32).contiguous()
-    d = dst.to(torch.float32).contiguous()
-    a = active.to(torch.uint8).contiguous()
+    s, d, a = _cuda_inputs(src, dst, active)
     c = s.shape[1]
     deg = torch.empty(c, dtype=torch.int32, device=dev)
     fn = launcher("consistency_degree", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(s.data_ptr(), d.data_ptr(), a.data_ptr(), c, float(tau), deg.data_ptr(), stream)
+        err = fn(
+            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), c, float(tau),
+            deg.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"consistency_degree kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1

@@ -14,10 +14,13 @@ move to a neighbouring bin or across the beta edge, with equal totals for
 clamped windows and the same argmax; exact_peak_bin's peak, count and
 certificate equal. exact_peak_bin reads the two-pass rule off one
 full-resolution histogram (2065 bins at its defaults); the plain two passes
-and the Pallas front door hold it. The CUDA cases hold each kernel against
-its plain version on the card (histogram counts equal) and skip here; they
-need no JAX (`python -m pytest tests/test_torch_hist.py -m cuda
---noconftest`).
+and the Pallas front door hold it. The beta count is also held at the sizes
+1, 2, 31, 32, 33, 129 and 257, the edges of the CUDA kernel's tiles, each
+with all, about 80% and one of the points active, and on the edge-of-beta
+fixture of chip_smoke.py (pairs whose difference is beta - 2 ... beta + 2
+ulp exactly). The CUDA cases hold each kernel against its plain version on
+the card (counts equal, one launch a call) and skip here; they need no JAX
+(`python -m pytest tests/test_torch_hist.py -m cuda --noconftest`).
 """
 
 import types
@@ -30,6 +33,9 @@ from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_clou
 from psulvsb_tpu_torch.ops import hist
 
 FLIPS = 2
+EDGE_SIZES = [1, 2, 31, 32, 33, 129, 257]
+MASKS = ["all", "80%", "one"]
+BETAS = [0.02, 0.1]
 SMALL_BLOCKS = dict(t_block=8, c_block=32)
 WINDOWS = {
     "coarse": dict(num_bins=128, stride=16, clamp_overflow=True),
@@ -65,6 +71,14 @@ def _inputs(c, seed, test_scale=3.7, rate=0.85, inactive=0.2):
         test_scale=test_scale,
     )
     return pair.src, pair.dst, rng.uniform(size=c) >= inactive
+
+
+def _masked(kind, act, seed):
+    """The active mask of a case: None (all active), the input's own mask
+    (about 80% on) or one point."""
+    if kind == "all":
+        return None
+    return act if kind == "80%" else np.arange(act.shape[0]) == seed % act.shape[0]
 
 
 def _xla_direct(jref, src, dst, act, bins_per_unit, lo, stride, num_bins, clamp):
@@ -113,17 +127,25 @@ def test_histogram_matches_pallas_and_xla(jref, window, c, seed):
     assert got.dtype == np.int64
 
 
-@pytest.mark.parametrize("beta", [0.02, 0.1])
-def test_beta_count_matches_pallas_and_xla(jref, beta):
-    src, dst, act = _inputs(180, 3, test_scale=1.0)
+@pytest.mark.parametrize(
+    "c,mask,beta",
+    [pytest.param(180, "80%", beta, id=str(beta)) for beta in BETAS]
+    + [(c, m, beta) for c in EDGE_SIZES for m in MASKS for beta in BETAS],
+)
+def test_beta_count_matches_pallas_and_xla(jref, c, mask, beta):
+    src, dst, act = _inputs(c, 3, test_scale=1.0)
+    act = _masked(mask, act, 3)
     got = int(hist.pair_beta_count(
-        torch.as_tensor(src), torch.as_tensor(dst), beta, torch.as_tensor(act)
+        torch.as_tensor(src), torch.as_tensor(dst), beta,
+        None if act is None else torch.as_tensor(act),
     ))
     jnp = jref.jnp
     pallas = int(jref.ph.pair_beta_count(
-        jnp.asarray(src), jnp.asarray(dst), beta, jnp.asarray(act), **SMALL_BLOCKS
+        jnp.asarray(src), jnp.asarray(dst), beta, None if act is None else jnp.asarray(act),
+        **SMALL_BLOCKS
     ))
     assert abs(got - pallas) <= FLIPS, (got, pallas)
+    act = np.ones(c, bool) if act is None else act
     ii, jj = np.triu_indices(src.shape[1], 1)
     s, d = jnp.asarray(src), jnp.asarray(dst)
     st, dt = s[:, jj] - s[:, ii], d[:, jj] - d[:, ii]
@@ -131,6 +153,35 @@ def test_beta_count_matches_pallas_and_xla(jref, beta):
     v2 = jnp.sqrt(jnp.sum(dt * dt, axis=0))
     direct = int(jnp.sum((jnp.abs(v1 - v2) <= beta) & jnp.asarray(act[ii] & act[jj])))
     assert got == direct
+
+
+@pytest.mark.parametrize("beta", BETAS)
+@pytest.mark.parametrize("turned", [False, True])
+def test_beta_edge_fixture_sits_on_the_edge(beta, turned):
+    """chip_smoke's edge-of-beta fixture: between its two clusters every
+    difference is beta + m ulp, m in -2 ... 2, so 3 ulp of beta to either
+    side move pairs across the edge; on an axis, where the differences are
+    exact, the plain count is the one the construction gives."""
+    from chip_smoke import beta_edge_inputs, beta_thresholds
+
+    n = 64
+    src, dst = beta_edge_inputs(beta, 17, torch.device("cpu"), turned, n=n)
+    assert src.shape == dst.shape == (3, 2 * n) and src.dtype == torch.float32
+    below, at, above = (int(hist.pair_beta_count(src, dst, b)) for b in beta_thresholds(beta))
+    assert below < at < above
+    if not turned:
+        far = np.arange(2 * n) >= n
+        m = np.rint(
+            ((dst[0].double() - src[0].double()).numpy()[far] - float(np.float32(beta)))
+            / float(np.spacing(np.float32(beta)))
+        )
+        assert set(m) <= {-2.0, -1.0, 0.0, 1.0, 2.0} and len(set(m)) == 5
+        # Origin-origin pairs all pass; origin-far pairs pass when m <= 0.
+        cross = lambda limit: n * int((m <= limit).sum())  # noqa: E731
+        inside = int(hist.pair_beta_count(src, dst, beta, torch.as_tensor(far)))
+        assert at == n * (n - 1) // 2 + cross(0) + inside
+        assert below == n * (n - 1) // 2 + cross(-3) + int(
+            hist.pair_beta_count(src, dst, beta_thresholds(beta)[0], torch.as_tensor(far)))
 
 
 @pytest.mark.parametrize(
@@ -289,10 +340,41 @@ def test_cuda_kernels_match_plain_versions(cuda_device, c):
         before = hist.KERNEL_LAUNCHES["pair_beta_count"]
         got = int(hist.pair_beta_count(src, dst / 3.7, beta, act))
         assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
-        assert abs(got - int(hist.pair_beta_count_reference(src, dst / 3.7, beta, act))) <= FLIPS
+        assert got == int(hist.pair_beta_count_reference(src, dst / 3.7, beta, act))
     k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
     p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
     assert k == p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", EDGE_SIZES)
+@pytest.mark.parametrize("mask", MASKS)
+def test_cuda_beta_count_equals_plain_at_tile_edges(cuda_device, c, mask):
+    """The count equals the plain version's at the edges of the kernel's
+    tiles, with one launch a call."""
+    src, dst, act = _inputs(c, c, test_scale=1.0)
+    act = _masked(mask, act, c)
+    src, dst = torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device)
+    act = None if act is None else torch.as_tensor(act, device=cuda_device)
+    for beta in BETAS:
+        before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+        got = int(hist.pair_beta_count(src, dst, beta, act))
+        assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
+        assert got == int(hist.pair_beta_count_reference(src, dst, beta, act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta", BETAS)
+@pytest.mark.parametrize("turned", [False, True])
+def test_cuda_beta_count_on_the_edge_of_beta(cuda_device, beta, turned):
+    """Pairs whose difference is beta to the last ulp on both sides: the
+    kernel's fast test must hand each of them to the exact expression."""
+    from chip_smoke import beta_edge_inputs, beta_thresholds
+
+    src, dst = beta_edge_inputs(beta, 17, cuda_device, turned)
+    for b in beta_thresholds(beta):
+        assert int(hist.pair_beta_count(src, dst, b)) == int(
+            hist.pair_beta_count_reference(src, dst, b))
 
 
 @pytest.mark.cuda

@@ -8,9 +8,12 @@ psulvsb_tpu/ops/pallas_pairs.py, which runs the Pallas kernel in interpret
 mode on the CPU. The Pallas kernel takes its distances from
 |a|^2 + |b|^2 - 2ab, so a pair at the window's edge may flip: at most 2
 flips per call are allowed against it, with no flip expected against the
-direct form. The CUDA cases hold the kernel against its plain version on
-the card (equal degrees) and skip here; they need no JAX (`python -m pytest
-tests/test_torch_pairs.py -m cuda --noconftest`).
+direct form. The sizes 1, 2, 31, 32, 33, 129 and 257 sit at the edges of the
+CUDA kernel's tiles, each with all, about 80% and one of the points active:
+there the plain version, the card's yardstick, is held against JAX. The
+CUDA cases hold the kernel against its plain version on the card (equal
+degrees, one launch a call) and skip here; they need no JAX (`python -m
+pytest tests/test_torch_pairs.py -m cuda --noconftest`).
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ import torch
 from psulvsb_tpu_torch.ops import pairs
 
 FLIPS = 2
+EDGE_SIZES = [1, 2, 31, 32, 33, 129, 257]
+MASKS = ["all", "80%", "one"]
 
 
 @pytest.fixture
@@ -38,6 +43,14 @@ def _inputs(c, seed, tau=0.05, inactive=0.2):
     dst[:, : c // 2] = src[:, : c // 2] + 0.3
     dst[:, : c // 2] += rng.uniform(-tau / 4, tau / 4, size=(3, c // 2)).astype(np.float32)
     return src, dst, rng.uniform(size=c) >= inactive
+
+
+def _masked(kind, act, seed):
+    """The active mask of a case: None (all active), the input's own mask
+    (about 80% on) or one point."""
+    if kind == "all":
+        return None
+    return act if kind == "80%" else np.arange(act.shape[0]) == seed % act.shape[0]
 
 
 def _numpy_degree(src, dst, tau, active):
@@ -77,20 +90,47 @@ def test_edges_of_the_front_door():
         pairs.consistency_degree(src, src[:, :3], 0.1)
 
 
-@pytest.mark.parametrize("c", [64, 300, 517])
-def test_plain_matches_jax_pallas_interpret(c):
+@pytest.mark.parametrize(
+    "c,mask",
+    [pytest.param(c, "80%", id=str(c)) for c in (64, 300, 517)]
+    + [(c, m) for c in EDGE_SIZES for m in MASKS],
+)
+def test_plain_matches_jax_pallas_interpret(c, mask):
     jnp = pytest.importorskip("jax.numpy")
     from psulvsb_tpu.ops.pallas_pairs import consistency_degree as jax_degree
 
     tau = 0.05
     src, dst, act = _inputs(c, 100 + c, tau)
+    act = _masked(mask, act, 100 + c)
     want = np.asarray(jax_degree(jnp.asarray(src), jnp.asarray(dst), tau,
-                                 active=jnp.asarray(act)))
+                                 active=None if act is None else jnp.asarray(act)))
     got = pairs.consistency_degree(torch.as_tensor(src), torch.as_tensor(dst), tau,
-                                   torch.as_tensor(act)).numpy()
+                                   None if act is None else torch.as_tensor(act)).numpy()
     # A flipped pair moves two degrees by one each.
     assert np.abs(got.astype(np.int64) - want).sum() <= 2 * FLIPS
-    assert (got[~act] == 0).all()
+    if act is not None:
+        assert (got[~act] == 0).all()
+    np.testing.assert_array_equal(
+        got, _numpy_degree(src, dst, tau, np.ones(c, bool) if act is None else act)
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", EDGE_SIZES)
+@pytest.mark.parametrize("mask", MASKS)
+def test_cuda_kernel_equals_plain_at_tile_edges(cuda_device, c, mask):
+    """Degrees equal the plain version's as integers at the edges of the
+    kernel's tiles, with one launch a call."""
+    tau = 0.1
+    src, dst, act = _inputs(c, c, tau)
+    act = _masked(mask, act, c)
+    src, dst = torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device)
+    act = None if act is None else torch.as_tensor(act, device=cuda_device)
+    before = pairs.KERNEL_LAUNCHES
+    got = pairs.consistency_degree(src, dst, tau, act)
+    torch.cuda.synchronize()
+    assert pairs.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, pairs.consistency_degree_reference(src, dst, tau, act))
 
 
 @pytest.mark.cuda

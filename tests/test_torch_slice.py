@@ -112,7 +112,8 @@ def test_correspondence_overload_and_keep_mask():
     keep[np.flatnonzero(~pair.outlier_mask)[:5]] = 0
     src_t, dst_t = torch.as_tensor(pair.src), torch.as_tensor(pair.dst)
     sol2, info = register_pair(
-        src_t, dst_t, params, torch.Generator().manual_seed(1), keep_mask=torch.as_tensor(keep)
+        src_t, dst_t, params, torch.Generator().manual_seed(1), keep_mask=torch.as_tensor(keep),
+        device="cpu",
     )
     assert _success(pair, sol2.rotation, sol2.translation)
     assert info["host_syncs"] >= 1 + 2 * info["rounds"]
@@ -122,6 +123,37 @@ def test_correspondence_overload_and_keep_mask():
     )
     assert set(info3["stage_s"]) >= {"init", "sample", "local", "host"}
     assert torch.equal(sol3.rotation, sol2.rotation)
+
+
+def test_register_pair_device():
+    """register_pair moves numpy or tensor inputs to `device` and solves
+    there, with the result it gives for tensors already there; the default
+    device is the card, and with none the move raises."""
+    params = params_from_jax(JPARAMS)
+    pair = _pair(2)
+    keep = np.ones(C, np.int64)
+    keep[:7] = 0
+    sol_t, _ = register_pair(
+        torch.as_tensor(pair.src), torch.as_tensor(pair.dst), params,
+        torch.Generator().manual_seed(5), keep_mask=torch.as_tensor(keep), device="cpu",
+    )
+    sol_n, _ = register_pair(
+        pair.src, pair.dst, params, torch.Generator().manual_seed(5), keep_mask=keep, device="cpu"
+    )
+    assert sol_n.rotation.device.type == "cpu"
+    assert torch.equal(sol_n.rotation, sol_t.rotation)
+    assert torch.equal(sol_n.translation, sol_t.translation)
+    direct, _ = psulvsb_solve(
+        torch.as_tensor(pair.src), torch.as_tensor(pair.dst), torch.as_tensor(keep), params,
+        torch.Generator().manual_seed(5),
+    )
+    assert torch.equal(direct.rotation, sol_t.rotation)
+    assert _success(pair, sol_t.rotation, sol_t.translation)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            register_pair(pair.src, pair.dst, params)
+        with pytest.raises((RuntimeError, AssertionError)):
+            RobustRegistrationSolver(params).solve(pair.src, pair.dst)
 
 
 N_SCALED = 10
