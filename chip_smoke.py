@@ -17,8 +17,9 @@ and prints no result line):
    (16, 1024), (4, 2048), (3, 197) and at B = 1 and 16 for N = 1, 10, 11,
    32, 255, 256, 257, 1024, 1025, 2048 (the edges of the kernel's
    variants), with 30% gross outliers, half the columns masked, with and
-   without a warm start: max |dR| <= 1e-4 and inlier masks agreeing on
-   >= 99.5% of active columns; the <= 10-inlier fail-safe at 10 and 11
+   without a warm start (the flag as a Python bool at every shape, and as a
+   0-d tensor on the device at the four main shapes): max |dR| <= 1e-4 and
+   inlier masks agreeing on >= 99.5% of active columns; the <= 10-inlier fail-safe at 10 and 11
    fitting columns and the noise floor (a bound of 5e-9) as the plain
    version; an all-inactive hypothesis gives the identity and no inliers;
    N = 0 raises; medians of 20 timed runs (CUDA events) at (4, 256) and
@@ -89,13 +90,39 @@ and prints no result line):
    printed beside the JAX package's CPU recall on the same pair; (c) the
    peak device memory of the clique round's batched triangle products at
    C = 8192 (printed);
-12. result — the card line, a JSON line of per-kernel figures (time,
-   plain time, bound, launches on its path), and the final JSON line
-   {"ok": true, "device": {...}}.
+12. replay against eager — solver.fused.psulvsb_register with graphs=True
+   (each segment of the solve a replayed CUDA graph) and graphs=False (the
+   same segments run eagerly), same seed, on the anchor, the unknown-scale
+   pair (C = 5000), the wide pair (C = 12000), the GROR preset,
+   pair_seed1375 under the front-end preset and the hostile pair: the
+   solutions must be equal (difference 0), on a second pair of the same
+   shape through the same plan too; each plan's build time, segments and
+   device bytes are printed;
+13. the fused path — psulvsb_register on each of those paths over 5 seeds
+   under phase 4's pose gates (KITTI's for the real pair; the hostile pair
+   is printed beside its staged recall), walls a solve in turns (staged,
+   fused, fused, staged) in one process, graph replays and host reads a
+   solve, device operations and host-issued operations a solve
+   (torch.profiler); the launch counts, which include every replayed
+   launch, set to 0 before each path and read after it;
+14. the pair batch — parallel.pairs.register_batch at B = 8 and 32 on the
+   anchor protocol (a pair a seed) and at B = 8 on the unknown-scale one,
+   in order and with pairs in flight (vectorized=True): every pair gated on
+   RE < 5 deg and TE < 0.3 against its ground truth and equal to its solve
+   alone; pairs per second beside B serial psulvsb_solve calls, in turns;
+15. the pipeline — eval.pipeline.solve_with_prefilter on pair_seed1375
+   padded to its 2048 bucket through psulvsb_register, the pre-filter off
+   (KITTI gates) and on (the keep-mask counts are printed);
+16. result — the card line, a JSON line of per-kernel figures (time,
+   plain time, bound, launches on the fused path that runs it), and the
+   final JSON line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a phase drives a solve path and
 read just after it; launches made to compare a kernel with its plain
-version are not counted in any path.
+version are not counted in any path. A replayed graph launches the kernels
+it captured without calling their wrappers: the plan adds those to the
+wrappers' counts at each replay (a capture itself launches nothing and is
+not counted).
 """
 
 from __future__ import annotations
@@ -320,6 +347,16 @@ def phase_kernel_vs_plain(device) -> dict:
             rr, ir = gnc.gnc_batch_reference(*args, **LOOP)
             max_err = max(max_err, check_gnc(f"B={b} N={n} warm={use_warm}", rk, ik, rr, ir, act))
 
+    # use_warm as a flag on the device, which a captured launch follows.
+    for b, n in KERNEL_SHAPES:
+        for use_warm in (False, True):
+            src, dst, act, nb, warm = gnc_problem(rng, b, n, device)
+            flag = torch.full((), use_warm, dtype=torch.bool, device=device)
+            rk, ik = gnc.gnc_batch(src, dst, act, nb, warm, flag, **LOOP)
+            rr, ir = gnc.gnc_batch_reference(src, dst, act, nb, warm, flag, **LOOP)
+            max_err = max(max_err, check_gnc(f"B={b} N={n} device flag={use_warm}", rk, ik, rr,
+                                             ir, act))
+
     # The front door's rules, now inside the kernel: the <= 10-inlier
     # fail-safe and the noise-bound floor (a tight threshold runs the loop
     # until the outliers drop out).
@@ -455,26 +492,13 @@ def path_case(name):
     raise ValueError(f"unknown path {name!r}")
 
 
-def run_solve(tag, params, case, seed, device, route=None, limits=LIMITS, gate=True):
-    """One solve of case = (src, dst, truth) through RobustRegistrationSolver
-    on the card, scored as the batch harness scores it. Non-finite output,
-    or an init route other than `route`, raises; with `gate`, so does a
-    solve that is not valid or misses a limit of (RE, TE, scale error).
-    Returns (wall seconds, info, success)."""
-    from psulvsb_tpu_torch import RobustRegistrationSolver
+def score_solution(tag, sol, truth, limits=LIMITS):
+    """(valid, RE deg, TE, scale error, success) of a solution against
+    truth = (rotation, translation, test scale), scored as the batch harness
+    scores it; a non-finite solution raises."""
     from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
 
-    src, dst, (rot_true, t_true, test_scale) = case
-    src = torch.as_tensor(src, device=device)
-    dst = torch.as_tensor(dst, device=device)
-    solver = RobustRegistrationSolver(params, seed=seed, device=device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sol = solver.solve(src, dst)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if sol.rotation.device != device:
-        raise AssertionError(f"the solve ran on {sol.rotation.device}, not {device}")
+    rot_true, t_true, test_scale = truth
     rot = sol.rotation.cpu().numpy().astype(np.float64)
     trans = sol.translation.cpu().numpy().astype(np.float64)
     scale = float(sol.scale)
@@ -487,8 +511,32 @@ def run_solve(tag, params, case, seed, device, route=None, limits=LIMITS, gate=T
         te = float(np.linalg.norm(trans * scale / test_scale - t_true))
         se = abs(scale - test_scale)
     valid = bool(sol.valid)
-    info = solver._info
     ok = valid and re < limits[0] and te < limits[1] and (test_scale is None or se <= limits[2])
+    return valid, re, te, se, ok
+
+
+def run_solve(tag, params, case, seed, device, route=None, limits=LIMITS, gate=True):
+    """One solve of case = (src, dst, truth) through RobustRegistrationSolver
+    on the card, scored as the batch harness scores it. Non-finite output,
+    or an init route other than `route`, raises; with `gate`, so does a
+    solve that is not valid or misses a limit of (RE, TE, scale error).
+    Returns (wall seconds, info, success)."""
+    from psulvsb_tpu_torch import RobustRegistrationSolver
+
+    src, dst, _ = case
+    src = torch.as_tensor(src, device=device)
+    dst = torch.as_tensor(dst, device=device)
+    solver = RobustRegistrationSolver(params, seed=seed, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solver.solve(src, dst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sol.rotation.device != device:
+        raise AssertionError(f"the solve ran on {sol.rotation.device}, not {device}")
+    valid, re, te, se, ok = score_solution(tag, sol, case[2], limits)
+    scale = float(sol.scale)
+    info = solver._info
     print(f"[{tag}] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} scale={scale:.4f} "
           f"(error {se:.5f}) init={info['init_mode']} gror={info['gror_init']} "
           f"clique_seeded={info['clique_seeded']} clique_rounds={info['clique_rounds']} "
@@ -940,6 +988,288 @@ def phase_clique(device, card: str) -> dict:
     return {"seeded": seeded, "rounds": rounds}
 
 
+FUSED_PATHS = ("anchor", "unknown", "wide", "gror", "frontend", "hostile")
+BATCH_SIZES = {"anchor": (8, 32), "unknown": (8,)}
+BATCH_C = {"anchor": ANCHOR_C, "unknown": UNKNOWN_C}
+PIPELINE_BUCKET = 2048
+
+
+def fused_case(name, variant=0):
+    """(params, case, limits, gated) of a path the fused solve is held on:
+    path_case's, or the hostile pair of phase 11. variant 1 is a second pair
+    of the same shape: other data seeds for the synthetic protocols, the
+    columns turned by one for the real pair."""
+    from psulvsb_tpu_torch import SolverParams
+
+    if name == "hostile":  # recall is printed, not gated: phase 11 (b)
+        case = anchor_case(rate=HOSTILE_RATE, data_seed=HOSTILE_DATA_SEED + variant)
+        return SolverParams.preset_artificial(**CAPS), case, LIMITS, False
+    params, case = path_case(name)
+    if variant:
+        if name == "frontend":
+            case = (np.roll(case[0], 1, axis=1), np.roll(case[1], 1, axis=1), case[2])
+        elif name == "unknown":
+            case = unknown_scale_case(UNKNOWN_C, 6)
+        else:
+            c = case[0].shape[1]
+            case = anchor_case(c, data_seed=11, cloud_seed=11)
+    return params, case, (KITTI_LIMITS if name == "frontend" else LIMITS), True
+
+
+def on_device(case, device):
+    """A case's clouds and an all-ones keep mask as device tensors."""
+    src = torch.as_tensor(case[0], device=device)
+    dst = torch.as_tensor(case[1], device=device)
+    return src, dst, torch.ones(src.shape[1], dtype=torch.int64, device=device)
+
+
+def solution_difference(a, b) -> float:
+    """Largest absolute difference over two solutions' fields."""
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+
+def phase_replay_vs_eager(device, card: str) -> dict:
+    """Phase 12: replayed graphs against the same segments run eagerly."""
+    from psulvsb_tpu_torch.solver.fused import plan_for, psulvsb_register
+
+    plans = {}
+    for name in FUSED_PATHS:
+        for variant in (0, 1):
+            params, case, _, _ = fused_case(name, variant)
+            src, dst, keep = on_device(case, device)
+            for seed in (3, 4):
+                replayed = psulvsb_register(src, dst, keep, seed, params)
+                eager = psulvsb_register(src, dst, keep, seed, params, graphs=False)
+                torch.cuda.synchronize()
+                diff = solution_difference(replayed, eager)
+                print(f"[replay] {name} pair {variant} seed {seed}: valid={bool(replayed.valid)} "
+                      f"inliers={int(replayed.final_inlier_count)} replay - eager = {diff}")
+                if diff != 0.0 or bool(replayed.valid) != bool(eager.valid):
+                    raise AssertionError(f"{name}: a replayed plan differs from its eager run by "
+                                         f"{diff}")
+        plan = plan_for(params, src.shape[1], device)
+        plans[name] = {"build_s": plan.build_s, "segments": len(plan.segments),
+                       "bytes": plan.nbytes}
+        print(json.dumps({"plan": name, "C": src.shape[1], "build_s": round(plan.build_s, 3),
+                          "segments": len(plan.segments), "bytes": plan.nbytes,
+                          "MiB": round(plan.nbytes / 2**20, 1), "card": card}))
+    return plans
+
+
+def timed_walls(fn, seeds) -> list[float]:
+    """Wall milliseconds of fn(seed), each to a device synchronization."""
+    walls = []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(seed)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def profiled_operations(fn, reps: int = 3) -> tuple[float, float]:
+    """(device operations, host-issued operations) a call of fn over `reps`
+    calls under torch.profiler: kernels, copies and fills that ran on the
+    card, and the host's launch, graph-launch, copy and fill calls. A window
+    that lost its device records is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    issued = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+              "cuLaunchKernel")
+    for _ in range(PROFILER_ATTEMPTS):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_MARGIN_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_MARGIN_S)
+        events = list(prof.events())
+        on_device_n = sum(e.device_type == DeviceType.CUDA for e in events)
+        host_n = sum(e.device_type == DeviceType.CPU and e.name.startswith(issued) for e in events)
+        if on_device_n >= reps:
+            break
+        print(f"[profiler] {on_device_n} device records over {reps} solves: again")
+    return on_device_n / reps, host_n / reps
+
+
+def phase_fused_paths(device, card: str) -> dict:
+    """Phase 13: the fused path's gates, walls, reads and launches."""
+    from psulvsb_tpu_torch import psulvsb_solve
+    from psulvsb_tpu_torch.solver.fused import plan_for, psulvsb_register
+
+    out = {}
+    seeds = [100 + i for i in range(N_TIMED_SOLVES)]
+    for name in FUSED_PATHS:
+        params, case, limits, gated = fused_case(name)
+        src, dst, keep = on_device(case, device)
+        plan = plan_for(params, src.shape[1], device)
+
+        def staged(seed):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return psulvsb_solve(src, dst, keep, params, gen)
+
+        def fused(seed):
+            return psulvsb_register(src, dst, keep, seed, params)
+
+        fused(0)  # every segment this path takes is captured before the count
+        reset_launches()
+        passed, reads, replays, syncs, staged_passed = 0, [], [], [], 0
+        for seed in seeds:
+            sol = fused(seed)
+            valid, re, te, se, ok = score_solution(f"fused {name}", sol, case[2], limits)
+            stats = dict(plan.stats)
+            reads.append(stats["host_reads"])
+            replays.append(stats["graph_replays"])
+            print(f"[fused {name}] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} "
+                  f"scale error {se:.5f} rounds={stats['rounds']} "
+                  f"batches={stats['local_batches']} host_reads={stats['host_reads']} "
+                  f"graph_replays={stats['graph_replays']}")
+            if gated and not ok:
+                raise AssertionError(f"fused {name} seed {seed} failed its gate: valid={valid} "
+                                     f"RE={re} TE={te} scale error={se}")
+            passed += ok
+        launches = read_launches()
+        for seed in seeds:
+            sol_s, info = staged(seed)
+            syncs.append(info["host_syncs"])
+            staged_passed += score_solution(f"staged {name}", sol_s, case[2], limits)[4]
+            if reads[len(syncs) - 1] > info["host_syncs"] - 1:
+                raise AssertionError(f"fused {name}: more host reads than the staged solver")
+        turns = [timed_walls(f, seeds) for f in (staged, fused, fused, staged)]
+        med = [statistics.median(t) for t in turns]
+        dev_f, host_f = profiled_operations(lambda: fused(7))
+        dev_s, host_s = profiled_operations(lambda: staged(7))
+        out[name] = {
+            "path": name, "C": src.shape[1], "passed": passed, "staged_passed": staged_passed,
+            "solves": len(seeds),
+            "wall_ms_staged": [med[0], med[3]], "wall_ms_fused": [med[1], med[2]],
+            "host_reads_fused": reads, "host_syncs_staged": syncs, "graph_replays": replays,
+            "device_ops_fused": dev_f, "host_issued_ops_fused": host_f,
+            "device_ops_staged": dev_s, "host_issued_ops_staged": host_s,
+            "launches": launches, "plan_build_s": round(plan.build_s, 3),
+            "plan_bytes": plan.nbytes, "card": card,
+        }
+        print(json.dumps(out[name]))
+        if launches["gnc_batch"] < sum(r for r in replays) // 4:
+            raise AssertionError(f"fused {name}: the replays' GNC launches were not counted: "
+                                 f"{launches}")
+    need = {"unknown": "pair_ratio_hist", "wide": "pair_beta_count", "gror": "consistency_degree",
+            "frontend": "consistency_degree"}
+    for name, kernel in need.items():
+        if out[name]["launches"][kernel] != N_TIMED_SOLVES:
+            raise AssertionError(f"fused {name} must launch {kernel} once a solve: "
+                                 f"{out[name]['launches']}")
+    return out
+
+
+def batch_cases(name, b):
+    """B pairs of a protocol, a pair a seed: stacked (src, dst), truths."""
+    cases = [
+        anchor_case(data_seed=200 + i, cloud_seed=200 + i) if name == "anchor"
+        else unknown_scale_case(UNKNOWN_C, 200 + i)
+        for i in range(b)
+    ]
+    src = np.stack([c[0] for c in cases]).astype(np.float32)
+    dst = np.stack([c[1] for c in cases]).astype(np.float32)
+    return src, dst, [c[2] for c in cases]
+
+
+def phase_pair_batch(device, card: str) -> list:
+    """Phase 14: register_batch in its two forms beside serial solves."""
+    from psulvsb_tpu_torch import RegistrationSolution, psulvsb_solve, register_batch
+    from psulvsb_tpu_torch.solver.fused import psulvsb_register
+
+    rows = []
+    for name, sizes in BATCH_SIZES.items():
+        params = path_case(name)[0] if name == "anchor" else unknown_scale_params()
+        for b in sizes:
+            src_np, dst_np, truths = batch_cases(name, b)
+            src = torch.as_tensor(src_np, device=device)
+            dst = torch.as_tensor(dst_np, device=device)
+            keep = torch.ones((b, src.shape[2]), dtype=torch.int64, device=device)
+            seeds = [300 + i for i in range(b)]
+
+            def serial():
+                for i in range(b):
+                    gen = torch.Generator(device=device).manual_seed(seeds[i])
+                    psulvsb_solve(src[i], dst[i], keep[i], params, gen)
+
+            def batch(vectorized):
+                return register_batch(src, dst, keep, seeds, params, vectorized=vectorized)
+
+            forms = {"in order": batch(False), "in flight": batch(True)}  # plans built here
+            torch.cuda.synchronize()
+            for form, sols in forms.items():
+                for i in range(b):
+                    one = RegistrationSolution(*(f[i] for f in sols))
+                    valid, re, te, se, ok = score_solution(f"batch {name} {form} pair {i}", one,
+                                                           truths[i])
+                    if not ok:
+                        raise AssertionError(f"batch {name} B={b} {form}: pair {i} failed its "
+                                             f"gate: valid={valid} RE={re} TE={te} scale {se}")
+            for i in (0, b - 1):
+                alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
+                for form, sols in forms.items():
+                    diff = solution_difference(
+                        RegistrationSolution(*(f[i] for f in sols)), alone)
+                    if diff != 0.0:
+                        raise AssertionError(f"batch {name} {form}: pair {i} differs from its "
+                                             f"solve alone by {diff}")
+            order = ((serial, "serial"), (lambda: batch(False), "in order"),
+                     (lambda: batch(True), "in flight"))
+            rates = {label: [] for _, label in order}
+            for fn, label in order + order[::-1]:  # in turns, there and back
+                wall = timed_walls(lambda _: fn(), [0])[0]
+                rates[label].append(b / (wall * 1e-3))
+            rows.append({
+                "batch": name, "B": b, "C": src.shape[2], "gated_pairs": b,
+                "pairs_per_s_serial_staged": rates["serial"],
+                "pairs_per_s_register_batch": rates["in order"],
+                "pairs_per_s_vectorized": rates["in flight"], "card": card,
+            })
+            print(json.dumps(rows[-1]))
+    return rows
+
+
+def phase_pipeline(device, card: str) -> dict:
+    """Phase 15: pad to the bucket, the pre-filter off and on, the fused solve."""
+    from psulvsb_tpu_torch import solve_with_prefilter
+    from psulvsb_tpu_torch.eval.frontend_protocol import frontend_solver_params
+    from psulvsb_tpu_torch.eval.pipeline import pad_bucket
+
+    params = frontend_solver_params(**CAPS)
+    src, dst, truth = frontend_case(FRONTEND_GATED)
+    c = src.shape[1]
+    if pad_bucket(c) != PIPELINE_BUCKET:
+        raise AssertionError(f"{FRONTEND_GATED} (C={c}) must pad to {PIPELINE_BUCKET}")
+    out = {"pair": FRONTEND_GATED, "C": c, "bucket": PIPELINE_BUCKET, "card": card}
+    for use_prefilter in (False, True):
+        solve_with_prefilter(src, dst, params, 0, use_prefilter=use_prefilter)  # builds the plan
+        res = solve_with_prefilter(src, dst, params, 1, use_prefilter=use_prefilter)
+        keep = res.keep_mask.cpu().numpy()
+        if keep.shape != (PIPELINE_BUCKET,) or not (keep[c:] == -2).all() or (keep[:c] == -2).any():
+            raise AssertionError("padding columns must be the -2 entries of the keep mask")
+        valid, re, te, _, ok = score_solution(f"pipeline prefilter={use_prefilter}", res.solution,
+                                              truth, KITTI_LIMITS)
+        if int(res.solution.final_inlier_count) > c:
+            raise AssertionError("a padding column was counted as an inlier")
+        counts = {str(v): int((keep == v).sum()) for v in (1, 0, -1, -2)}
+        tag = "prefilter_on" if use_prefilter else "prefilter_off"
+        out[tag] = {"valid": valid, "RE_deg": re, "TE": te, "passes_kitti": ok,
+                    "keep_mask_counts": counts, "elapsed_ms": res.elapsed_s * 1e3}
+        # The pre-filter may discard true inliers of a large-rotation pair
+        # (pipeline.py's docstring): only the unfiltered solve is gated.
+        if not use_prefilter and not ok:
+            raise AssertionError(f"pipeline without the pre-filter failed the KITTI gates: "
+                                 f"valid={valid} RE={re} TE={te}")
+    print(json.dumps(out))
+    return out
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from psulvsb_tpu_torch.ops._build import BUILD_INFO, load_library
@@ -979,12 +1309,21 @@ def main() -> int:
     gror = phase_gror_slice(device, card)
     phase_frontend(device, card)
     phase_clique(device, card)
+    phase_replay_vs_eager(device, card)
+    fused = phase_fused_paths(device, card)
+    phase_pair_batch(device, card)
+    phase_pipeline(device, card)
 
-    def row(name, source, replaces, launches, err, timed):
+    def row(name, source, replaces, path, staged, err, timed):
+        """`launches`: over the fused path's N_TIMED_SOLVES solves, replayed
+        launches included; `launches_staged`: over the staged path's solves."""
         ms, plain_ms, (bound, bound_by) = timed
+        if staged <= 0 or fused[path]["launches"][name] <= 0:
+            raise AssertionError(f"{name} did not launch on the {path} path")
         return {
             "name": name, "route": "cuda", "source": f"psulvsb_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "replaces": replaces, "launches": fused[path]["launches"][name],
+            "launches_staged": staged, "path": path, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             # No single PyTorch call computes any of these functions.
             "library_ms": None,
@@ -992,17 +1331,18 @@ def main() -> int:
 
     print(card_line())
     print(json.dumps({"kernels": [
-        row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235",
+        row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235", "anchor",
             sl["launches"], kern["max_abs_err"], kern["times"][(4, 256)]),
         row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",
-            unknown["launches"]["pair_ratio_hist"], pairs["max_diff"]["hist"],
+            "unknown", unknown["launches"]["pair_ratio_hist"], pairs["max_diff"]["hist"],
             pairs["times"][("exact_peak_bin", UNKNOWN_C)]),
         row("pair_beta_count", "pair_beta_count.cu", "psulvsb_tpu/ops/pallas_hist.py:241",
-            wide["beta"]["pair_beta_count"], pairs["max_diff"]["beta"],
+            "wide", wide["beta"]["pair_beta_count"], pairs["max_diff"]["beta"],
             pairs["times"][("beta 0.1", WIDE_C)]),
         row("consistency_degree", "consistency_degree.cu",
-            "psulvsb_tpu/ops/pallas_pairs.py:53", gror["launches"]["consistency_degree"],
-            degree["max_diff"], degree["times"][ANCHOR_C]),
+            "psulvsb_tpu/ops/pallas_pairs.py:53", "gror",
+            gror["launches"]["consistency_degree"], degree["max_diff"],
+            degree["times"][ANCHOR_C]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,8 +9,11 @@ dimension: the escalated clique round holds one graph per hypothesis.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from psulvsb_tpu_torch.robust.translation import scatter_or
 from psulvsb_tpu_torch.utils.precision import mm
 
 CHUNK = 32  # guarded greedy steps between two host reads
@@ -31,11 +34,18 @@ def triangle_scores(adj: torch.Tensor, active: torch.Tensor | None = None) -> to
     return (mm(a, a) * a).sum(-1)
 
 
+def max_clique_size_for_edges(edges: int) -> int:
+    """The largest k with k (k - 1) / 2 <= edges: no graph of that many
+    edges holds a larger clique."""
+    return int((1 + math.isqrt(1 + 8 * max(edges, 0))) // 2)
+
+
 def greedy_clique(
     adj: torch.Tensor,
     active: torch.Tensor | None = None,
     order_scores: torch.Tensor | None = None,
     chunk: int = CHUNK,
+    max_steps: int | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Greedy clique: start from the best-scored active vertex, then add the
     candidate (adjacent to every member so far) with the highest score until
@@ -46,6 +56,10 @@ def greedy_clique(
     the port of core_numbers, ROADMAP Queue 1 item 11). The steps run in
     chunks of `chunk`: a step whose candidate set is empty changes nothing,
     and the host reads whether any candidate is left once per chunk.
+    With `max_steps` exactly that many steps run and the host reads nothing:
+    the same clique whenever max_steps is at least the clique's size less
+    one (N - 1 always is; a graph of E edges holds no clique beyond
+    `max_clique_size_for_edges(E)` vertices).
 
     Returns ((..., N) bool clique mask, host reads)."""
     if order_scores is None:
@@ -70,13 +84,31 @@ def greedy_clique(
     seed = torch.argmax(scores, dim=-1)
     clique = (ar == seed[..., None]) & torch.gather(active, -1, seed[..., None])
     cand = row(seed) & active
+    # A step is four device operations: the best candidate and its score in
+    # one reduction (the first maximum, as argmax), its row, the new
+    # candidates. Candidates are active, so their scores are finite and a
+    # step with none left shows as a best score of -inf; the members are
+    # scattered into the mask once, after the last step.
+    best, picked = [], []
+
+    def step(cand):
+        top, v = torch.max(torch.where(cand, scores, -torch.inf), dim=-1)
+        best.append(top)
+        picked.append(v)
+        return cand & row(v)
+
     reads = 0
-    while True:
-        for _ in range(chunk):
-            has = cand.any(-1)
-            v = torch.argmax(torch.where(cand, scores, -torch.inf), dim=-1)
-            clique = clique | ((ar == v[..., None]) & has[..., None])
-            cand = cand & row(v)
-        reads += 1
-        if not bool(cand.any()):
-            return clique, reads
+    if max_steps is not None:
+        for _ in range(max_steps):
+            cand = step(cand)
+    else:
+        while True:
+            for _ in range(chunk):
+                cand = step(cand)
+            reads += 1
+            if not bool(cand.any()):
+                break
+    if picked:
+        added = scatter_or(n, torch.stack(picked, -1), torch.stack(best, -1) > -torch.inf)
+        clique = clique | added
+    return clique, reads

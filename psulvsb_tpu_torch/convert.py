@@ -54,7 +54,7 @@ def warm_state_from_numpy(d, device="cpu") -> WarmState:
         scale=_tensor(d["scale"], device, f32),
         rotation=_tensor(d["rotation"], device, f32),
         translation=_tensor(d["translation"], device, f32),
-        first_time=bool(np.asarray(d["first_time"])),
+        first_time=_tensor(d["first_time"], device, torch.bool),
     )
 
 

@@ -43,11 +43,51 @@ def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+# Cyclic Jacobi on a 4x4 matrix: the three rounds of two disjoint plane
+# rotations that cover all six off-diagonal pairs.
+_JACOBI_ROUNDS = (((0, 1), (2, 3)), ((0, 2), (1, 3)), ((0, 3), (1, 2)))
+_JACOBI_SWEEPS = 6  # off-diagonal mass falls quadratically; 4x4 needs 4-5
+
+
+def _jacobi_top_eigenvector(k: torch.Tensor) -> torch.Tensor:
+    """Eigenvector (..., 4) of the largest eigenvalue of the symmetric
+    (..., 4, 4) matrix k by cyclic Jacobi sweeps in float64, as elementwise
+    and matmul operations of fixed count: nothing is read on the host, so it
+    can run inside a CUDA graph, which torch.linalg.eigh cannot (it checks
+    its status on the host)."""
+    a = k.to(torch.float64)
+    eye = torch.eye(4, dtype=torch.float64, device=k.device)
+    v = eye.expand(a.shape).clone()
+    for _ in range(_JACOBI_SWEEPS):
+        for pairs in _JACOBI_ROUNDS:
+            app = torch.stack([a[..., p, p] for p, _ in pairs], -1)
+            aqq = torch.stack([a[..., q, q] for _, q in pairs], -1)
+            apq = torch.stack([a[..., p, q] for p, q in pairs], -1)
+            # G^T A G with G[p,p] = G[q,q] = c, G[p,q] = s, G[q,p] = -s
+            # zeroes a_pq when tan(2 theta) = 2 a_pq / (a_qq - a_pp).
+            theta = 0.5 * torch.atan2(2.0 * apq, aqq - app)
+            c, s = torch.cos(theta), torch.sin(theta)
+            zero = torch.zeros_like(c[..., 0])
+            rows = [[zero] * 4 for _ in range(4)]
+            for n, (p, q) in enumerate(pairs):
+                rows[p][p] = rows[q][q] = c[..., n]
+                rows[p][q] = s[..., n]
+                rows[q][p] = -s[..., n]
+            g = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+            a = g.transpose(-1, -2) @ a @ g
+            v = v @ g
+    top = torch.argmax(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1)
+    q = torch.gather(v, -1, top[..., None, None].expand(*v.shape[:-1], 1))[..., 0]
+    return q.to(k.dtype)
+
+
 def rot_from_correlation(h: torch.Tensor, method: str = "eigh") -> torch.Tensor:
     """Proper rotation R maximizing tr(R^T H) for H = sum_i w_i x_i y_i^T.
 
     method:
       "eigh"  — torch.linalg.eigh on the 4x4 Davenport matrix;
+      "jacobi" — the same eigenvector by Jacobi sweeps in float64 with no
+                host read (`_jacobi_top_eigenvector`);
       "power" — shifted power iteration: 5 squarings of K + shift*I, each
                 normalized, then the largest-norm column (the first maximum
                 wins), which is a scaled dominant eigenvector whatever its
@@ -57,6 +97,8 @@ def rot_from_correlation(h: torch.Tensor, method: str = "eigh") -> torch.Tensor:
     if method == "eigh":
         _, vecs = torch.linalg.eigh(k)
         q = vecs[..., :, -1]
+    elif method == "jacobi":
+        q = _jacobi_top_eigenvector(k)
     elif method == "power":
         shift = 2.0 * torch.sqrt((h * h).sum(dim=(-2, -1))) + 1e-12
         eye = torch.eye(4, dtype=k.dtype, device=k.device)

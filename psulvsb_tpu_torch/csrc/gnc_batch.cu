@@ -10,7 +10,7 @@
 //   2. rotation from H by shifted power iteration on the 4x4 Davenport
 //      matrix K + (2|H| + 1e-12) I: 5 squarings, then the largest-norm
 //      column (the first maximum wins); the warm rotation replaces this
-//      solve on iteration 0 when asked;
+//      solve on iteration 0 when the device flag use_warm is set;
 //   3. squared residuals r2_i = |d_i - R s_i|^2;
 //   4. on iteration 0, mu = 1 / (2 max_active(r2) / nb_sq - 1), and a
 //      degenerate mu (<= 0) stops the hypothesis with its old weights;
@@ -78,8 +78,9 @@ struct Inputs {
   const unsigned char* act;  // (B, N) bool bytes at stride (act_b, 1)
   const float* nb;    // (B,) noise bound at stride nb_s
   const float* warm;  // (3, 3) at strides (warm_0, warm_1)
+  const unsigned char* use_warm;  // one bool byte on the device: take `warm` on iteration 0
   long long src_b, src_k, dst_b, dst_k, act_b, nb_s, warm_0, warm_1;
-  int use_warm, b, n, max_iterations;
+  int b, n, max_iterations;
   float gnc_factor, cost_threshold;
   float* rot_out;           // (B, 3, 3) contiguous
   unsigned char* inl_out;   // (B, N) contiguous bool
@@ -272,7 +273,7 @@ __device__ __forceinline__ void gnc_hypothesis(const Inputs& in, int b, int t,
 
   if (in.max_iterations > 0) {
     // Iteration 0: the warm rotation or the solve, then mu from the max.
-    if (in.use_warm) {
+    if (*in.use_warm != 0) {  // the same byte for every thread: a uniform branch
 #pragma unroll
       for (int k = 0; k < 9; ++k) r[k] = in.warm[(k / 3) * in.warm_0 + (k % 3) * in.warm_1];
     } else {
@@ -344,18 +345,20 @@ __global__ void __launch_bounds__(32 * WARPS) gnc_batch_kernel(const Inputs in) 
 // (0 on success). Pointers are device pointers: src/dst float32 (B, 3, N)
 // at element strides (*_b, *_k, 1), act the bytes of a (B, N) bool tensor
 // at (act_b, 1), nb float32 (B,) at nb_s, warm float32 (3, 3) at
-// (warm_0, warm_1); rot_out a contiguous float32 (B, 3, 3), inl_out a
+// (warm_0, warm_1), use_warm the byte of a 0-d bool tensor (read by the
+// kernel, so a captured launch follows the flag's value at each replay);
+// rot_out a contiguous float32 (B, 3, 3), inl_out a
 // contiguous (B, N) bool tensor.
 extern "C" int gnc_batch_launch(const float* src, long long src_b, long long src_k,
                                 const float* dst, long long dst_b, long long dst_k,
                                 const unsigned char* act, long long act_b, const float* nb,
                                 long long nb_s, const float* warm, long long warm_0,
-                                long long warm_1, int use_warm, int b, int n,
+                                long long warm_1, const unsigned char* use_warm, int b, int n,
                                 int max_iterations, float gnc_factor, float cost_threshold,
                                 float* rot_out, unsigned char* inl_out, void* stream) {
   if (b <= 0 || n <= 0 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  const Inputs in{src, dst, act, nb, warm, src_b, src_k, dst_b, dst_k, act_b, nb_s,
-                  warm_0, warm_1, use_warm, b, n, max_iterations, gnc_factor,
+  const Inputs in{src, dst, act, nb, warm, use_warm, src_b, src_k, dst_b, dst_k, act_b, nb_s,
+                  warm_0, warm_1, b, n, max_iterations, gnc_factor,
                   cost_threshold, rot_out, inl_out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 32 * kSmallWarps) {

@@ -31,6 +31,7 @@ import torch
 from psulvsb_tpu_torch.core.linalg import weighted_procrustes_srt
 from psulvsb_tpu_torch.ops.pairs import consistency_degree
 from psulvsb_tpu_torch.utils.precision import mm, pin_float32
+from psulvsb_tpu_torch.utils.scalars import pick as _pick
 
 _TWOPI = 2.0 * math.pi
 _EPS = 1e-7
@@ -69,9 +70,8 @@ def _two_vectors_align(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     vx = _skew(v)
     eye = torch.eye(3, dtype=a.dtype, device=a.device)
     r = eye + vx + mm(vx, vx) * (1.0 / torch.clamp(1.0 + c, min=1e-6))[..., None, None]
-    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
-    e_y = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
-    ortho = torch.where((torch.abs(a[..., 0]) < 0.9)[..., None], e_x, e_y)
+    # The unit vectors are rows of `eye`: made on the device, no host copy.
+    ortho = torch.where((torch.abs(a[..., 0]) < 0.9)[..., None], eye[0], eye[1])
     axis = torch.linalg.cross(a, ortho, dim=-1)
     axis = axis / torch.clamp(_norm(axis, -1), min=1e-20)[..., None]
     flip = 2.0 * axis[..., :, None] * axis[..., None, :] - eye
@@ -170,7 +170,7 @@ def _evaluate_edges(
     # --- TCFS (ia_gror.hpp:619-748) -----------------------------------------
     # Local frame: origin -> 0, axis -> z; the source pre-moved by the
     # two-pair transform.
-    e_z = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev).expand_as(axis_t)
+    e_z = torch.eye(3, dtype=dtype, device=dev)[2].expand_as(axis_t)
     r_loc = _two_vectors_align(axis_t, e_z)
     t_loc = dst_k[None] - origin[:, :, None]
     s_loc = mm(r_loc, mm(r0, src_k) + t0[:, :, None] - origin[:, :, None])
@@ -231,7 +231,11 @@ def _gror_core(
     resolution: float,
     k_optimal: int,
     min_edge_support: int = 10,
+    rot_method: str = "eigh",
 ) -> GRORResult:
+    """GROR on (3, C) float32 tensors of one device. Nothing here is read on
+    the host but the refinement's eigen-solver, which `rot_method` names
+    (core.linalg.rot_from_correlation; "jacobi" reads nothing)."""
     c = src.shape[1]
     thr = 2.0 * resolution
 
@@ -265,22 +269,22 @@ def _gror_core(
 
     # --- compose the transform (ia_gror.hpp:405-414) ------------------------
     # T = T(origin) * R(angle) * T(-origin) * [r0 | t0]
-    rot = _axis_angle_rotation(axes[best], angles[best])
-    origin = origins[best]
-    r_final = mm(rot, r0s[best])
-    t_final = mm(rot, t0s[best] - origin) + origin
+    rot = _axis_angle_rotation(_pick(axes, best), _pick(angles, best))
+    origin = _pick(origins, best)
+    r_final = mm(rot, _pick(r0s, best))
+    t_final = mm(rot, _pick(t0s, best) - origin) + origin
 
     # --- inliers + weighted Procrustes refinement (ia_gror.hpp:259-379) -----
     moved = mm(r_final, src) + t_final[:, None]
     dist = _norm(moved - dst, 0)
     inliers = (dist < thr) & corr_active
     w = inliers.to(src.dtype)
-    r_ref, t_ref = weighted_procrustes_srt(src, dst, w)
+    r_ref, t_ref = weighted_procrustes_srt(src, dst, w, method=rot_method)
     ok = w.sum() >= 3
     return GRORResult(
         rotation=torch.where(ok, r_ref, r_final),
         translation=torch.where(ok, t_ref, t_final),
-        best_count=tcfs[best],
+        best_count=_pick(tcfs, best),
         inliers=inliers,
     )
 

@@ -8,6 +8,11 @@ noise-bound floor, the weight >= 0.5 rule and the <= 10-inlier fail-safe
 (registration.cc:1676-1691): the kernel applies them itself, so a CUDA call
 is two allocations and one launch, with no other device operation.
 
+`use_warm` is a flag on the device: a 0-d bool tensor whose byte the kernel
+reads, so a launch captured into a CUDA graph follows the flag's value at
+each replay. A Python bool is accepted too and becomes such a tensor
+(utils.scalars.device_flag: one cached per device and value).
+
 Which version runs is decided by where the tensors lie: CPU tensors take
 `gnc_batch_reference`; CUDA tensors launch the kernel or raise. Each launch
 adds one to `KERNEL_LAUNCHES`.
@@ -21,18 +26,19 @@ import torch
 
 from psulvsb_tpu_torch.ops._build import launcher
 from psulvsb_tpu_torch.rotation.gnc import floor_noise_sq, gnc_tls_batched, tls_inliers
+from psulvsb_tpu_torch.utils.scalars import device_flag
 
 MAX_N = 2048  # the kernel keeps at most 8 columns per thread in registers
 KERNEL_LAUNCHES = 0
 # gnc_batch_launch: src and its (batch, coordinate) strides, dst and its
 # strides, mask and its batch stride, noise bounds and stride, warm rotation
-# and strides; use_warm, B, N, max_iterations; gnc_factor, cost_threshold;
-# rotations, inliers, stream.
+# and strides, the use_warm flag's byte; B, N, max_iterations; gnc_factor,
+# cost_threshold; rotations, inliers, stream.
 _ARGTYPES = (
     [c_void_p, c_longlong, c_longlong] * 2 + [c_void_p, c_longlong] * 2
-    + [c_void_p, c_longlong, c_longlong] + [c_int] * 4 + [c_float] * 2 + [c_void_p] * 3
+    + [c_void_p, c_longlong, c_longlong] + [c_void_p] + [c_int] * 3 + [c_float] * 2
+    + [c_void_p] * 3
 )
-
 
 def _check_shapes(src_tims_b: torch.Tensor, active_b: torch.Tensor) -> None:
     if src_tims_b.dim() != 3 or src_tims_b.shape[1] != 3:
@@ -52,18 +58,20 @@ def gnc_batch_reference(
     active_b: torch.Tensor,  # (B, N) bool
     noise_bound_b: torch.Tensor,  # (B,)
     warm_rotation: torch.Tensor,  # (3, 3), shared warm start
-    use_warm,  # bool
+    use_warm,  # bool, or a 0-d bool tensor (then no host read)
     max_iterations: int,
     gnc_factor: float,
     cost_threshold: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `gnc_batch` (rotation/gnc.py's loop with the
-    power-iteration rotation), with the same front-door rules."""
+    power-iteration rotation), with the same front-door rules. With
+    `use_warm` a tensor, iteration 0 selects between the warm rotation and
+    the solve on the device."""
     _check_shapes(src_tims_b, active_b)
     nb_sq = floor_noise_sq(noise_bound_b.to(torch.float32))
     rot, w, _, _ = gnc_tls_batched(
         src_tims_b.to(torch.float32), dst_tims_b.to(torch.float32), active_b,
-        nb_sq, warm_rotation, bool(use_warm),
+        nb_sq, warm_rotation, use_warm,
         max_iterations, gnc_factor, cost_threshold, rot_method="power",
     )
     return rot, tls_inliers(w, active_b)
@@ -75,7 +83,7 @@ def gnc_batch(
     active_b: torch.Tensor,  # (B, N) bool
     noise_bound_b: torch.Tensor,  # (B,)
     warm_rotation: torch.Tensor,  # (3, 3), shared warm start
-    use_warm,  # bool
+    use_warm,  # bool, or a 0-d bool tensor on the device
     max_iterations: int,
     gnc_factor: float,
     cost_threshold: float,
@@ -107,6 +115,7 @@ def gnc_batch(
     for name, t in (("src_tims_b", src_tims_b), ("dst_tims_b", dst_tims_b), ("active_b", active_b)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit column stride, got strides {t.stride()}")
+    flag = device_flag(use_warm, dev)
     rot = torch.empty((b, 3, 3), dtype=f32, device=dev)
     inliers = torch.empty((b, n), dtype=torch.bool, device=dev)
     fn = launcher("gnc_batch", _ARGTYPES)
@@ -117,7 +126,7 @@ def gnc_batch(
             active_b.data_ptr(), active_b.stride(0),
             noise_bound_b.data_ptr(), noise_bound_b.stride(0),
             warm_rotation.data_ptr(), warm_rotation.stride(0), warm_rotation.stride(1),
-            int(bool(use_warm)), b, n, int(max_iterations), float(gnc_factor),
+            flag.data_ptr(), b, n, int(max_iterations), float(gnc_factor),
             float(cost_threshold), rot.data_ptr(), inliers.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -136,7 +136,7 @@ def pair_beta_count_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of `pair_beta_count`."""
     active = _check(src, dst, active)
-    beta32 = torch.tensor(beta, dtype=torch.float32, device=src.device)
+    beta32 = torch.full((), beta, dtype=torch.float32, device=src.device)
     total = torch.zeros((), dtype=torch.int64, device=src.device)
     for v1, v2, valid in _pair_sweep(src, dst, active):
         total = total + ((torch.abs(v1 - v2) <= beta32) & valid).sum()

@@ -47,7 +47,7 @@ def consistency_degree_reference(
     c = src.shape[1]
     s = src.to(torch.float32)
     d = dst.to(torch.float32)
-    tau32 = torch.tensor(tau, dtype=torch.float32, device=src.device)
+    tau32 = torch.full((), tau, dtype=torch.float32, device=src.device)
     cols = torch.arange(c, device=src.device)
 
     def dist(p, r0, r1):

@@ -35,9 +35,8 @@ def compute_tims(
     """All-pairs TIMs of a (3, N) point matrix: (tims (3, L), idx_i (L,),
     idx_j (L,), pair_active (L,)) with tim_l = v[:, j_l] - v[:, i_l]
     (registration.cc:470-509, 697-711)."""
-    ii_np, jj_np = triu_pair_indices(v.shape[1])
-    ii = torch.as_tensor(ii_np, device=v.device)
-    jj = torch.as_tensor(jj_np, device=v.device)
+    # Row-major i < j, the order of `triu_pair_indices`, made on the device.
+    ii, jj = torch.triu_indices(v.shape[1], v.shape[1], 1, device=v.device)
     tims = v[:, jj] - v[:, ii]
     if active is None:
         pair_active = torch.ones(ii.shape[0], dtype=torch.bool, device=v.device)

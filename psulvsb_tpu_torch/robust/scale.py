@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from psulvsb_tpu_torch.robust.scalar_tls import scale_consensus_1pt, tls_vote
+from psulvsb_tpu_torch.utils.scalars import as_scalar
 
 
 def tim_norms(tims: torch.Tensor, active: torch.Tensor | None = None) -> torch.Tensor:
@@ -21,9 +22,7 @@ def tim_norms(tims: torch.Tensor, active: torch.Tensor | None = None) -> torch.T
 def _beta(noise_bound, cbar2, like: torch.Tensor) -> torch.Tensor:
     """beta = 2 * noise_bound * sqrt(cbar2) in the TIMs' dtype."""
     dtype, dev = like.dtype, like.device
-    return 2.0 * torch.as_tensor(noise_bound, dtype=dtype, device=dev) * torch.sqrt(
-        torch.as_tensor(cbar2, dtype=dtype, device=dev)
-    )
+    return 2.0 * as_scalar(noise_bound, dtype, dev) * torch.sqrt(as_scalar(cbar2, dtype, dev))
 
 
 def solve_scale_tls(

@@ -9,6 +9,7 @@ import torch
 
 from psulvsb_tpu_torch.robust.scalar_tls import max_stabbing
 from psulvsb_tpu_torch.utils.precision import mm
+from psulvsb_tpu_torch.utils.scalars import as_scalar
 
 
 def scatter_or(num_points: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -38,9 +39,7 @@ def solve_translation(
     dtype, dev = src.dtype, src.device
     if active is None:
         active = torch.ones(src.shape[:-2] + src.shape[-1:], dtype=torch.bool, device=dev)
-    beta = torch.as_tensor(noise_bound, dtype=dtype, device=dev) * torch.sqrt(
-        torch.as_tensor(cbar2, dtype=dtype, device=dev)
-    )
+    beta = as_scalar(noise_bound, dtype, dev) * torch.sqrt(as_scalar(cbar2, dtype, dev))
     raw = dst - src  # (..., 3, N)
     if warm_translation is None:
         warm_translation = torch.zeros(3, dtype=dtype, device=dev)
@@ -115,9 +114,7 @@ def global_translation_vote(
     the caller adopts t_new only on a strict support gain."""
     c = src.shape[1]
     dtype, dev = src.dtype, src.device
-    beta = torch.tensor(noise_bound, dtype=dtype, device=dev) * torch.sqrt(
-        torch.tensor(cbar2, dtype=dtype, device=dev)
-    )
+    beta = as_scalar(noise_bound, dtype, dev) * torch.sqrt(as_scalar(cbar2, dtype, dev))
     d = (dst - scale * mm(rotation, src)).T  # (C, 3) proposals, s-scaled
     votes = torch.cat([
         ((torch.abs(d[r0:r0 + chunk, None, :] - d[None, :, :]) <= beta).all(-1) & real[None]).sum(1)
@@ -125,7 +122,8 @@ def global_translation_vote(
     ])
     votes = torch.where(real, votes, -1)
     i = torch.argmax(votes)
-    member = (torch.abs(d - d[i]) <= beta).all(-1) & real
+    # index_select, not d[i]: indexing by a 0-d tensor reads it on the host.
+    member = (torch.abs(d - d.index_select(0, i.reshape(1))) <= beta).all(-1) & real
     denom = torch.clamp(member.sum().to(dtype), min=1.0)
     center = torch.where(member[:, None], d, torch.zeros_like(d)).sum(0) / denom
     s_safe = torch.where(scale > 0, scale, torch.ones_like(scale))

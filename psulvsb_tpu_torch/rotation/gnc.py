@@ -50,7 +50,7 @@ def gnc_tls_batched(
     active: torch.Tensor,
     nb_sq: torch.Tensor,
     warm_rotation: torch.Tensor,
-    use_warm: bool,
+    use_warm,
     max_iterations: int,
     gnc_factor: float,
     cost_threshold: float,
@@ -58,6 +58,8 @@ def gnc_tls_batched(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """GNC-TLS loop over B problems. src/dst (B, 3, N), active (B, N) bool,
     nb_sq (B,) already floored, warm_rotation (3, 3) shared by the batch.
+    use_warm: a bool, or a 0-d bool tensor; the tensor selects iteration 0's
+    rotation on the device (the solve runs either way).
 
     Returns (rotations (B, 3, 3), weights (B, N), cost (B,), iterations (B,)).
     """
@@ -74,7 +76,12 @@ def gnc_tls_batched(
     neg_inf = torch.full((b, n), -float("inf"), dtype=dtype, device=dev)
 
     for i in range(max_iterations):
-        if i == 0 and use_warm:
+        if i == 0 and isinstance(use_warm, torch.Tensor):
+            rotation = torch.where(
+                use_warm, warm_rotation.to(dtype).expand(b, 3, 3),
+                svd_rot(src, dst, w * act_f, method=rot_method),
+            )
+        elif i == 0 and use_warm:
             rotation = warm_rotation.to(dtype).expand(b, 3, 3)
         else:
             rotation = svd_rot(src, dst, w * act_f, method=rot_method)

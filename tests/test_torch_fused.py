@@ -1,0 +1,349 @@
+"""The one-dispatch solve of the port (psulvsb_tpu_torch/solver/fused.py)
+against the staged solver and against the JAX package's `psulvsb_register`.
+
+On the CPU nothing is captured: `psulvsb_register(device="cpu")` runs the
+plan's segments eagerly, which is the module's plain version. The same seed
+must give the staged `psulvsb_solve`'s solution (valid and inlier count
+equal, scale, rotation and translation within 1e-6; in fact the same
+operations on the same draws). The random streams of the two packages
+differ, so against JAX the comparison is distributional, under BASELINE.md's
+success criteria (RE < 5 deg, TE < 0.3). The CUDA case holds a replayed plan
+against its eager run on the card and skips here; JAX is imported by a
+fixture, so on a machine with a card and without JAX it runs with
+`python -m pytest tests/test_torch_fused.py -m cuda --noconftest`.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from psulvsb_tpu_torch import SolverParams, psulvsb_register, psulvsb_solve
+from psulvsb_tpu_torch.clique.kcore import (
+    greedy_clique,
+    max_clique_size_for_edges,
+    triangle_scores,
+)
+from psulvsb_tpu_torch.convert import params_from_jax
+from psulvsb_tpu_torch.core.linalg import rot_from_correlation
+from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
+from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+from psulvsb_tpu_torch.solver import fused
+from psulvsb_tpu_torch.solver.basic import WarmState
+from psulvsb_tpu_torch.solver.psulvsb import (
+    _init_stage,
+    _local_round,
+    _local_stage,
+    _sample_stage,
+    local_max_batches,
+)
+
+CAPS = dict(sampled_cap=256, basic_cap=64, hypothesis_batch=4)
+TOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX reference: its fused module, its params and jax itself."""
+    jax = pytest.importorskip("jax")
+    from psulvsb_tpu.solver import config, fused as jfused
+
+    return types.SimpleNamespace(
+        jax=jax, SolverParams=config.SolverParams, Mode=config.InlierSelectionMode,
+        fused_scan_rounds=jfused.fused_scan_rounds, psulvsb_register=jfused.psulvsb_register,
+    )
+
+
+@pytest.mark.parametrize(
+    "kw,expected",
+    [
+        ({}, 5),
+        (dict(max_host_rounds=10**6, time_budget_s=1.0, fused_round_ceiling_s=0.02), 50),
+        (dict(max_host_rounds=17, fused_round_ceiling_s=0.0), 17),
+        (dict(time_budget_s=0.02, fused_round_ceiling_s=0.02), 1),
+        (dict(time_budget_s=0.05, fused_round_ceiling_s=0.02), 2),
+    ],
+)
+def test_fused_scan_rounds_equals_jax(jref, kw, expected):
+    jp = jref.SolverParams.preset_3dmatch(**kw)
+    assert fused.fused_scan_rounds(params_from_jax(jp)) == jref.fused_scan_rounds(jp) == expected
+
+
+def _case(name):
+    """(params, pair, solve seed) of a small twin of a path the card runs."""
+    anchor = lambda rate=0.9, seed=1, n=200: make_synthetic_pair(  # noqa: E731
+        np.random.default_rng(seed), synthetic_cloud(n, seed=0 if seed == 1 else seed), 0.05, rate
+    )
+    scaled = lambda: make_synthetic_pair(  # noqa: E731
+        np.random.default_rng(1), synthetic_cloud(200, seed=0), 0.01, 0.7,
+        outlier_mode="mismatch", test_scale=2.5,
+    )
+    if name == "anchor":
+        return SolverParams.preset_artificial(clique_init="off", **CAPS), anchor(), 0
+    if name == "estimated_scale":
+        return SolverParams.preset_3dmatch(estimate_scaling=True, **CAPS), scaled(), 0
+    if name == "gror":
+        return SolverParams.preset_artificial_gror(gror_k_optimal=150, **CAPS), anchor(), 2
+    if name == "eager_seed":
+        return SolverParams.preset_artificial_gror(clique_init="eager", **CAPS), anchor(), 1
+    if name == "lazy_seed":  # 97% outliers: the first escalation runs the seed
+        return SolverParams.preset_artificial(clique_init="auto", **CAPS), anchor(0.97, 5, 300), 1
+    if name == "vote":
+        return SolverParams.preset_3dmatch(
+            estimate_scaling=True, scale_estimator="vote", **CAPS), scaled(), 3
+    if name == "rescue":
+        return SolverParams.preset_artificial(translation_rescue=True, **CAPS), anchor(), 0
+    # The init routes beyond the dense window, known and estimated scale.
+    mode, est = name.split("/")
+    preset = SolverParams.preset_3dmatch if est == "estimated" else SolverParams.preset_artificial
+    kw = dict(estimate_scaling=True) if est == "estimated" else {}
+    return preset(init_mode=mode, init_reject_budget=4096, init_peak_sample=1024, **kw,
+                  **CAPS), (scaled() if est == "estimated" else anchor()), 4
+
+
+PATHS = ["anchor", "estimated_scale", "gror", "eager_seed", "lazy_seed", "vote", "rescue",
+         "sampled/known", "sampled/estimated", "exact_hist/estimated", "exact_beta/known",
+         "exact/known", "exact/estimated"]
+
+
+def _tensors(pair):
+    src = torch.as_tensor(np.asarray(pair.src), dtype=torch.float32)
+    dst = torch.as_tensor(np.asarray(pair.dst), dtype=torch.float32)
+    return src, dst, torch.ones(src.shape[1], dtype=torch.int64)
+
+
+@pytest.mark.parametrize("name", PATHS)
+def test_register_equals_staged_solve(name):
+    """Same seed, same solution, and no more host reads than the staged
+    solver less its threshold, GROR, seed and greedy reads."""
+    params, pair, seed = _case(name)
+    src, dst, keep = _tensors(pair)
+    staged, info = psulvsb_solve(src, dst, keep, params, torch.Generator().manual_seed(seed))
+    sol = psulvsb_register(src, dst, keep, seed, params, device="cpu")
+    assert bool(sol.valid) == bool(staged.valid)
+    assert int(sol.final_inlier_count) == int(staged.final_inlier_count)
+    for got, want in ((sol.scale, staged.scale), (sol.rotation, staged.rotation),
+                      (sol.translation, staged.translation)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    stats = fused.plan_for(params, src.shape[1], "cpu").stats
+    assert stats["rounds"] == info["rounds"]
+    assert stats["local_batches"] == info["total_local_batches"]
+    assert stats["host_reads"] == info["rounds"] + info["total_local_batches"]
+    assert stats["host_reads"] <= info["host_syncs"] - 1
+    if name == "lazy_seed":
+        assert info["clique_seeded"]
+    if name in ("gror", "eager_seed"):
+        assert info["gror_init"]
+    # A generator in place of the seed, and a second solve through the same
+    # plan, give the same again.
+    again = psulvsb_register(src, dst, keep, torch.Generator().manual_seed(seed), params,
+                             device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(again, sol))
+
+
+def _local_inputs(params, pair, seed=0):
+    src, dst, keep = _tensors(pair)
+    gen = torch.Generator().manual_seed(seed)
+    red_i, red_j, red_count, pool = _init_stage(src, dst, keep, params, gen)
+    s = _sample_stage(red_i, red_j, red_count, pool, 0.5, params, src.shape[1], gen)
+    return src, dst, s
+
+
+@pytest.mark.parametrize("first_time", [True, False])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_local_stage_takes_first_time_as_tensor(first_time, scaled):
+    """`_local_stage` selects on a tensor `first_time` as it branched on the
+    bool: equal states at both values."""
+    params, pair, _ = _case("estimated_scale" if scaled else "anchor")
+    src, dst, (s_i, s_j, s_ok, s_count, s_pts) = _local_inputs(params, pair)
+    rot = torch.as_tensor(np.asarray(pair.transform.rotation), dtype=torch.float32)
+    thr = torch.tensor(params.pr_noise * 2.0)
+    outs = []
+    for flag in (first_time, torch.tensor(first_time)):
+        warm = WarmState(torch.tensor(float(pair.transform.scale)), rot,
+                         torch.zeros(3), first_time=flag)
+        outs.append(_local_stage(
+            src, dst, s_i, s_j, s_ok, s_count, s_pts, 0.25, False, torch.zeros((), dtype=torch.int64),
+            warm, thr, params, torch.Generator().manual_seed(3),
+        ))
+    a, b = outs
+    assert a.iterations == b.iterations and a.host_syncs == b.host_syncs
+    for x, y in zip(a.best[:3] + (a.best_count, a.local_r, a.pro_local, a.hypotheses, a.escalate,
+                                  a.done) + tuple(a.extras),
+                    b.best[:3] + (b.best_count, b.local_r, b.pro_local, b.hypotheses, b.escalate,
+                                  b.done) + tuple(b.extras)):
+        assert torch.equal(x, y)
+    assert not bool(a.best.first_time)
+
+
+def test_local_round_steps_equal_local_stage_at_the_clique_round():
+    """The b_rate == 1.0 clique round stepped batch by batch with a fixed
+    greedy step count (no host read) equals `_local_stage`'s chunked form."""
+    params, pair, _ = _case("lazy_seed")
+    src, dst, (s_i, s_j, s_ok, s_count, s_pts) = _local_inputs(params, pair)
+    thr = torch.tensor(params.pr_noise * 2.0)
+    args = (src, dst, s_i, s_j, s_ok, s_count, s_pts, 1.0, True,
+            torch.zeros((), dtype=torch.int64), WarmState.initial("cpu"), thr, params)
+    want = _local_stage(*args, torch.Generator().manual_seed(9))
+    assert want.host_syncs > want.iterations  # the chunked greedy read the host
+    bcap = min(params.basic_cap, s_i.shape[0])
+    state, step = _local_round(*args, clique_max_steps=max_clique_size_for_edges(bcap))
+    gen = torch.Generator().manual_seed(9)
+    for _ in range(local_max_batches(params)):
+        u = torch.rand((params.hypothesis_batch, s_i.shape[0]), generator=gen)
+        g = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+        state = step(state, g, None)
+        if bool(state.done):
+            break
+    assert state.iterations == want.iterations and state.host_syncs == 0
+    for x, y in zip(state.best[:3] + (state.best_count, state.local_r) + tuple(state.extras),
+                    want.best[:3] + (want.best_count, want.local_r) + tuple(want.extras)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_greedy_clique_fixed_steps_equals_chunked(batch):
+    rng = np.random.default_rng(4)
+    n = 60
+    adj = rng.uniform(size=batch + (n, n)) < 0.25
+    adj[..., 5:20, 5:20] = True  # a planted clique of 15
+    adj = torch.as_tensor(adj | np.swapaxes(adj, -1, -2))
+    active = torch.as_tensor(rng.uniform(size=batch + (n,)) < 0.9)
+    scores = triangle_scores(adj, active)
+    chunked, reads = greedy_clique(adj, active, scores, chunk=4)
+    assert reads >= 2
+    for steps in (n - 1, int(chunked.sum(-1).max()) - 1):
+        fixed, no_reads = greedy_clique(adj, active, scores, max_steps=steps)
+        assert no_reads == 0 and torch.equal(fixed, chunked)
+    assert int(chunked.sum(-1).min()) >= 10
+    # The edge bound: k (k - 1) / 2 <= edges.
+    assert [max_clique_size_for_edges(e) for e in (0, 1, 2, 3, 5, 6, 256)] == [1, 2, 2, 3, 3, 4, 23]
+
+
+def test_jacobi_rotation_matches_eigh():
+    """The eigen-solver a captured segment can run (no host read) against
+    torch.linalg.eigh: rotations within 1e-5 on well-conditioned
+    correlations (float32 eigh itself is good to a few 1e-6)."""
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn((500, 3, 3), generator=gen)
+    h[100:200] *= 1e-4
+    h[200:300] *= 1e4
+    want = rot_from_correlation(h, "eigh")
+    got = rot_from_correlation(h, "jacobi")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    one = rot_from_correlation(h[0], "jacobi")
+    np.testing.assert_allclose(one.numpy(), want[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose((got @ got.transpose(1, 2)).numpy(),
+                               np.broadcast_to(np.eye(3), (500, 3, 3)), atol=1e-5)
+
+
+N_SEEDS = 10
+C = 300
+
+
+def test_recall_and_quantiles_match_jax_register(jref):
+    """Ten pairs (C = 300, 90% displaced outliers) through both packages'
+    `psulvsb_register`: the port's recall is at least JAX's minus one pair
+    in ten, and its median and 90% quantiles of RE and TE at most twice
+    JAX's plus a floor (0.5 deg, 0.01)."""
+    jax = jref.jax
+    jparams = jref.SolverParams.preset_artificial(
+        sampled_cap=512, basic_cap=128, hypothesis_batch=4, clique_init="off",
+        inlier_selection_mode=jref.Mode.NONE,
+    )
+    params = params_from_jax(jparams)
+    keep = jax.numpy.ones((C,), jax.numpy.int32)
+    errs = {"jax": [], "port": []}
+    for k in range(N_SEEDS):
+        pair = make_synthetic_pair(
+            np.random.default_rng(40 + k), synthetic_cloud(C, seed=20 + k), 0.05, 0.9
+        )
+        sol_j = jref.psulvsb_register(
+            jax.numpy.asarray(pair.src), jax.numpy.asarray(pair.dst), keep,
+            jax.random.PRNGKey(k), jparams,
+        )
+        sol_t = psulvsb_register(pair.src, pair.dst, np.ones(C, np.int64), k, params,
+                                 device="cpu")
+        assert torch.isfinite(sol_t.rotation).all() and torch.isfinite(sol_t.translation).all()
+        for name, sol in (("jax", sol_j), ("port", sol_t)):
+            re = angular_error_deg_np(pair.transform.rotation, np.asarray(sol.rotation, np.float64))
+            te = float(np.linalg.norm(
+                np.asarray(sol.translation, np.float64) - pair.transform.translation))
+            errs[name].append((bool(sol.valid), re, te))
+    ok = {name: [v and re < 5.0 and te < 0.3 for v, re, te in e] for name, e in errs.items()}
+    assert sum(ok["port"]) >= sum(ok["jax"]) - 1, errs
+    assert sum(ok["port"]) >= N_SEEDS - 1
+    for col, floor in ((1, 0.5), (2, 0.01)):
+        for q in (0.5, 0.9):
+            port_q = np.quantile([e[col] for e in errs["port"]], q)
+            jax_q = np.quantile([e[col] for e in errs["jax"]], q)
+            assert port_q <= 2.0 * jax_q + floor, (col, q, port_q, jax_q)
+
+
+def test_truncated_solve_still_valid():
+    """A budget that projects to one round still gives a usable solution on
+    an easy pair (tests/test_batch_harness.py's case)."""
+    pair = make_synthetic_pair(
+        np.random.default_rng(3), synthetic_cloud(400, seed=5), 0.01, 0.6, max_translation=2.0
+    )
+    params = SolverParams.preset_artificial(
+        time_budget_s=0.02, fused_round_ceiling_s=0.02, **CAPS)
+    assert fused.fused_scan_rounds(params) == 1
+    sol = psulvsb_register(pair.src, pair.dst, np.ones(400, np.int64), 0, params, device="cpu")
+    assert fused.plan_for(params, 400, "cpu").stats["rounds"] == 1
+    assert bool(sol.valid)
+    assert angular_error_deg_np(pair.transform.rotation, sol.rotation.numpy().astype(np.float64)) < 15.0
+
+
+def test_padding_only_pair_is_invalid_and_finite():
+    params, pair, _ = _case("anchor")
+    src, dst, keep = _tensors(pair)
+    sol = psulvsb_register(src, dst, torch.full_like(keep, -2), 0, params, device="cpu")
+    assert not bool(sol.valid) and int(sol.final_inlier_count) == 0
+    assert torch.isfinite(sol.rotation).all() and torch.isfinite(sol.translation).all()
+
+
+def test_plan_cache_is_bounded_and_entry_points_want_a_card():
+    params, pair, _ = _case("anchor")
+    src, dst, keep = _tensors(pair)
+    fused.clear_plan_cache()
+    for c in range(40, 40 + fused.PLAN_CACHE_SIZE + 3):
+        psulvsb_register(src[:, :c], dst[:, :c], keep[:c], 0, params, device="cpu")
+    assert len(fused._PLANS) == fused.PLAN_CACHE_SIZE
+    plan = fused.plan_for(params, 40 + fused.PLAN_CACHE_SIZE + 2, "cpu")
+    assert not plan.graphs and plan.nbytes > 0 and plan.pool_bytes == 0
+    assert plan is fused.plan_for(params, plan.c, "cpu", graphs=True)  # no capture on the CPU
+    fused.clear_plan_cache()
+    assert not fused._PLANS
+    with pytest.raises(ValueError):
+        psulvsb_register(src[None], dst[None], keep[None], 0, params, device="cpu")
+    with pytest.raises(ValueError):
+        psulvsb_register(src, dst, keep[:-1], 0, params, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            psulvsb_register(src, dst, keep, 0, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["anchor", "estimated_scale", "gror", "eager_seed", "lazy_seed"])
+def test_cuda_replay_equals_eager_segments(name):
+    """On the card a replayed plan gives its eager run's solution exactly
+    (the same kernels on the same inputs), on a second pair through the same
+    plan too, and the replays' kernel launches are counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from psulvsb_tpu_torch.ops import gnc
+
+    params, pair, seed = _case(name)
+    for k in range(2):
+        src, dst, keep = _tensors(pair)
+        src, dst = src.roll(k, 1), dst.roll(k, 1)
+        before = gnc.KERNEL_LAUNCHES
+        replayed = psulvsb_register(src, dst, keep, seed + k, params)
+        launched = gnc.KERNEL_LAUNCHES - before
+        eager = psulvsb_register(src, dst, keep, seed + k, params, graphs=False)
+        assert launched >= fused.plan_for(params, src.shape[1], "cuda").stats["local_batches"]
+        assert all(torch.equal(a, b) for a, b in zip(replayed, eager))

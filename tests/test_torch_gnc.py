@@ -282,3 +282,57 @@ def test_cuda_front_door_rules(cuda_device):
         rr, ir = tops.gnc_batch_reference(*args, **loop)
         _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)
 
+
+
+@pytest.mark.parametrize("use_warm", [False, True])
+def test_device_flag_matches_bool_in_plain_version(rng, use_warm):
+    """`use_warm` as a 0-d bool tensor (selected on the device, so a captured
+    launch can follow it) gives what the Python bool gives: rotations within
+    1e-6 (the select keeps or drops one solve), masks equal."""
+    src, dst, act, rots = _problem(rng, 3, 40, masked=0.3)
+    args = [torch.as_tensor(x) for x in (src, dst, act)] + [torch.full((3,), 0.1),
+                                                           torch.as_tensor(rots[0])]
+    rb, ib = tops.gnc_batch_reference(*args, use_warm, **LOOP)
+    rt, it = tops.gnc_batch_reference(*args, torch.tensor(use_warm), **LOOP)
+    np.testing.assert_allclose(rt.numpy(), rb.numpy(), atol=1e-6)
+    assert torch.equal(it, ib)
+    # The front door on the CPU takes the flag too.
+    rf, i_f = tops.gnc_batch(*args, torch.tensor(use_warm), **LOOP)
+    assert torch.equal(rf, rt) and torch.equal(i_f, it)
+
+
+def test_device_flag_helper():
+    from psulvsb_tpu_torch.utils.scalars import as_scalar, device_flag
+
+    flag = device_flag(True, "cpu")
+    assert flag.dtype == torch.bool and flag.dim() == 0 and bool(flag)
+    assert device_flag(True, "cpu") is flag  # one constant per device and value
+    assert not bool(device_flag(False, "cpu"))
+    given = torch.tensor(False)
+    assert device_flag(given, "cpu") is given
+    with pytest.raises(ValueError):
+        device_flag(torch.zeros(2, dtype=torch.bool), "cpu")
+    assert as_scalar(0.1, torch.float32, "cpu").item() == np.float32(0.1)
+    assert as_scalar(given, torch.bool, "cpu") is given
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(4, 256), (16, 1024)])
+def test_cuda_kernel_reads_the_flag_on_the_device(cuda_device, b, n):
+    """One captured launch follows the flag's value at each replay."""
+    rng = np.random.default_rng(n)
+    src, dst, act, rots = _problem(rng, b, n, masked=0.5)
+    t = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+    args = [t(src), t(dst), t(act), torch.full((b,), 0.1, device=cuda_device), t(rots[0])]
+    flag = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    tops.gnc_batch(*args, flag, **LOOP)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rk, ik = tops.gnc_batch(*args, flag, **LOOP)
+    for value in (True, False, True):
+        flag.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        rr, ir = tops.gnc_batch_reference(*args, value, **LOOP)
+        _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)

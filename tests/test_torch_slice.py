@@ -249,7 +249,10 @@ def test_frontend_preset_on_real_pair_matches_jax():
     """pair_seed1375 (real FPFH correspondences, C = 1250, 12 true inliers)
     through frontend_solver_params of both packages at the bench caps: both
     pass the KITTI gates (RE < 5 deg, TE < 0.6) and the port's RE is within
-    0.5 deg of JAX's."""
+    0.5 deg of JAX's. Both run the same number of host rounds and local
+    batches: at about 1% inliers no local round stops before its last batch
+    in either package (4 rounds of 11 batches), so the port's 44 batches a
+    solve are the reference's own."""
     import os
 
     from psulvsb_tpu.eval.frontend_protocol import frontend_solver_params as jax_frontend
@@ -264,12 +267,15 @@ def test_frontend_preset_on_real_pair_matches_jax():
     params = frontend_solver_params(**caps)
     assert params_from_jax(jp) == params
     params.check_port_supported()
-    sol_j, _ = jax_psulvsb_solve(
+    sol_j, info_j = jax_psulvsb_solve(
         jax.numpy.asarray(src), jax.numpy.asarray(dst),
         jax.numpy.ones((src.shape[1],), jax.numpy.int32), jp, jax.random.PRNGKey(0),
     )
     solver = RobustRegistrationSolver(params, seed=0, device="cpu")
     sol_t = solver.solve(src, dst)
+    counts_j = (int(info_j["rounds"]), int(info_j["total_local_batches"]))
+    counts_t = (solver._info["rounds"], solver._info["total_local_batches"])
+    assert counts_t == counts_j == (4, 44), (counts_t, counts_j)
     errs = []
     for rot, trans in ((sol_j.rotation, sol_j.translation), (sol_t.rotation, sol_t.translation)):
         re = angular_error_deg_np(gt[:3, :3], np.asarray(rot, np.float64))

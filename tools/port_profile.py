@@ -1,9 +1,17 @@
 """Device-time breakdown of the PyTorch port's solve paths on one CUDA card.
 
-    python tools/port_profile.py [anchor|unknown|gror|frontend|wide ...]
+    python tools/port_profile.py [anchor|unknown|gror|frontend|wide|hostile ...]
+    python tools/port_profile.py fused [path ...]
+    python tools/port_profile.py batch [path ...]
 
 For each named path, two warm-up solves, then 5 solves through
-RobustRegistrationSolver under torch.profiler (CPU and CUDA activities).
+RobustRegistrationSolver under torch.profiler (CPU and CUDA activities);
+after the word `fused` the solves go through solver.fused.psulvsb_register
+(replayed CUDA graphs), after `batch` through one
+parallel.pairs.register_batch of the 5 pairs in order and one with pairs in
+flight (each profiled on its own). The profiler's window is idle for 20 ms
+at both ends, and a window that lost device records (fewer launches of a
+port kernel than the path's solves made) is taken again.
 Printed per path: the card, the wall time of the profiled solves, the
 device busy time per solve (the sum of the kernel events' durations; one
 stream, so they do not overlap) and its share of the wall time, device
@@ -35,33 +43,72 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import KERNELS, card_line, path_case  # noqa: E402
-from psulvsb_tpu_torch import RobustRegistrationSolver  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    KERNELS,
+    PROFILER_ATTEMPTS,
+    PROFILER_MARGIN_S,
+    card_line,
+    fused_case,
+    read_launches,
+    reset_launches,
+)
+from psulvsb_tpu_torch import (  # noqa: E402
+    RobustRegistrationSolver,
+    psulvsb_register,
+    register_batch,
+)
 
 N_SOLVES = 5
+SEEDS = list(range(100, 100 + N_SOLVES))
 
 
-def profile_path(name, device, card):
+def runner(mode, params, src, dst, device):
+    """fn(seeds): the path's solves of `seeds` in the given mode."""
+    keep = torch.ones(src.shape[1], dtype=torch.int64, device=device)
+    if mode == "staged":
+        return lambda seeds: [
+            RobustRegistrationSolver(params, seed=s, device=device).solve(src, dst) for s in seeds
+        ]
+    if mode == "fused":
+        return lambda seeds: [psulvsb_register(src, dst, keep, s, params) for s in seeds]
+    vectorized = mode == "batch in flight"
+    return lambda seeds: register_batch(
+        src.expand(len(seeds), 3, -1), dst.expand(len(seeds), 3, -1),
+        keep.expand(len(seeds), -1), seeds, params, vectorized=vectorized,
+    )
+
+
+def profile_path(name, device, card, mode="staged"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    params, (src, dst, _) = path_case(name)
+    params, (src, dst, _), _, _ = fused_case(name)
     src = torch.as_tensor(src, device=device)
     dst = torch.as_tensor(dst, device=device)
-    for seed in (0, 1):
-        RobustRegistrationSolver(params, seed=seed, device=device).solve(src, dst)
+    solve = runner(mode, params, src, dst, device)
+    solve([0, 1])
+    solve(SEEDS)  # a replayed path has captured every segment these seeds take
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for seed in range(100, 100 + N_SOLVES):
-            RobustRegistrationSolver(params, seed=seed, device=device).solve(src, dst)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    for _ in range(PROFILER_ATTEMPTS):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_MARGIN_S)
+            t0 = time.perf_counter()
+            solve(SEEDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILER_MARGIN_S)
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        made = read_launches()
+        seen = {k: sum(f"{k}_kernel" in e.name for e in kernels) for k in KERNELS}
+        if all(seen[k] >= made[k] for k in KERNELS):
+            break
+        print(f"[{name}] the profiler recorded {seen} of the launches {made}: again")
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                    "cudaLaunchKernelExC"))
+                                                    "cudaLaunchKernelExC", "cudaGraphLaunch"))
+    name = name if mode == "staged" else f"{name}, {mode}"
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
@@ -69,7 +116,7 @@ def profile_path(name, device, card):
     print(f"[{name}] card: {card}; {per} solves in {wall * 1e3:.2f} ms of wall "
           f"({wall * 1e3 / per:.2f} ms a solve); device busy {busy_us / 1e3 / per:.3f} ms a "
           f"solve, {100 * busy_us / 1e6 / wall:.1f}% of wall; {len(kernels) / per:.0f} device "
-          f"operations and {launches / per:.0f} kernel-launch calls a solve")
+          f"operations and {launches / per:.0f} kernel- and graph-launch calls a solve")
     for kname, us in by_name.most_common(8):
         print(f"[{name}]   {100 * us / busy_us:5.1f}%  {us / 1e3 / per:.3f} ms a solve  "
               f"{kname[:110]}")
@@ -88,8 +135,15 @@ def main() -> int:
         return 1
     card = card_line()
     device = torch.device("cuda", 0)
+    modes = ["staged"]
     for name in sys.argv[1:] or ["anchor", "unknown", "gror", "frontend"]:
-        profile_path(name, device, card)
+        if name == "fused":
+            modes = ["fused"]
+        elif name == "batch":
+            modes = ["batch in order", "batch in flight"]
+        else:
+            for mode in modes:
+                profile_path(name, device, card, mode)
     return 0
 
 
