@@ -113,9 +113,43 @@ and prints no result line):
 15. the pipeline — eval.pipeline.solve_with_prefilter on pair_seed1375
    padded to its 2048 bucket through psulvsb_register, the pre-filter off
    (KITTI gates) and on (the keep-mask counts are printed);
-16. result — the card line, a JSON line of per-kernel figures (time,
-   plain time, bound, launches on the fused path that runs it), and the
-   final JSON line {"ok": true, "device": {...}}.
+16. the classic solve — RobustRegistrationSolver.solve_decoupled (scale ->
+   max clique -> rotation by the single-problem GNC loop, which the JAX
+   package too runs outside any kernel -> translation) on the anchor pair (C = 1889, 90%
+   displaced, known scale) and on an unknown-scale pair (C = 1889, the
+   protocol of phase 6), PMC_EXACT through the native library, which must
+   have been built from native/maxclique.cpp: RE < 5 deg, TE < 0.3 in the
+   upstream convention (t not divided by s), scale error <= 0.1; the clique
+   returned must be a clique of the scale-consistency graph of the size
+   that exact_max_clique finds on it, printed beside the greedy's, with the
+   wall;
+17. the exact clique round — the hostile pair of phase 11 with
+   exact_clique_callback=True over the same 12 seeds, staged and fused: a
+   b_rate == 1.0 round must have gone through the native exact search (the
+   searches are counted), recall is printed beside the greedy's and not
+   gated (as in phase 11 (b)), and the wall a solve beside the greedy's, in
+   turns, staged and fused;
+18. FGR and "eigh" — the anchor with rotation_estimation_algorithm=FGR and
+   with gnc_rot_method="eigh", staged and fused (replayed against eager),
+   under phase 4's gates; the "eigh" solves must launch the GNC kernel 0
+   times and count the plain route, and a "power" solve right after must
+   launch it again;
+19. the dataset sweep — eval.make_dataset.write_benchmark of one 3DMatch
+   scene (30 pairs of 3500, 5000 and 6500 correspondences: the 4096, 6144
+   and 8192 buckets; 60-95% mismatch outliers), then
+   eval.batch_harness.run_benchmark_batched over register_batch with
+   preset_3dmatch at the caps (2048, 256, 4): ddtime 10 at known scale (300
+   solves, the pre-filter on), then ddtime 2 with unknown_scale=True, which
+   launches the histogram kernel. Recall, pairs and solves per second, the
+   split of the timed region and the peak device memory are printed. Every
+   pair at an outlier rate <= 0.9 must succeed under
+   SuccessCriteria.threedmatch() at known scale; for the first six pairs
+   the serial eval.realdata.run_scene must give the batched harness's
+   PairResult apart from time_s; a second run with resume=True must reuse
+   the sidecar and one with another ddtime must not;
+20. result — the card line, a JSON line of per-kernel figures (time,
+   plain time, bound, launches on the fused path that runs it and in the
+   sweeps), and the final JSON line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a phase drives a solve path and
 read just after it; launches made to compare a kernel with its plain
@@ -128,9 +162,11 @@ not counted).
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1270,6 +1306,325 @@ def phase_pipeline(device, card: str) -> dict:
     return out
 
 
+CLASSIC_UNKNOWN_C = ANCHOR_C  # 1.78 M complete-graph TIMs
+EXACT_TURN_SEEDS = HOSTILE_SOLVE_SEEDS[:6]
+VARIANT_SEEDS = (100, 101, 102)
+SWEEP_SCENE = "7-scenes-redkitchen"
+SWEEP_PAIRS = 30  # bench.py:96-102: the sizes below, ddtime 10, the caps of CAPS
+SWEEP_SIZES = (3500, 5000, 6500)
+SWEEP_DDTIME = 10
+SWEEP_UNKNOWN_DDTIME = 2
+SWEEP_GATED_RATE = 0.9
+SWEEP_SERIAL_PAIRS = 6
+
+
+def phase_classic(device, card: str) -> dict:
+    """Phase 16: the classic decoupled solve through the native exact clique."""
+    from psulvsb_tpu_torch import RobustRegistrationSolver, SolverParams
+    from psulvsb_tpu_torch.clique import greedy_clique, pmc
+    from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
+    from psulvsb_tpu_torch.ops import gnc
+    from psulvsb_tpu_torch.pairs.tims import compute_tims
+    from psulvsb_tpu_torch.rotation.gnc import gnc_tls_rotation
+    from psulvsb_tpu_torch.solver.classic import consistency_graph
+
+    if not pmc.native_available():
+        raise AssertionError("the native clique library did not build from native/maxclique.cpp")
+    out = {}
+    cases = {
+        "anchor": (SolverParams.preset_artificial(), anchor_case()),
+        "unknown": (SolverParams.preset_3dmatch(estimate_scaling=True),
+                    unknown_scale_case(CLASSIC_UNKNOWN_C, 5)),
+    }
+    for name, (params, (src, dst, (rot_true, t_true, test_scale))) in cases.items():
+        solver = RobustRegistrationSolver(params, seed=0, device=device)
+        walls = []
+        for _ in range(2):  # the second solve finds everything built and loaded
+            searches = pmc.EXACT_SEARCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = solver.solve_decoupled(src, dst)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if pmc.EXACT_SEARCHES != searches + 1:
+            raise AssertionError("solve_decoupled with PMC_EXACT did not run the exact search")
+        if sol.rotation.device != device:
+            raise AssertionError(f"solve_decoupled ran on {sol.rotation.device}, not {device}")
+        scale = float(sol.scale)
+        re = angular_error_deg_np(rot_true, sol.rotation.cpu().numpy())
+        # Upstream convention: dst = s R src + t.
+        te = float(np.linalg.norm(sol.translation.cpu().numpy().astype(np.float64) / test_scale
+                                  - t_true))
+        se = abs(scale - test_scale)
+        clique = solver._info["max_clique"]
+        c = src.shape[1]
+        _, idx_i, idx_j, _ = compute_tims(torch.as_tensor(src, device=device))
+        adj = consistency_graph(idx_i, idx_j, solver.getScaleInliersMask(), c)
+        members = torch.as_tensor(clique, device=device)
+        sub = adj[members][:, members]
+        is_clique = bool((sub | torch.eye(len(clique), dtype=torch.bool, device=device)).all())
+        again = pmc.exact_max_clique(adj.cpu().numpy(), params.max_clique_time_limit)
+        t0 = time.perf_counter()
+        greedy, reads = greedy_clique(adj)
+        greedy_n = int(greedy.sum())
+        greedy_ms = (time.perf_counter() - t0) * 1e3
+        # The rotation stage alone, as the solve runs it (the single-problem
+        # loop), beside the batched kernel on the same TIMs, which it does
+        # not take: what one route for every size of the TIM set costs.
+        r_i, r_j = solver._info["basic_tims_i"], solver._info["basic_tims_j"]
+        src_d, dst_d = (torch.as_tensor(x, dtype=torch.float32, device=device) for x in (src, dst))
+        rot_src, rot_dst = src_d[:, r_j] - src_d[:, r_i], (dst_d[:, r_j] - dst_d[:, r_i]) / sol.scale
+        rot_nb = (2.0 * params.noise_bound / sol.scale).reshape(1)
+        loop = dict(max_iterations=params.rotation_max_iterations,
+                    gnc_factor=params.rotation_gnc_factor,
+                    cost_threshold=params.rotation_cost_threshold)
+        rotation_ms = median_ms(lambda: gnc_tls_rotation(
+            rot_src, rot_dst, rot_nb[0], rot_method=params.gnc_rot_method, **loop), 5, 1)
+        every = torch.ones((1, r_i.numel()), dtype=torch.bool, device=device)
+        kernel_ms = median_ms(lambda: gnc.gnc_batch(
+            rot_src[None], rot_dst[None], every, rot_nb, torch.eye(3, device=device), False,
+            **loop), 5, 1)
+        out[name] = {
+            "classic": name, "C": c, "tims": int(idx_i.shape[0]), "valid": bool(sol.valid),
+            "rotation_tims": int(r_i.numel()), "rotation_stage_ms": rotation_ms,
+            "gnc_batch_same_tims_ms": kernel_ms,
+            "RE_deg": re, "TE_upstream": te, "scale_error": se, "clique": len(clique),
+            "exact_again": len(again), "same_members": again == clique,
+            "greedy_clique": greedy_n, "greedy_ms": greedy_ms, "greedy_host_reads": reads,
+            "inliers": int(sol.final_inlier_count), "wall_ms": walls, "card": card,
+        }
+        print(json.dumps(out[name]))
+        if not (bool(sol.valid) and re < LIMITS[0] and te < LIMITS[1] and se <= LIMITS[2]):
+            raise AssertionError(f"classic {name} failed its gate: RE={re} TE={te} scale {se}")
+        if not is_clique or len(again) != len(clique) or greedy_n > len(clique):
+            raise AssertionError(f"classic {name}: the clique returned is not the exact one: "
+                                 f"{len(clique)} members, clique {is_clique}, exact {len(again)}, "
+                                 f"greedy {greedy_n}")
+    return out
+
+
+def phase_exact_clique(device, card: str) -> dict:
+    """Phase 17: the b_rate == 1.0 round through the native exact search."""
+    from psulvsb_tpu_torch import SolverParams, psulvsb_solve
+    from psulvsb_tpu_torch.solver.fused import plan_for, psulvsb_register
+
+    case = anchor_case(rate=HOSTILE_RATE, data_seed=HOSTILE_DATA_SEED)
+    greedy_p = SolverParams.preset_artificial(**CAPS)
+    exact_p = greedy_p.replace(exact_clique_callback=True)
+    src, dst, keep = on_device(case, device)
+    reset_launches()
+    runs = [run_solve("exact clique", exact_p, case, seed, device, gate=False)
+            for seed in HOSTILE_SOLVE_SEEDS]
+    launches = read_launches()
+    rounds = sum(i["clique_rounds"] for _, i, _ in runs)
+    searches = sum(i["exact_clique_searches"] for _, i, _ in runs)
+    fused_ok = fused_searches = 0
+    for seed in HOSTILE_SOLVE_SEEDS:
+        sol = psulvsb_register(src, dst, keep, seed, exact_p)
+        fused_ok += score_solution("fused exact clique", sol, case[2])[4]
+        fused_searches += plan_for(exact_p, src.shape[1], device).stats["exact_clique_searches"]
+        eager = psulvsb_register(src, dst, keep, seed, exact_p, graphs=False)
+        if solution_difference(sol, eager) != 0.0:
+            raise AssertionError(f"exact clique, seed {seed}: the replayed plan differs from "
+                                 f"its eager run")
+
+    def staged(params):
+        return lambda seed: psulvsb_solve(
+            src, dst, keep, params, torch.Generator(device=device).manual_seed(seed))
+
+    def fused(params):
+        return lambda seed: psulvsb_register(src, dst, keep, seed, params)
+
+    for seed in EXACT_TURN_SEEDS:  # the greedy's plan captures its segments
+        fused(greedy_p)(seed)
+    walls = {}
+    for form, make in (("staged", staged), ("fused", fused)):
+        turns = [timed_walls(make(p), EXACT_TURN_SEEDS)
+                 for p in (greedy_p, exact_p, exact_p, greedy_p)]
+        med = [statistics.median(t) for t in turns]
+        walls[form] = {"greedy_ms": [med[0], med[3]], "exact_ms": [med[1], med[2]]}
+    out = {
+        "exact_clique": "hostile", "C": src.shape[1], "solves": len(runs),
+        "clique_rounds": rounds, "exact_searches": searches,
+        "recall_staged": sum(ok for _, _, ok in runs), "recall_fused": fused_ok,
+        "exact_searches_fused": fused_searches, "walls": walls, "launches": launches,
+        "gated": "the exact searches and the replay == eager check; recall is printed, "
+                 "not gated, as in phase 11 (b)",
+        "card": card,
+    }
+    print(json.dumps(out))
+    if rounds == 0 or searches == 0 or fused_searches == 0:
+        raise AssertionError(f"no b_rate == 1.0 round went through the exact search: {out}")
+    if launches["gnc_batch"] <= 0:
+        raise AssertionError("the exact-clique solves never launched the GNC kernel")
+    return out
+
+
+def phase_rotation_variants(device, card: str) -> dict:
+    """Phase 18: FGR and gnc_rot_method="eigh" on the anchor."""
+    from psulvsb_tpu_torch import RotationEstimationAlgorithm, SolverParams
+    from psulvsb_tpu_torch.solver import basic
+    from psulvsb_tpu_torch.solver.fused import psulvsb_register
+
+    case = anchor_case()
+    src, dst, keep = on_device(case, device)
+    out = {}
+    variants = {
+        "fgr": SolverParams.preset_anchor(
+            rotation_estimation_algorithm=RotationEstimationAlgorithm.FGR),
+        "eigh": SolverParams.preset_anchor(gnc_rot_method="eigh"),
+    }
+    for name, params in variants.items():
+        reset_launches()
+        basic.PLAIN_ROUTE_CALLS = 0
+        walls = [run_solve(name, params, case, seed, device)[0] for seed in VARIANT_SEEDS]
+        fused_walls = []
+        for seed in VARIANT_SEEDS[:2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = psulvsb_register(src, dst, keep, seed, params)
+            torch.cuda.synchronize()
+            fused_walls.append((time.perf_counter() - t0) * 1e3)
+            valid, re, te, se, ok = score_solution(f"fused {name}", sol, case[2])
+            eager = psulvsb_register(src, dst, keep, seed, params, graphs=False)
+            diff = solution_difference(sol, eager)
+            print(f"[fused {name}] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} "
+                  f"replay - eager = {diff}")
+            if not ok or diff != 0.0:
+                raise AssertionError(f"fused {name} seed {seed}: gate {ok}, replay - eager {diff}")
+        launches = read_launches()
+        out[name] = {
+            "variant": name, "wall_ms_staged": [w * 1e3 for w in walls],
+            "wall_ms_fused": fused_walls, "gnc_batch_launches": launches["gnc_batch"],
+            "plain_route_calls": basic.PLAIN_ROUTE_CALLS, "card": card,
+        }
+        print(json.dumps(out[name]))
+        if launches["gnc_batch"] != 0:
+            raise AssertionError(f"{name} must not launch the GNC kernel: {launches}")
+    if out["eigh"]["plain_route_calls"] <= 0 or out["fgr"]["plain_route_calls"] != 0:
+        raise AssertionError(f"the plain route's count is wrong: {out}")
+    reset_launches()
+    run_solve("power after eigh", SolverParams.preset_anchor(), case, VARIANT_SEEDS[0], device)
+    if read_launches()["gnc_batch"] <= 0:
+        raise AssertionError('a "power" solve after the "eigh" solves did not launch the kernel')
+    return out
+
+
+def sweep_params():
+    from psulvsb_tpu_torch import SolverParams
+
+    return SolverParams.preset_3dmatch(**CAPS)  # bench.py:95 REALDATA_CAPS
+
+
+def phase_sweep(device, card: str) -> dict:
+    """Phase 19: the dataset sweep through the batched harness."""
+    from psulvsb_tpu_torch.eval import batch_harness, make_dataset, realdata
+    from psulvsb_tpu_torch.solver.fused import clear_plan_cache, plan_for
+    from psulvsb_tpu_torch.utils.padding import pad_to_bucket
+
+    clear_plan_cache()
+    params = sweep_params()
+    rates = (0.6, 0.75, 0.85, 0.9, 0.93, 0.95)  # write_scene's default cycle
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="psulvsb_sweep_") as root:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        make_dataset.write_benchmark(
+            data, [SWEEP_SCENE], dataset="3dmatch", n_pairs=SWEEP_PAIRS, n_corr=SWEEP_SIZES,
+            seed=0, outlier_rates=rates,
+        )
+        write_s = time.perf_counter() - t0
+        scene_dir = os.path.join(data, SWEEP_SCENE)
+        labels = realdata.read_pair_labels(os.path.join(scene_dir, "pairs.txt"))
+        buckets = sorted({pad_to_bucket(n) for n in SWEEP_SIZES})
+        print(f"[sweep] {SWEEP_SCENE}: {len(labels)} pairs of {SWEEP_SIZES} correspondences "
+              f"(buckets {buckets}) written in {write_s:.2f} s")
+
+        def sweep(tag, ddtime, unknown, resume=False):
+            res_dir = os.path.join(root, tag)
+            stats = batch_harness.run_benchmark_batched(
+                data, res_dir, dataset="3dmatch", scenes=[SWEEP_SCENE], params=params,
+                ddtime=ddtime, unknown_scale=unknown, seed=0, resume=resume,
+            )[SWEEP_SCENE]
+            csv_path = os.path.join(res_dir, f"{SWEEP_SCENE}_fpfh_{int(unknown)}.csv")
+            return stats, csv_path
+
+        def read_rows(csv_path):
+            with open(csv_path) as f:
+                rows = [ln.strip().split(",") for ln in f][1:]
+            return {r[0]: realdata.PairResult(*(float(x) for x in r[1:6]), bool(int(r[6])))
+                    for r in rows}
+
+        for tag, ddtime, unknown in (("known", SWEEP_DDTIME, False),
+                                     ("unknown", SWEEP_UNKNOWN_DDTIME, True)):
+            run_params = params.replace(estimate_scaling=unknown)
+            t0 = time.perf_counter()
+            batch_harness.warm_scene(scene_dir, run_params)
+            warm_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launches()
+            stats, csv_path = sweep(tag, ddtime, unknown)
+            launches = read_launches()
+            split = stats["split"]
+            rows = read_rows(csv_path)
+            gated = [t for i, t in enumerate(rows) if rates[i % len(rates)] <= SWEEP_GATED_RATE]
+            failed = [t for t in gated if not rows[t].success]
+            plans = {b: plan_for(run_params, b, device).nbytes for b in buckets}
+            out[tag] = {
+                "sweep": tag, "pairs": stats["pairs"], "ddtime": ddtime,
+                "solves": split["solves"], "recall": stats["recall"],
+                "recall_gated": f"{len(gated) - len(failed)}/{len(gated)}",
+                "pairs_per_s": stats["pairs_per_s"],
+                "solves_per_s": split["solves"] / split["wall_s"], "split": split,
+                "warm_s": warm_s, "launches": launches,
+                "peak_allocated_GiB": torch.cuda.max_memory_allocated(device) / 2**30,
+                "reserved_GiB": torch.cuda.memory_reserved(device) / 2**30,
+                "plan_MiB": {str(b): round(n / 2**20, 1) for b, n in plans.items()},
+                "card": card,
+            }
+            print(json.dumps(out[tag]))
+            if launches["gnc_batch"] <= 0:
+                raise AssertionError(f"the {tag} sweep never launched the GNC kernel: {launches}")
+            if unknown and launches["pair_ratio_hist"] <= 0:
+                raise AssertionError(f"the unknown-scale sweep never launched the histogram "
+                                     f"kernel: {launches}")
+            if not unknown and failed:
+                raise AssertionError(f"pairs at an outlier rate <= {SWEEP_GATED_RATE} failed "
+                                     f"the 3DMatch criteria: {[(t, rows[t]) for t in failed]}")
+
+        # The serial harness on the first pairs: the same results but the time.
+        known_rows = read_rows(os.path.join(root, "known", f"{SWEEP_SCENE}_fpfh_0.csv"))
+        first = os.path.join(root, "first_pairs.txt")
+        with open(first, "w") as f:
+            f.writelines(f"{a} {b}\n" for a, b in labels[:SWEEP_SERIAL_PAIRS])
+        serial_csv = os.path.join(root, "serial", "first.csv")
+        t0 = time.perf_counter()
+        realdata.run_scene(
+            scene_dir, first, params.replace(estimate_scaling=False),
+            realdata.SuccessCriteria.threedmatch(), serial_csv, ddtime=SWEEP_DDTIME, seed=0,
+        )
+        serial_s = time.perf_counter() - t0
+        for tag, res in read_rows(serial_csv).items():
+            if res._replace(time_s=0.0) != known_rows[tag]._replace(time_s=0.0):
+                raise AssertionError(f"pair {tag}: serial {res} != batched {known_rows[tag]}")
+        print(f"[sweep] the serial harness on the first {SWEEP_SERIAL_PAIRS} pairs "
+              f"({SWEEP_SERIAL_PAIRS * SWEEP_DDTIME} solves, {serial_s:.2f} s) gives the batched "
+              f"harness's results; card: {card}")
+
+        # Resume: the sidecar is reused for the same protocol and no other.
+        again, _ = sweep("known", SWEEP_DDTIME, False, resume=True)
+        other, _ = sweep("known", 1, False, resume=True)
+        if again["timing"] != "resumed" or other["timing"] == "resumed":
+            raise AssertionError(f"resume: same protocol {again['timing']!r}, another ddtime "
+                                 f"{other['timing']!r}")
+        if again["recall"] != out["known"]["recall"]:
+            raise AssertionError("the resumed stats differ from the run's")
+        print(f"[sweep] resume=True reused the sidecar; ddtime 1 re-ran the scene "
+              f"(recall {other['recall']:.3f}, {other['pairs_per_s']:.2f} pairs/s)")
+    return out
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from psulvsb_tpu_torch.ops._build import BUILD_INFO, load_library
@@ -1313,17 +1668,24 @@ def main() -> int:
     fused = phase_fused_paths(device, card)
     phase_pair_batch(device, card)
     phase_pipeline(device, card)
+    phase_classic(device, card)
+    phase_exact_clique(device, card)
+    phase_rotation_variants(device, card)
+    sweeps = phase_sweep(device, card)
 
     def row(name, source, replaces, path, staged, err, timed):
         """`launches`: over the fused path's N_TIMED_SOLVES solves, replayed
-        launches included; `launches_staged`: over the staged path's solves."""
+        launches included; `launches_staged`: over the staged path's solves;
+        `launches_sweep`: over phase 19's two dataset sweeps."""
         ms, plain_ms, (bound, bound_by) = timed
         if staged <= 0 or fused[path]["launches"][name] <= 0:
             raise AssertionError(f"{name} did not launch on the {path} path")
         return {
             "name": name, "route": "cuda", "source": f"psulvsb_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": fused[path]["launches"][name],
-            "launches_staged": staged, "path": path, "max_abs_err": err, "ms": ms,
+            "launches_staged": staged, "path": path,
+            "launches_sweep": {tag: sw["launches"][name] for tag, sw in sweeps.items()},
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             # No single PyTorch call computes any of these functions.
             "library_ms": None,

@@ -4,13 +4,19 @@ consistency degrees in CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package `psulvsb_tpu`, which stays the reference: the
 modules mirror its paths and names. This package imports torch and numpy
-only. It runs the solve at known or estimated scale, at any C, with the
-clique stages, GROR initial alignment and the translation rescue, staged
-(`psulvsb_solve`) or as one dispatch of replayed CUDA graphs
-(`psulvsb_register`), one pair or a batch of pairs (`register_batch`), with
-or without the normal-angle pre-filter (`solve_with_prefilter`);
-`SolverParams.check_port_supported` names the settings that still raise.
+only. It runs the solve at every setting of `SolverParams` (known or
+estimated scale, any C, the clique stages with the greedy or the native exact
+search, GROR initial alignment, the translation rescue, GNC-TLS or FGR
+rotation), staged (`psulvsb_solve`) or as one dispatch of replayed CUDA
+graphs (`psulvsb_register`), one pair or a batch of pairs
+(`register_batch`), with or without the normal-angle pre-filter
+(`solve_with_prefilter`); the classic decoupled solve
+(`RobustRegistrationSolver.solve_decoupled`); and the evaluation harnesses
+over them (`psulvsb_tpu_torch.eval`: the synthetic protocol, the dataset
+generator, the serial and the batched dataset sweep).
 """
+
+__version__ = "0.7.0"
 
 from psulvsb_tpu_torch.api import RobustRegistrationSolver, register_pair
 from psulvsb_tpu_torch.eval.pipeline import solve_with_prefilter
@@ -30,6 +36,7 @@ from psulvsb_tpu_torch.solver.psulvsb import psulvsb_solve
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 
 __all__ = [
+    "__version__",
     "InlierGraphFormulation",
     "InlierSelectionMode",
     "RegistrationSolution",

@@ -11,6 +11,7 @@ import warnings
 import numpy as np
 import torch
 
+from psulvsb_tpu_torch.solver.classic import solve_decoupled
 from psulvsb_tpu_torch.solver.config import SolverParams
 from psulvsb_tpu_torch.solver.psulvsb import psulvsb_solve
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
@@ -106,10 +107,18 @@ class RobustRegistrationSolver:
         return sol
 
     def solve_decoupled(self, src, dst) -> RegistrationSolution:
-        raise NotImplementedError(
-            "solve_decoupled (solver/classic.py) is not ported yet: "
-            "ROADMAP.md Queue 1 item 11"
+        """Classic single-pass decoupled solve (no PSULVSB loops), on
+        `device`; the translation follows upstream's dst = s R src + t
+        (solver/classic.py). After a clique abort the getters of the stages
+        that never ran raise, and getScaleInliersMask still answers."""
+        device = self.device
+        sol, info = solve_decoupled(
+            _as_float32(src).to(device), _as_float32(dst).to(device), self.params,
+            self._next_generator(device),
         )
+        self._solution = sol
+        self._info = info
+        return sol
 
     # --- getters mirroring registration.h:600-746 --------------------------
     def getSolution(self) -> RegistrationSolution:
@@ -132,7 +141,8 @@ class RobustRegistrationSolver:
         return m
 
     def getScaleInliersMask(self):
-        """(L,) bool over the winning basic TIM set (registration.h:618)."""
+        """(L,) bool over the winning basic TIM set (registration.h:618);
+        after solve_decoupled, over all C (C - 1) / 2 TIMs."""
         return self._mask("scale_inliers")
 
     def getRotationInliersMask(self):

@@ -1,10 +1,15 @@
-"""Greedy clique search on dense consistency graphs, on PyTorch.
+"""Inlier selection by graph cores and cliques on dense consistency graphs,
+on PyTorch.
 
-Port of the two functions of psulvsb_tpu/clique/kcore.py that the solver
-calls: `triangle_scores` (the greedy's vertex ordering) and `greedy_clique`
-(PMC's heuristic clique, graph.cc:12-125, grown max-score-first). Graphs are
-dense (N, N) bool matrices, symmetric, with an optional leading batch
-dimension: the escalated clique round holds one graph per hypothesis.
+Port of psulvsb_tpu/clique/kcore.py, the equivalent of
+MaxCliqueSolver::findMaxClique (graph.cc:12-125): `core_numbers` (iterative
+peeling), `max_kcore_mask` (KCORE_HEU), `triangle_scores` and
+`greedy_clique` (PMC's heuristic clique, grown max-score-first, ordered by
+core number unless the caller gives scores) and the mode dispatch
+`max_clique_mask`, whose "exact" mode is the native branch and bound of
+`clique/pmc.py`. Graphs are dense (N, N) bool matrices, symmetric, with an
+optional leading batch dimension: the escalated clique round holds one graph
+per hypothesis.
 """
 
 from __future__ import annotations
@@ -23,6 +28,55 @@ def _mask_active(adj: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor
     if active is None:
         return adj
     return adj & active[..., None, :] & active[..., :, None]
+
+
+def core_numbers(
+    adj: torch.Tensor, active: torch.Tensor | None = None, chunk: int = CHUNK
+) -> tuple[torch.Tensor, int]:
+    """Core number of every vertex by iterative peeling. adj: (..., N, N)
+    bool, symmetric; the diagonal is ignored. Returns ((..., N) int64 core
+    numbers, 0 on inactive vertices; host reads).
+
+    One step removes every live vertex of degree below the level k (those
+    take core number k - 1) or, when none is, moves k up to the least live
+    degree plus one, the next level at which a vertex can fall. A step is one
+    (N, N) product and a few selects, decided on the device; a graph needs at
+    most N steps that remove and one that moves for each distinct core
+    number. The host reads whether a vertex is left once per `chunk` steps,
+    so the cost is ceil(steps / chunk) reads: 1 to 3 on the graphs of the
+    classic solve's tests, a few tens at C = 1889."""
+    n = adj.shape[-1]
+    dev = adj.device
+    if active is None:
+        active = torch.ones(adj.shape[:-1], dtype=torch.bool, device=dev)
+    alive = active.expand(adj.shape[:-1]).clone()
+    a = (_mask_active(adj, alive) & ~torch.eye(n, dtype=torch.bool, device=dev)).to(torch.float32)
+    k = torch.ones(adj.shape[:-2], dtype=torch.int64, device=dev)
+    cores = torch.zeros(adj.shape[:-1], dtype=torch.int64, device=dev)
+    reads = 0
+    while n > 0:
+        for _ in range(chunk):
+            deg = mm(a, alive.to(torch.float32)[..., None])[..., 0].to(torch.int64)
+            fall = alive & (deg < k[..., None])
+            any_fall = fall.any(-1)
+            cores = torch.where(fall, k[..., None] - 1, cores)
+            alive = alive & ~fall
+            # Nothing fell: every live vertex has core >= k, and none can fall
+            # before the level of the least live degree plus one.
+            least = torch.where(alive, deg, n).amin(-1)
+            cores = torch.where(alive & ~any_fall[..., None], least[..., None], cores)
+            k = torch.where(any_fall, k, least + 1)
+        reads += 1
+        if not bool(alive.any()):
+            break
+    return cores, reads
+
+
+def max_kcore_mask(adj: torch.Tensor, active: torch.Tensor | None = None) -> torch.Tensor:
+    """Vertices whose core number equals the largest: the KCORE_HEU "clique"
+    (graph.cc:72-82)."""
+    cores, _ = core_numbers(adj, active)
+    return cores == cores.amax(-1, keepdim=True)
 
 
 def triangle_scores(adj: torch.Tensor, active: torch.Tensor | None = None) -> torch.Tensor:
@@ -52,8 +106,9 @@ def greedy_clique(
     no candidate is left; ties go to the lower index, as jnp.argmax's do.
 
     adj: (..., N, N) bool; active: (..., N) bool or None; order_scores:
-    (..., N), for example `triangle_scores` (core-number ordering waits for
-    the port of core_numbers, ROADMAP Queue 1 item 11). The steps run in
+    (..., N), for example `triangle_scores`; by default the core numbers
+    (PMC's `heu_strat = "kcore"`, graph.cc:50), whose peeling reads the host
+    too (`core_numbers`). The steps run in
     chunks of `chunk`: a step whose candidate set is empty changes nothing,
     and the host reads whether any candidate is left once per chunk.
     With `max_steps` exactly that many steps run and the host reads nothing:
@@ -62,11 +117,9 @@ def greedy_clique(
     `max_clique_size_for_edges(E)` vertices).
 
     Returns ((..., N) bool clique mask, host reads)."""
+    reads = 0
     if order_scores is None:
-        raise NotImplementedError(
-            "greedy_clique needs order_scores: core-number ordering is not "
-            "ported yet (ROADMAP.md Queue 1 item 11)"
-        )
+        order_scores, reads = core_numbers(adj, active, chunk)
     n = adj.shape[-1]
     dev = adj.device
     if active is None:
@@ -97,7 +150,6 @@ def greedy_clique(
         picked.append(v)
         return cand & row(v)
 
-    reads = 0
     if max_steps is not None:
         for _ in range(max_steps):
             cand = step(cand)
@@ -112,3 +164,28 @@ def greedy_clique(
         added = scatter_or(n, torch.stack(picked, -1), torch.stack(best, -1) > -torch.inf)
         clique = clique | added
     return clique, reads
+
+
+def max_clique_mask(
+    adj: torch.Tensor,
+    active: torch.Tensor | None = None,
+    mode: str = "heu",
+    time_limit_s: float = 3600.0,
+) -> torch.Tensor:
+    """The modes of MaxCliqueSolver::findMaxClique as (N,) masks: "kcore"
+    (KCORE_HEU, the largest core), "heu" (PMC_HEU, the greedy on core
+    ordering), "exact" (the native branch and bound of clique/pmc.py on the
+    host: the graph is copied there and the mask comes back on adj's
+    device)."""
+    if mode == "kcore":
+        return max_kcore_mask(adj, active)
+    if mode == "heu":
+        return greedy_clique(adj, active)[0]
+    if mode == "exact":
+        from psulvsb_tpu_torch.clique.pmc import exact_max_clique_mask
+
+        mask = exact_max_clique_mask(
+            adj.cpu().numpy(), None if active is None else active.cpu().numpy(), time_limit_s
+        )
+        return torch.as_tensor(mask, device=adj.device)
+    raise ValueError(f"unknown clique mode {mode!r}")

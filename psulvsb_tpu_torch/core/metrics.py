@@ -2,7 +2,7 @@
 
 Equivalents of getAngularError (PSULVSB.cc:30-33), calculateRMSE
 (registration.cc:571-602) and computeInlierProbability
-(registration.cc:611-619).
+(registration.cc:611-619) and utils::calculateDiameter (utils.h:107-112).
 """
 
 from __future__ import annotations
@@ -60,3 +60,15 @@ def inlier_probability(
     function through the regularized lower incomplete gamma function."""
     z = (residual * residual) / (2.0 * sigma * sigma)
     return 1.0 - torch.special.gammainc(torch.full_like(z, 1.5), z)
+
+
+def calculate_diameter(pts: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """2 * the largest distance from the centroid, over the active columns of
+    (..., 3, N) point sets (utils.h:107-112)."""
+    if mask is None:
+        mask = torch.ones(pts.shape[:-2] + pts.shape[-1:], dtype=torch.bool, device=pts.device)
+    m = mask.to(pts.dtype)
+    count = torch.clamp(m.sum(-1), min=1.0)
+    cog = mm(pts, m[..., None])[..., 0] / count[..., None]
+    d2 = ((pts - cog[..., None]) ** 2).sum(-2)
+    return 2.0 * torch.sqrt(torch.where(mask, d2, torch.zeros_like(d2)).amax(-1))

@@ -16,6 +16,13 @@ each replay. A Python bool is accepted too and becomes such a tensor
 Which version runs is decided by where the tensors lie: CPU tensors take
 `gnc_batch_reference`; CUDA tensors launch the kernel or raise. Each launch
 adds one to `KERNEL_LAUNCHES`.
+
+The kernel computes each rotation by shifted power iteration and nothing
+else, as the Pallas kernel does. The exact eigenvector that
+`SolverParams.gnc_rot_method="eigh"` asks for is not this function's to give:
+`solver.basic.rotation_batch`, which owns the choice of the rotation
+estimator, calls `gnc_batch_reference` itself for that setting and counts it
+there.
 """
 
 from __future__ import annotations
@@ -62,17 +69,21 @@ def gnc_batch_reference(
     max_iterations: int,
     gnc_factor: float,
     cost_threshold: float,
+    rot_method: str = "power",
+    early_exit: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `gnc_batch` (rotation/gnc.py's loop with the
-    power-iteration rotation), with the same front-door rules. With
+    """Plain PyTorch version of `gnc_batch` (rotation/gnc.py's loop, by default
+    with the power-iteration rotation), with the same front-door rules. With
     `use_warm` a tensor, iteration 0 selects between the warm rotation and
-    the solve on the device."""
+    the solve on the device. `rot_method`, `early_exit`: as
+    `rotation.gnc.gnc_tls_batched` takes them."""
     _check_shapes(src_tims_b, active_b)
     nb_sq = floor_noise_sq(noise_bound_b.to(torch.float32))
     rot, w, _, _ = gnc_tls_batched(
         src_tims_b.to(torch.float32), dst_tims_b.to(torch.float32), active_b,
         nb_sq, warm_rotation, use_warm,
-        max_iterations, gnc_factor, cost_threshold, rot_method="power",
+        max_iterations, gnc_factor, cost_threshold, rot_method=rot_method,
+        early_exit=early_exit,
     )
     return rot, tls_inliers(w, active_b)
 

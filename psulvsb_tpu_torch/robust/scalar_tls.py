@@ -18,6 +18,7 @@ from psulvsb_tpu_torch.utils.precision import mm
 from psulvsb_tpu_torch.utils.scalars import as_scalar
 
 _BIG = 1e30
+_GRID_LIMIT = 1 << 27  # entries of one slice of the 1-point consensus grid
 
 
 def tls_vote(
@@ -113,10 +114,17 @@ def scale_consensus_1pt(
         first = (k == 0) & use_warm if isinstance(use_warm, torch.Tensor) else k == 0
         candidates = torch.where(first, warm[..., None], candidates)
 
-    cons = (torch.abs(x[..., None, :] - candidates[..., :, None]) <= ranges[..., None, :]) & (
-        active[..., None, :]
-    )
-    counts = cons.sum(-1).to(dtype)  # (..., K)
+    # All K consensus counts; over a long measurement list (the classic
+    # solve's complete-graph TIMs) in slices of the draws, so that the
+    # (..., K, n) grid never holds more than _GRID_LIMIT entries at once.
+    per = max(1, min(max_draws, _GRID_LIMIT // max(n, 1)))
+    counts = torch.cat([
+        (
+            (torch.abs(x[..., None, :] - candidates[..., lo:lo + per, None])
+             <= ranges[..., None, :]) & active[..., None, :]
+        ).sum(-1)
+        for lo in range(0, max_draws, per)
+    ], -1).to(dtype)  # (..., K)
     best_so_far = torch.cummax(counts, -1).values
     iters = torch.arange(1, max_draws + 1, device=dev, dtype=dtype)
     conf = 1.0 - torch.pow(1.0 - best_so_far / n_active[..., None], iters)

@@ -55,11 +55,14 @@ def gnc_tls_batched(
     gnc_factor: float,
     cost_threshold: float,
     rot_method: str,
+    early_exit: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """GNC-TLS loop over B problems. src/dst (B, 3, N), active (B, N) bool,
     nb_sq (B,) already floored, warm_rotation (3, 3) shared by the batch.
     use_warm: a bool, or a 0-d bool tensor; the tensor selects iteration 0's
-    rotation on the device (the solve runs either way).
+    rotation on the device (the solve runs either way). With `early_exit`
+    the host reads once an iteration whether every problem is done; without
+    it all `max_iterations` run masked and nothing is read.
 
     Returns (rotations (B, 3, 3), weights (B, N), cost (B,), iterations (B,)).
     """
@@ -122,7 +125,7 @@ def gnc_tls_batched(
         cost = torch.where(live, cost_i, cost)
         iters = iters + live.to(torch.int64)
         done = done | degenerate | converged
-        if bool(done.all()):
+        if early_exit and bool(done.all()):
             break
     return rot, w, cost, iters
 

@@ -5,9 +5,8 @@ moves between the two packages field by field (see `convert.params_from_jax`).
 Field-by-field parity with teaser::RobustRegistrationSolver::Params
 (registration.h:378-473) plus the constants the reference hard-codes in
 registration.cc (noise bounds, loop limits, the rate schedule, the 60 s
-budget). `check_port_supported` names the settings this package does not
-run yet (the native exact-clique callback, FGR, the "eigh" rotation) and
-the ROADMAP item that ports each.
+budget). Every setting of the solver runs; `check_port_supported` is kept
+for its callers and validates `clique_init` only.
 """
 
 from __future__ import annotations
@@ -60,7 +59,7 @@ class SolverParams:
     inlier_selection_mode: InlierSelectionMode = InlierSelectionMode.PMC_EXACT
     kcore_heuristic_threshold: float = 0.5
     # Route the escalated clique round through the native exact clique
-    # solver instead of the greedy heuristic (not ported yet).
+    # solver on the host (clique/pmc.py) instead of the greedy heuristic.
     exact_clique_callback: bool = False
     use_max_clique: bool = True  # deprecated upstream; kept for parity
     max_clique_exact_solution: bool = True  # deprecated upstream
@@ -194,30 +193,25 @@ class SolverParams:
         self._check_clique_init()
         return self.clique_init == "auto"
 
-    def check_port_supported(self) -> None:
-        """Raise NotImplementedError, naming the ROADMAP.md item that ports
-        it, for any setting the port does not run yet."""
-        self._check_clique_init()
-        unsupported = []
+    def effective_clique_algorithm(self) -> str:
+        """What the clique stage really runs, which the enum alone does not
+        say: PMC_EXACT without `exact_clique_callback` runs the greedy on the
+        device (docs/CLIQUE_AUDIT.md), not the exact search. Harness
+        fingerprints record it."""
         mode = self.resolve_inlier_selection()
+        if mode == InlierSelectionMode.NONE:
+            return "none"
+        if mode == InlierSelectionMode.KCORE_HEU:
+            return "kcore-heuristic"
         if mode == InlierSelectionMode.PMC_EXACT and self.exact_clique_callback:
-            unsupported.append(
-                "exact_clique_callback=True with PMC_EXACT (Queue 1 item 19)"
-            )
-        if self.rotation_estimation_algorithm != RotationEstimationAlgorithm.GNC_TLS:
-            unsupported.append(
-                f"rotation_estimation_algorithm="
-                f"{self.rotation_estimation_algorithm.name} (Queue 1 item 11)"
-            )
-        if self.gnc_rot_method != "power":
-            unsupported.append(
-                f"gnc_rot_method={self.gnc_rot_method!r} (Queue 1 item 17)"
-            )
-        if unsupported:
-            raise NotImplementedError(
-                "psulvsb_tpu_torch does not run these settings yet; see "
-                "ROADMAP.md: " + "; ".join(unsupported)
-            )
+            return "native-exact-callback"
+        return "greedy-kcore (exact-audited)"
+
+    def check_port_supported(self) -> None:
+        """Every setting of the solver runs in this package, so nothing is
+        refused; an invalid `clique_init` raises ValueError, as it does
+        wherever it is read."""
+        self._check_clique_init()
 
     def replace(self, **kw) -> "SolverParams":
         return dataclasses.replace(self, **kw)

@@ -17,7 +17,14 @@ on the device (`lax.while_loop` over batches, `lax.cond` on a round) stay at
 segment boundaries: after a local batch the host reads one word (`done`),
 after a round one (`pro_host`, `escalate`, the number of newly admitted
 points, the best count), through a pinned buffer that the graph's last node
-fills. Nothing else is read.
+fills. Nothing else is read, with one exception that the caller asks for:
+under `exact_clique_callback` with PMC_EXACT the local batches of the
+b_rate == 1.0 round run eagerly, not from a graph, because each copies its
+hypotheses' graphs to the host for the native exact clique search
+(`solver.psulvsb.exact_clique_points`) and a captured graph cannot call the
+host. Likewise `gnc_rot_method="eigh"` and FGR run inside the captured
+segments in their forms that read nothing (`sync_free`: Jacobi sweeps for the
+4x4 eigenvector, every iteration run masked).
 
 Every random draw is made eagerly from the caller's generator, in
 `psulvsb_solve`'s order, into a segment's input buffer before its replay, so
@@ -38,6 +45,7 @@ from collections import OrderedDict
 
 import torch
 
+from psulvsb_tpu_torch.clique import pmc
 from psulvsb_tpu_torch.clique.kcore import max_clique_size_for_edges
 from psulvsb_tpu_torch.gror.gror import _gror_core
 from psulvsb_tpu_torch.ops import gnc as _gnc_ops
@@ -45,7 +53,7 @@ from psulvsb_tpu_torch.ops import hist as _hist_ops
 from psulvsb_tpu_torch.ops import pairs as _pairs_ops
 from psulvsb_tpu_torch.pairs.tims import _KEY_SPAN
 from psulvsb_tpu_torch.solver.basic import WarmState
-from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, SolverParams
+from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, InlierSelectionMode, SolverParams
 from psulvsb_tpu_torch.solver.psulvsb import (
     HostState,
     InitDraws,
@@ -213,6 +221,12 @@ class ReplayPlan:
         # (it cannot be captured); on the CPU, where nothing is captured, the
         # staged solver's eigh keeps the two solvers equal to the last bit.
         self.rot_method = "jacobi" if device.type == "cuda" else "eigh"
+        # The same choice for an "eigh" or FGR rotation inside a segment.
+        self.sync_free = device.type == "cuda"
+        self.exact_clique = (
+            params.resolve_inlier_selection() == InlierSelectionMode.PMC_EXACT
+            and params.exact_clique_callback
+        )
         self.segments: dict = {}
         self.build_s = 0.0
         self.pool_bytes = 0
@@ -275,16 +289,28 @@ class ReplayPlan:
 
     # ---- running a segment --------------------------------------------------
 
-    def run(self, key, fn, read: bool = False) -> None:
+    def run(self, key, fn, read: bool = False, eager: bool = False) -> None:
         """Run segment `key` (the pure function `fn` of the buffers): eagerly,
         or by replaying its graph, captured at first use. With `read` the
-        segment's "word" goes to the host's pinned buffer behind it."""
+        segment's "word" goes to the host's pinned buffer behind it. `eager`
+        runs this segment eagerly in a plan of graphs too (it calls the
+        host); its results are copied into place, where the other segments'
+        graphs read them."""
         with self._on_stream():
             if not self.graphs:
                 out = fn(self.bufs)
                 self.bufs.update(out)
                 if read:
                     self.word_host.copy_(out["word"], non_blocking=True)
+            elif eager:
+                out = fn(self.bufs)
+                for name, value in out.items():
+                    if name in self.bufs:
+                        self.bufs[name].copy_(value)
+                    else:
+                        self.bufs[name] = value.clone()
+                if read:
+                    self.word_host.copy_(self.bufs["word"], non_blocking=True)
             else:
                 seg = self.segments.get(key)
                 if seg is None:
@@ -400,7 +426,7 @@ class ReplayPlan:
         if p.clique_eager:  # a successful seed wins over GROR's
             sw, ok, _ = _clique_seed_stage(
                 src, dst, red_i, red_j, red_pool, p, keep == 1, None,
-                scale_u=b.get("u_seed"), max_steps=max(c - 1, 0),
+                scale_u=b.get("u_seed"), max_steps=max(c - 1, 0), sync_free=self.sync_free,
             )
             warm = _select_warm(ok, sw, warm)
         _flatten("hs", HostState.initial(c, keep), out)
@@ -417,6 +443,7 @@ class ReplayPlan:
             b["src"], b["dst"], b["s_i"], b["s_j"], b["s_ok"], b["s_count"], b["s_pts"],
             b_rate, b_rate >= 1.0, b["hs.host_r"], _load(WarmState, "warm", b), b["thr"],
             self.params, clique_max_steps=max_clique_size_for_edges(bcap), track_extras=False,
+            sync_free=self.sync_free,
         )
 
     def _seg_sample(self, b: dict, rate_idx: int) -> dict:
@@ -466,7 +493,7 @@ class ReplayPlan:
         sw, ok, _ = _clique_seed_stage(
             b["src"], b["dst"], b["red_i"], b["red_j"], b["red_pool"], self.params,
             b["hs.keep_mask"] == 1, None, scale_u=b.get("u_seed"),
-            max_steps=max(self.c - 1, 0),
+            max_steps=max(self.c - 1, 0), sync_free=self.sync_free,
         )
         return _flatten("warm", _select_warm(ok, sw, _load(WarmState, "warm", b)), {})
 
@@ -493,6 +520,7 @@ class ReplayPlan:
         `psulvsb_solve`'s loop and its order of draws."""
         p = self.params
         self._replays = self._reads = 0
+        searches_before = pmc.EXACT_SEARCHES
         last = len(RATE_SCHEDULE) - 1
         self._draw_init(gen)
         if p.clique_eager and self.scale_draws:
@@ -508,12 +536,14 @@ class ReplayPlan:
             r = rate_idx
             self.uniform("u_sample", gen)
             self.run(("sample", r), lambda b: self._seg_sample(b, r))
+            # The exact clique round searches on the host: no graph.
+            on_host = self.exact_clique and RATE_SCHEDULE[r][1] >= 1.0
             for _ in range(self.max_batches):
                 batches += 1
                 self.uniform("u_local", gen)
                 if self.scale_draws:
                     self.uniform("u_scale", gen)
-                self.run(("local", r), lambda b: self._seg_local(b, r), read=True)
+                self.run(("local", r), lambda b: self._seg_local(b, r), read=True, eager=on_host)
                 yield
                 if self.read()[0]:
                     break
@@ -542,7 +572,45 @@ class ReplayPlan:
         self.stats = {
             "rounds": rounds, "local_batches": batches, "host_reads": self._reads,
             "graph_replays": self._replays,
+            "exact_clique_searches": pmc.EXACT_SEARCHES - searches_before,
         }
+
+    def capture_all(self, gen: torch.Generator) -> int:
+        """Capture every segment a solve of this plan can take and has not
+        taken yet, so that no later solve pays for a capture: the sample and
+        local segments of every rate of the ladder, both host segments, the
+        self-update, the lazy seed and the finalize. To be called after one
+        solve of a real pair through the plan (its state gives the captures
+        valid inputs); the replays that follow each capture overwrite that
+        state, which the next solve's prologue resets. A plan without
+        graphs has nothing to capture. Returns the number of new captures."""
+        if not self.graphs:
+            return 0
+        if "prologue" not in self.segments:
+            raise RuntimeError("capture_all needs one solve through the plan first")
+        p = self.params
+        before = len(self.segments)
+        for r, (_, b_rate) in enumerate(RATE_SCHEDULE):
+            b_one = b_rate >= 1.0
+            if ("sample", r) not in self.segments:
+                self.uniform("u_sample", gen)
+                self.run(("sample", r), lambda b, r=r: self._seg_sample(b, r))
+            if ("local", r) not in self.segments and not (self.exact_clique and b_one):
+                self.uniform("u_local", gen)
+                self.run(("local", r), lambda b, r=r: self._seg_local(b, r), read=True)
+            if ("host", b_one) not in self.segments:
+                if "local.best.scale" not in self.bufs:
+                    continue
+                self.run(("host", b_one), lambda b, o=b_one: self._seg_host(b, o), read=True)
+        if "self_update" not in self.segments:
+            self.run("self_update", self._seg_self_update)
+        if p.clique_lazy and "lazy_seed" not in self.segments:
+            self.run("lazy_seed", self._seg_lazy_seed)
+        if p.enable_refinement and "finalize" not in self.segments:
+            self.run("finalize", self._seg_finalize)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(self.segments) - before
 
     def solution(self, out: RegistrationSolution | None = None, index: int | None = None):
         """The finished solve's solution: fresh tensors, or written into row
@@ -654,7 +722,8 @@ def psulvsb_register(
     segments eagerly, this module's plain version.
 
     Returns the solution alone; `plan_for(params, C, device).stats` holds the
-    last solve's rounds, local batches, host reads and graph replays."""
+    last solve's rounds, local batches, host reads, graph replays and native
+    exact clique searches."""
     device = resolve_device(device)
     pin_float32()
     params.check_port_supported()

@@ -15,10 +15,11 @@ or estimated scale:
   or on the first escalation ("auto");
 - each host round runs `_sample_stage` (Gumbel top-k), `_local_stage`
   (batched hypotheses: basic set -> scale (known-scale test or 1-point
-  consensus) -> GNC-TLS rotation in ops.gnc.gnc_batch -> endpoint
-  translation, or at the b_rate == 1.0 round the greedy clique's points ->
-  sampled scoring, with the serial acceptance rule replayed over the
-  batch), `_host_stage` (scoring on every point, the chi(3) self-update)
+  consensus) -> rotation (GNC-TLS in ops.gnc.gnc_batch, or FGR) ->
+  endpoint translation, or at the b_rate == 1.0 round the clique's points
+  (the greedy on the device, or with exact_clique_callback the native
+  exact search on the host) -> sampled scoring, with the serial acceptance
+  rule replayed over the batch), `_host_stage` (scoring on every point, the chi(3) self-update)
   and `_self_update_pairs`;
 - `_finalize_stage` runs a weighted Procrustes kept only if an RMSE gate
   passes, then the optional global translation rescue.
@@ -37,9 +38,11 @@ import math
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from psulvsb_tpu_torch.clique import pmc
 from psulvsb_tpu_torch.clique.kcore import greedy_clique, triangle_scores
 from psulvsb_tpu_torch.core.linalg import weighted_procrustes_srt
 from psulvsb_tpu_torch.core.metrics import (
@@ -48,7 +51,6 @@ from psulvsb_tpu_torch.core.metrics import (
     masked_rmse,
 )
 from psulvsb_tpu_torch.gror.gror import gror_align
-from psulvsb_tpu_torch.ops.gnc import gnc_batch
 from psulvsb_tpu_torch.ops.hist import exact_peak_bin, pair_beta_count, pair_ratio_histogram
 from psulvsb_tpu_torch.pairs.tims import (
     compute_tims,
@@ -64,7 +66,13 @@ from psulvsb_tpu_torch.robust.translation import (
     solve_translation,
     solve_translation_endpoints,
 )
-from psulvsb_tpu_torch.solver.basic import WarmState, basic_step, endpoint_mask, score_transform
+from psulvsb_tpu_torch.solver.basic import (
+    WarmState,
+    basic_step,
+    endpoint_mask,
+    rotation_batch,
+    score_transform,
+)
 from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, InlierSelectionMode, SolverParams
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 from psulvsb_tpu_torch.utils.precision import mm, pin_float32
@@ -511,6 +519,7 @@ def _clique_seed_stage(
     generator: torch.Generator | None = None,
     scale_u: torch.Tensor | None = None,
     max_steps: int | None = None,
+    sync_free: bool = False,
 ) -> tuple[WarmState, torch.Tensor, int]:
     """Greedy clique over the reduced-set consistency graph, then one basic
     step over the clique's chain TIMs, as a warm-state seed (the JAX
@@ -523,7 +532,8 @@ def _clique_seed_stage(
     ordering. At most clique_cap members (the first by index) form the
     chain (k, k+1 mod m); `scale_u` gives the basic step's scale draws.
     With `max_steps` the greedy runs that many steps and reads nothing on the
-    host (C - 1 steps reach any clique of C points).
+    host (C - 1 steps reach any clique of C points); `sync_free` asks the
+    same of the basic step's rotation (`solver.basic.rotation_batch`).
 
     Returns (seed WarmState, ok () bool — at least clique_seed_min_size
     members, host reads of the greedy). Where not ok the seed is the
@@ -549,7 +559,7 @@ def _clique_seed_stage(
     nxt = (ar + 1) % torch.clamp(m, min=1)
     res = basic_step(
         ori_src, ori_dst, cq, cq[nxt], ar < m, params, WarmState.initial(dev),
-        generator, scale_u,
+        generator, scale_u, sync_free,
     )
     ok = m >= params.clique_seed_min_size
     warm = WarmState(
@@ -659,6 +669,19 @@ def _similar(sol_scale, sol_rot, sol_trans, warm: WarmState, params: SolverParam
     )
 
 
+def exact_clique_points(adj: torch.Tensor, active: torch.Tensor, time_limit_s: float) -> torch.Tensor:
+    """The exact maximum clique of each (C, C) graph of a (B, C, C) batch
+    among its active points (B, C), by the native branch and bound on the
+    host (`clique.pmc.exact_max_clique`): one copy of the masked graphs to
+    the host, B searches under `time_limit_s` each, one copy of the (B, C)
+    member masks back. The JAX package reaches the same search through
+    `jax.pure_callback`. Without the library (no toolchain) this raises: the
+    solver's exact round has no heuristic stand-in."""
+    graphs = (adj & active[..., None, :] & active[..., :, None]).cpu().numpy()
+    masks = [pmc.exact_max_clique_mask(g, None, time_limit_s) for g in graphs]
+    return torch.as_tensor(np.stack(masks), device=adj.device)
+
+
 def local_max_batches(params: SolverParams) -> int:
     """The most batches one local round runs: local_batch_ceiling_factor
     times local_max_iter hypotheses, and one batch more."""
@@ -683,6 +706,7 @@ def _local_round(
     generator: torch.Generator | None = None,
     clique_max_steps: int | None = None,
     track_extras: bool = True,
+    sync_free: bool = False,
 ):
     """One host round's local RANSAC loop (registration.cc:903-1398) as its
     starting `LocalState` and a function `step(state, g, u) -> LocalState`
@@ -691,9 +715,13 @@ def _local_round(
     scale_max_draws) uniforms (or None: drawn from `generator`) feed the
     1-point scale consensus. A step decides everything with selects on the
     device, `warm.first_time` included, so it reads nothing on the host
-    (with `clique_max_steps`, the b_rate == 1.0 clique neither: see
-    `greedy_clique`); the caller reads `state.done` when it wants to stop
-    early. Without `track_extras` the winning hypothesis' stage masks
+    (with `clique_max_steps`, the b_rate == 1.0 greedy clique neither: see
+    `greedy_clique`; with `sync_free`, an "eigh" or FGR rotation neither:
+    see `solver.basic.rotation_batch`); the caller reads `state.done` when
+    it wants to stop early. The one step that always goes to the host is the
+    b_rate == 1.0 round under `exact_clique_callback` with PMC_EXACT: its
+    graphs are copied to the host, searched there and the members copied
+    back (`exact_clique_points`). Without `track_extras` the winning hypothesis' stage masks
     (`state.extras`, behind the inlier getters) are not carried along."""
     dev = ori_src.device
     cap = s_i.shape[0]
@@ -715,10 +743,11 @@ def _local_round(
     # Clique point selection at the b_rate == 1.0 escalation
     # (registration.cc:1000-1056, 1238-1244). PMC_EXACT, PMC_HEU and
     # KCORE_HEU all run the greedy on triangle ordering here, as in the JAX
-    # solver without its native callback.
-    run_clique = b_rate_is_one and (
-        params.resolve_inlier_selection() != InlierSelectionMode.NONE
-    )
+    # solver; PMC_EXACT with exact_clique_callback goes to the native exact
+    # search on the host instead (graph.cc:84-124).
+    mode = params.resolve_inlier_selection()
+    run_clique = b_rate_is_one and mode != InlierSelectionMode.NONE
+    exact_clique = mode == InlierSelectionMode.PMC_EXACT and params.exact_clique_callback
     not_first = device_flag(False, dev)
 
     def clique_points(b_i, b_j, src_t, dst_t, sel_ok, sc_inl):
@@ -730,6 +759,8 @@ def _local_round(
             _, sc_inl, _ = select_scale_inliers(src_t, dst_t, nb, cb2, sel_ok)
         adj = _edge_graph(b_i, b_j, sc_inl, c)
         act = sampled_pt_mask.expand(b_i.shape[0], c)
+        if exact_clique:
+            return exact_clique_points(adj, act, params.max_clique_time_limit), 1
         return greedy_clique(
             adj, act, order_scores=triangle_scores(adj, act), max_steps=clique_max_steps
         )
@@ -764,16 +795,9 @@ def _local_round(
         # De-scale the dst TIMs and widen the noise bound
         # (registration.cc:1102-1107).
         inv_s = 1.0 / torch.clamp(scale, min=1e-30)
-        rots, rot_inl = gnc_batch(
-            src_t,
-            dst_t * inv_s[:, None, None],
-            rot_mask,
-            nb * 2.0 * inv_s,
-            warm.rotation,
-            use_warm,
-            max_iterations=params.inner_rotation_max_iterations,
-            gnc_factor=params.inner_rotation_gnc_factor,
-            cost_threshold=params.inner_rotation_cost_threshold,
+        rots, rot_inl = rotation_batch(
+            src_t, dst_t * inv_s[:, None, None], rot_mask, nb * 2.0 * inv_s,
+            warm.rotation, use_warm, params, sync_free,
         )
         if run_clique:
             t_pts, clique_reads = clique_points(b_i, b_j, src_t, dst_t, sel_ok, sc_inl)
@@ -1215,7 +1239,8 @@ def psulvsb_solve(
     after each stage, so a profiled solve is slower than a plain one.
     Besides the JAX solver's info, info reports "clique_seeded" (a clique
     seed ran and was adopted), "clique_rounds" (b_rate == 1.0 rounds that
-    ran the clique branch), "translation_rescued" (() bool) and
+    ran the clique branch), "exact_clique_searches" (native exact searches
+    of those rounds, one a hypothesis), "translation_rescued" (() bool) and
     "host_syncs".
     """
     t_start = time.monotonic()
@@ -1291,6 +1316,7 @@ def psulvsb_solve(
     lazy_pending = params.clique_lazy
     use_clique = params.resolve_inlier_selection() != InlierSelectionMode.NONE
     clique_rounds = 0
+    searches_before = pmc.EXACT_SEARCHES
     rate_idx = 0
     longholi = False
     best_sampled = warm
@@ -1400,6 +1426,7 @@ def psulvsb_solve(
         "gror_init": gror_used,
         "clique_seeded": clique_seeded,
         "clique_rounds": clique_rounds,
+        "exact_clique_searches": pmc.EXACT_SEARCHES - searches_before,
         "translation_rescued": rescued,
         "init_mode": init_route(params, c),
         "stage_s": stage_s if profile else None,

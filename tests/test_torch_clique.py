@@ -15,7 +15,17 @@ adjacency within 0.01% flipped entries of JAX's (both take ‖a‖² + ‖b‖²
 inputs). The clique seed from JAX's reduced pool, on the exact graph and
 on the pool-edge scatter: the same ok flag, the warm state within 1e-4. The clique round of the local stage: equal
 counts and flags, the winner's clique points equal, rotation and
-translation within 1e-4.
+translation within 1e-4; the same with `exact_clique_callback=True`, where
+both packages search each hypothesis' graph with the native branch and bound
+(its graphs have at most basic_cap edges and one largest clique each on these
+inputs).
+
+Core numbers are integers: `core_numbers`, `max_kcore_mask` and the greedy on
+its default (core) ordering equal JAX's exactly, and `native_core_numbers`
+too; `exact_max_clique` gives cliques of equal size (which of several largest
+cliques comes back is the search's own affair); `MaxCliqueSolver` gives the
+JAX facade's result in its three modes. The port builds the native library
+from native/maxclique.cpp with g++ into build/psulvsb_tpu_torch/.
 """
 
 import functools
@@ -29,7 +39,19 @@ import torch
 from psulvsb_tpu.clique import kcore as jk
 from psulvsb_tpu.solver import psulvsb as jps
 from psulvsb_tpu.solver.config import InlierSelectionMode, SolverParams as JParams
-from psulvsb_tpu_torch.clique import greedy_clique, triangle_scores
+from psulvsb_tpu.clique import graph as jgraph, pmc as jpmc
+from psulvsb_tpu_torch.clique import (
+    CliqueSolverMode,
+    Graph,
+    MaxCliqueSolver,
+    MaxCliqueSolverParams,
+    core_numbers,
+    greedy_clique,
+    max_clique_mask,
+    max_kcore_mask,
+    pmc,
+    triangle_scores,
+)
 from psulvsb_tpu_torch.convert import params_from_jax, warm_state_from_numpy
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 from psulvsb_tpu_torch.solver import psulvsb as tps
@@ -156,14 +178,11 @@ def _local_draws(key, max_batches, batch, cap, draws):
     return np.asarray(gumbels), np.asarray(uniforms)
 
 
-@pytest.mark.parametrize("scaled", [False, True])
-@pytest.mark.parametrize("warm_start", [False, True])
-def test_local_stage_clique_round_matches_jax(scaled, warm_start):
-    """The b_rate == 1.0 round with PMC_EXACT (the greedy, no callback): each
-    hypothesis' clique over its basic set's scale-inlier graph feeds the
-    translation."""
+def _check_clique_round(scaled, warm_start, exact):
     base, pair, keep, (red_i, red_j, red_count, pool) = _jax_init(scaled)
-    params = base.replace(inlier_selection_mode=InlierSelectionMode.PMC_EXACT)
+    params = base.replace(
+        inlier_selection_mode=InlierSelectionMode.PMC_EXACT, exact_clique_callback=exact
+    )
     sj, dj = jnp.asarray(pair.src), jnp.asarray(pair.dst)
     thr = jnp.asarray(params.pr_noise * (1.0 + int((keep == 1).sum()) / C), F32)
     k_samp, k_local = jax.random.split(jax.random.PRNGKey(7))
@@ -193,15 +212,201 @@ def test_local_stage_clique_round_matches_jax(scaled, warm_start):
         warm_state_from_numpy(jax.tree.map(np.asarray, warm)), _t(thr),
         params_from_jax(params), gumbels=_t(gumbels), scale_us=_t(scale_us),
     )
-    assert int(got.best_count) == int(want.best_count)
+    if not exact:
+        assert int(got.best_count) == int(want.best_count)
     assert int(got.local_r) == int(want.local_r)
     assert got.iterations == int(want.iterations)
     assert bool(got.escalate) == bool(want.escalate)
-    assert got.host_syncs > got.iterations  # the greedy's reads
+    assert got.host_syncs > got.iterations  # the greedy's reads, or the exact search's
     np.testing.assert_allclose(got.best.rotation.numpy(), want.best.rotation, atol=1e-4)
-    np.testing.assert_allclose(got.best.translation.numpy(), want.best.translation, atol=1e-4)
     assert bool(got.extras_valid) == bool(want.extras_valid)
+    w_pts = np.asarray(want.extras.translation_points)
+    g_pts = got.extras.translation_points.numpy()
+    if exact:
+        # A graph of at most basic_cap edges holds several largest cliques,
+        # and which one the 12-thread search returns is not fixed (in either
+        # package): the winner's clique has JAX's size and lies in the
+        # sampled points; the translation follows the members it got.
+        assert g_pts.sum() == w_pts.sum() >= 1
+        # (An edgeless graph's "clique" is vertex 0 in both packages, sampled or not.)
+        assert g_pts.sum() < 2 or not (g_pts & ~np.asarray(s_pts)).any()
+        return
+    np.testing.assert_allclose(got.best.translation.numpy(), want.best.translation, atol=1e-4)
     if bool(want.extras_valid):
-        w_pts = np.asarray(want.extras.translation_points)
-        np.testing.assert_array_equal(got.extras.translation_points.numpy(), w_pts)
+        np.testing.assert_array_equal(g_pts, w_pts)
         assert w_pts.sum() >= 1 and not (w_pts & ~np.asarray(s_pts)).any()
+
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_local_stage_clique_round_matches_jax(scaled, warm_start):
+    """The b_rate == 1.0 round with PMC_EXACT (the greedy, no callback): each
+    hypothesis' clique over its basic set's scale-inlier graph feeds the
+    translation."""
+    _check_clique_round(scaled, warm_start, exact=False)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_local_stage_exact_clique_round_matches_jax(scaled, warm_start):
+    """The same round with exact_clique_callback=True: JAX calls the native
+    search through pure_callback, the port copies the batch's graphs to the
+    host; the searches are counted."""
+    before = pmc.EXACT_SEARCHES
+    _check_clique_round(scaled, warm_start, exact=True)
+    assert pmc.EXACT_SEARCHES >= before + 4  # one a hypothesis of a batch
+
+
+def test_exact_clique_points_on_planted_cliques():
+    """One largest clique a graph: the members come back exactly, as the
+    JAX callback's host function gives them, masked by the active points."""
+    rng = np.random.default_rng(1)
+    adj = np.stack([_planted(rng, 90, k, 0.05) for k in (12, 9, 15)])
+    act = np.ones((3, 90), bool)
+    act[1, rng.permutation(90)[:10]] = False
+    got = tps.exact_clique_points(torch.as_tensor(adj), torch.as_tensor(act), 60.0).numpy()
+    for b in range(3):
+        want = jpmc.exact_max_clique_mask(adj[b], act[b])
+        np.testing.assert_array_equal(got[b], want)
+        assert not (got[b] & ~act[b]).any()
+    assert got[0].sum() == 12 and got[2].sum() == 15
+
+
+GRAPHS = [(1, 0.5), (2, 1.0), (30, 0.2), (60, 0.5), (120, 0.1), (150, 0.7)]
+
+
+def _random_graph(n, p, seed=0):
+    rng = np.random.default_rng(seed + n)
+    a = np.triu(rng.uniform(size=(n, n)) < p, 1)
+    return a | a.T, rng.uniform(size=n) < 0.8
+
+
+@pytest.mark.parametrize("n,p", GRAPHS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_core_numbers_match_jax_and_native(n, p, masked):
+    adj, act = _random_graph(n, p)
+    act_j, act_t = (jnp.asarray(act), torch.as_tensor(act)) if masked else (None, None)
+    want = np.asarray(jk.core_numbers(jnp.asarray(adj), act_j))
+    got, reads = core_numbers(torch.as_tensor(adj), act_t, chunk=8)
+    assert got.dtype == torch.int64 and reads >= 1
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        max_kcore_mask(torch.as_tensor(adj), act_t).numpy(),
+        np.asarray(jk.max_kcore_mask(jnp.asarray(adj), act_j)),
+    )
+    masked_adj = adj & act[None, :] & act[:, None] if masked else adj
+    np.testing.assert_array_equal(pmc.native_core_numbers(masked_adj), want)
+    # The greedy on its default ordering, the core numbers.
+    g_want = np.asarray(jk.greedy_clique(jnp.asarray(adj), act_j))
+    g_got, g_reads = greedy_clique(torch.as_tensor(adj), act_t)
+    np.testing.assert_array_equal(g_got.numpy(), g_want)
+    assert g_reads >= 2  # the peeling's and the greedy's
+
+
+def test_core_numbers_batched():
+    adj = np.stack([_random_graph(40, p, seed)[0] for seed, p in enumerate((0.1, 0.3, 0.8))])
+    got, _ = core_numbers(torch.as_tensor(adj))
+    for b in range(3):
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.asarray(jk.core_numbers(jnp.asarray(adj[b])))
+        )
+
+
+@pytest.mark.parametrize("n,p", GRAPHS)
+def test_exact_max_clique_matches_jax(n, p):
+    assert pmc.native_available() and jpmc.native_available()
+    adj, act = _random_graph(n, p)
+    before = pmc.EXACT_SEARCHES
+    got = pmc.exact_max_clique(adj)
+    assert pmc.EXACT_SEARCHES == before + 1
+    assert len(got) == len(jpmc.exact_max_clique(adj)) and got == sorted(got)
+    assert adj[np.ix_(got, got)].sum() == len(got) * (len(got) - 1)  # a clique
+    mask = pmc.exact_max_clique_mask(adj, act)
+    assert mask.sum() == jpmc.exact_max_clique_mask(adj, act).sum()
+    assert len(got) < 2 or not (mask & ~act).any()  # an edgeless graph's clique is any vertex
+    assert len(got) >= int(greedy_clique(torch.as_tensor(adj))[0].sum())
+    for mode in ("kcore", "heu", "exact"):
+        want = np.asarray(jk.max_clique_mask(jnp.asarray(adj), jnp.asarray(act), mode))
+        got_m = max_clique_mask(torch.as_tensor(adj), torch.as_tensor(act), mode).numpy()
+        if mode == "exact":
+            assert got_m.sum() == want.sum()
+        else:
+            np.testing.assert_array_equal(got_m, want)
+    with pytest.raises(ValueError):
+        max_clique_mask(torch.as_tensor(adj), mode="best")
+
+
+def test_native_library_is_the_ports_own_build():
+    """Built from native/maxclique.cpp into build/psulvsb_tpu_torch/, never
+    native/libpsulvsb_native.so; an empty graph has an empty clique."""
+    from psulvsb_tpu_torch.ops._build import BUILD_DIR
+
+    assert pmc.native_available()
+    assert pmc.SOURCE.name == "maxclique.cpp" and pmc.SOURCE.parent.name == "native"
+    assert list(BUILD_DIR.glob("libmaxclique-*.so"))
+    assert pmc.exact_max_clique(np.zeros((0, 0), bool)) == []
+
+
+def test_only_a_missing_toolchain_counts_as_unavailable(monkeypatch, tmp_path):
+    """A missing compiler or source is "no toolchain": `native_available` is
+    False, remembered without another search for the compiler, a PMC_EXACT
+    caller on the CPU degrades to the greedy and one on the card raises. A
+    build that fails is an error and raises from every entry point."""
+    import shutil
+
+    rng = np.random.default_rng(4)
+    adj = _planted(rng, 40, 9, 0.2)
+    graph = Graph({v: [int(u) for u in np.nonzero(adj[v])[0]] for v in range(40)})
+    solver = MaxCliqueSolver(device="cpu")
+    assert solver.params.solver_mode == CliqueSolverMode.PMC_EXACT
+    exact = solver.findMaxClique(graph)
+
+    searched, false = [], shutil.which("false")
+    monkeypatch.setattr(pmc, "_lib", None)
+    monkeypatch.setattr(pmc, "_missing", None)
+    monkeypatch.setattr(pmc, "BUILD_DIR", tmp_path)  # nothing built there yet
+    monkeypatch.setattr(shutil, "which", lambda name: searched.append(name))
+    assert not pmc.native_available() and not pmc.native_available()
+    assert len(searched) == 1 and "g++" in pmc._missing
+    assert not pmc.exact_search_available("cpu")
+    with pytest.raises(pmc.NativeUnavailable, match="cuda"):
+        pmc.exact_search_available(torch.device("cuda", 0))
+    with pytest.raises(pmc.NativeUnavailable):
+        pmc.exact_max_clique(adj)
+    greedy = solver.findMaxClique(graph)  # on the CPU: the greedy, by the JAX package's rule
+    assert greedy == [int(v) for v in np.nonzero(greedy_clique(torch.as_tensor(adj))[0].numpy())[0]]
+    assert len(greedy) <= len(exact) == 9
+
+    monkeypatch.setattr(pmc, "_missing", None)
+    monkeypatch.setattr(shutil, "which", lambda name: false)  # a build that fails
+    for call in (pmc.native_available, lambda: pmc.exact_search_available("cpu"),
+                 lambda: solver.findMaxClique(graph)):
+        with pytest.raises(RuntimeError, match="failed to build"):
+            call()
+    assert not list(tmp_path.glob("*.so"))  # no half-written library is left
+
+
+@pytest.mark.parametrize("mode", ["PMC_EXACT", "PMC_HEU", "KCORE_HEU"])
+def test_max_clique_solver_modes_match_jax(mode):
+    rng = np.random.default_rng(3)
+    adj = _planted(rng, 60, 14, 0.2)
+    edges = {v: [int(u) for u in np.nonzero(adj[v])[0]] for v in range(60)}
+    jg, tg = jgraph.Graph(edges), Graph(edges)
+    assert tg.numVertices() == jg.numVertices() and tg.numEdges() == jg.numEdges()
+    assert tg.getEdges(5) == jg.getEdges(5) and tg.hasEdge(0, edges[0][0])
+    np.testing.assert_array_equal(tg.getAdjMatrix(), jg.getAdjMatrix())
+    for threshold in (1.0, 0.1):  # 0.1 takes the KCORE_HEU shortcut (graph.cc:66-82)
+        want = jgraph.MaxCliqueSolver(jgraph.MaxCliqueSolverParams(
+            solver_mode=jgraph.CliqueSolverMode[mode], kcore_heuristic_threshold=threshold,
+        )).findMaxClique(jg)
+        got = MaxCliqueSolver(MaxCliqueSolverParams(
+            solver_mode=CliqueSolverMode[mode], kcore_heuristic_threshold=threshold,
+        ), device="cpu").findMaxClique(tg)
+        if mode == "PMC_EXACT":
+            assert len(got) == len(want) == 14
+        else:
+            assert got == want
+    assert MaxCliqueSolver(device="cpu").findMaxClique(Graph()) == []
+    heu = MaxCliqueSolver(MaxCliqueSolverParams(solve_exactly=False), device="cpu")
+    assert heu.params.solver_mode == CliqueSolverMode.PMC_HEU

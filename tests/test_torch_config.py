@@ -1,6 +1,7 @@
 """The port's SolverParams against the JAX package's: same fields, defaults
-and presets, a lossless conversion, the settings that still raise and those
-that run, and an import of the port with JAX made unimportable."""
+and presets, a lossless conversion, every setting runs (the three that were
+refused until the classic slice now solve a small pair), the honest name of
+the clique stage, and an import of the port with JAX made unimportable."""
 
 import dataclasses
 import enum
@@ -84,22 +85,60 @@ def test_params_from_jax_maps_enums_by_value():
     assert tp.resolve_inlier_selection() == jp.resolve_inlier_selection()
 
 
-UNSUPPORTED = [
-    (
-        {"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT,
-         "exact_clique_callback": True},
-        "item 19",
-    ),
-    ({"rotation_estimation_algorithm": tcfg.RotationEstimationAlgorithm.FGR}, "item 11"),
-    ({"gnc_rot_method": "eigh"}, "item 17"),
+FORMERLY_REFUSED = [
+    {"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT, "exact_clique_callback": True,
+     "clique_init": "auto"},
+    {"rotation_estimation_algorithm": tcfg.RotationEstimationAlgorithm.FGR},
+    {"gnc_rot_method": "eigh"},
 ]
 
 
-@pytest.mark.parametrize("kw,item", UNSUPPORTED)
-def test_unsupported_settings_raise(kw, item):
-    p = tcfg.SolverParams.preset_anchor(**kw)
-    with pytest.raises(NotImplementedError, match=item):
-        p.check_port_supported()
+@pytest.mark.parametrize("kw", FORMERLY_REFUSED)
+def test_formerly_refused_settings_run(kw):
+    """check_port_supported refuses nothing, and a 150-point pair at 80%
+    displaced outliers solves (RE < 5 deg, TE < 0.3) under the setting."""
+    import numpy as np
+
+    from psulvsb_tpu_torch import RobustRegistrationSolver
+    from psulvsb_tpu_torch.eval.synthetic import (
+        make_synthetic_pair,
+        registration_errors,
+        synthetic_cloud,
+    )
+
+    p = tcfg.SolverParams.preset_anchor(**{"sampled_cap": 512, "basic_cap": 64, **kw})
+    p.check_port_supported()
+    pair = make_synthetic_pair(np.random.default_rng(1), synthetic_cloud(150, seed=2), 0.05, 0.8)
+    sol = RobustRegistrationSolver(p, seed=0, device="cpu").solve(pair.src, pair.dst)
+    re, te, _ = registration_errors(pair, sol.scale, sol.rotation, sol.translation)
+    assert bool(sol.valid) and re < 5.0 and te < 0.3
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {},
+        {"exact_clique_callback": True},
+        {"use_max_clique": False},
+        {"max_clique_exact_solution": False, "exact_clique_callback": True},
+        {"inlier_selection_mode": "KCORE_HEU"},
+        {"inlier_selection_mode": "PMC_HEU"},
+    ],
+)
+def test_effective_clique_algorithm_matches_jax(kw):
+    """The name the harness fingerprints record for the clique stage."""
+    def build(cfg):
+        kw2 = dict(kw)
+        if "inlier_selection_mode" in kw2:
+            kw2["inlier_selection_mode"] = cfg.InlierSelectionMode[kw2["inlier_selection_mode"]]
+        return cfg.SolverParams(**kw2)
+
+    assert build(tcfg).effective_clique_algorithm() == build(jcfg).effective_clique_algorithm()
+
+
+def test_invalid_clique_init_still_raises():
+    with pytest.raises(ValueError):
+        tcfg.SolverParams(clique_init="sometimes").check_port_supported()
 
 
 SUPPORTED = [
@@ -125,6 +164,11 @@ SUPPORTED = [
     {"translation_rescue": True},
     # The callback only routes PMC_EXACT; other modes ignore it.
     {"inlier_selection_mode": tcfg.InlierSelectionMode.KCORE_HEU, "exact_clique_callback": True},
+    # The native exact clique round, FGR and the "eigh" rotation, together too.
+    {"inlier_selection_mode": tcfg.InlierSelectionMode.PMC_EXACT, "exact_clique_callback": True},
+    {"rotation_estimation_algorithm": tcfg.RotationEstimationAlgorithm.FGR,
+     "exact_clique_callback": True, "estimate_scaling": True},
+    {"gnc_rot_method": "eigh", "gror_init": True},
 ]
 
 
@@ -177,6 +221,11 @@ def test_port_imports_without_jax():
         "from psulvsb_tpu_torch.eval import frontend_protocol\n"
         "from psulvsb_tpu_torch.pairs import tims\n"
         "from psulvsb_tpu_torch.eval import synthetic\n"
+        "from psulvsb_tpu_torch.eval import batch_harness, make_dataset, protocol, realdata\n"
+        "from psulvsb_tpu_torch.eval import reporting\n"
+        "from psulvsb_tpu_torch.clique import graph, kcore, pmc\n"
+        "from psulvsb_tpu_torch.rotation import fgr\n"
+        "from psulvsb_tpu_torch.solver import classic\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'psulvsb_tpu.'))"
         " or m == 'psulvsb_tpu' for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

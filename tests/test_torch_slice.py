@@ -90,13 +90,20 @@ def test_solver_api_surface():
     # The same seed replays bit for bit.
     again = RobustRegistrationSolver(params, seed=3, device="cpu").solve(pair.src, pair.dst)
     assert torch.equal(again.rotation, sol.rotation)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        solver.solve_decoupled(pair.src, pair.dst)
+    # The classic decoupled solve through the same facade: upstream's
+    # dst = s R src + t, which at known scale is the solver's own convention.
+    classic = solver.solve_decoupled(pair.src, pair.dst)
+    assert solver.getSolution() is classic and bool(classic.valid)
+    assert _success(pair, classic.rotation, classic.translation)
+    assert solver.getTranslationInliersMask().shape == (C,)
+    # The native exact clique callback is a setting like any other.
     callback = params.replace(
         inlier_selection_mode=InlierSelectionMode.PMC_EXACT, exact_clique_callback=True
     )
-    with pytest.raises(NotImplementedError, match="item 19"):
-        RobustRegistrationSolver(callback, device="cpu").solve(pair.src, pair.dst)
+    exact = RobustRegistrationSolver(callback, seed=3, device="cpu")
+    sol_exact = exact.solve(pair.src, pair.dst)
+    assert _success(pair, sol_exact.rotation, sol_exact.translation)
+    assert exact._info["exact_clique_searches"] == 4 * exact._info["clique_rounds"]
 
 
 def test_correspondence_overload_and_keep_mask():
