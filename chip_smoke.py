@@ -147,7 +147,37 @@ and prints no result line):
    the serial eval.realdata.run_scene must give the batched harness's
    PairResult apart from time_s; a second run with resume=True must reuse
    the sidecar and one with another ddtime must not;
-20. result — the card line, a JSON line of per-kernel figures (time,
+20. the certifier — certify.drs.DRSCertifier.certify at its defaults (float64 on
+   the card) against the same call with device="cpu" (float64 on the host) on
+   the three cases of tests/test_certify.py:151-191 (the SVD optimum of 10
+   noisy points with polish=True certifies; a rotation 0.2 rad off does not, at
+   max_iterations=50; 12 noise-free points with two outliers at theta = -1
+   certify): is_optimal equal and as stated, best_suboptimality within
+   CERT_CARD_HOST_TOL, the results float64 tensors on the card; float32 on the
+   card within 2e-2 of float64 (the JAX package's tolerance) on the case that
+   is not near-noiseless (the other two are printed: mu ~ noise^2 floors a
+   float32 gap). The wall a certify at N = 12 and 64 TIMs on the
+   card and on the host, in turns (card, host, host, card);
+21. the front end — eval.frontend_protocol.make_frontend_pair at its defaults
+   (24000 scene points, bucket 8192, max_corr 6144) on the card for seeds 62,
+   11 and 1375, each in the regime of JAX's test_match_quality_regime (C >= 800,
+   >= 20 true inliers); one cloud's _extract_padded on the card against the
+   CPU (the points and the active mask equal, ISS keypoint labels off on at
+   most FE_LABELS_OFF of the points, feature rows within FE_TOL) and a
+   pair's mutual matches on the card against the CPU (at least FE_MATCH_AGREE
+   of them common); the wall of each stage (voxel on the host, normals, ISS,
+   FPFH, matching); write_frontend_benchmark of one scene of FE_SWEEP_PAIRS
+   pairs and run_benchmark_batched(dataset="kitti", frontend_solver_params at
+   the caps, ddtime FE_SWEEP_DDTIME, certify=True): recall >= 5/6, every
+   success carries a certificate, each winner's certificate on the card equals
+   the host's float64 one on the same TIMs, consistency_degree and gnc_batch
+   launched; the same scene with unknown_scale=True at ddtime 1 (the scale
+   estimated: pair_ratio_hist must launch; recall printed); ICP refinement of
+   one solved pair (it must stay within 5 degrees of the coarse rotation);
+   eval.realscan.register_realscan on two PLYs written from a structured-scene
+   pair (ICP must converge before its cap of 100 iterations); eval.corr_gen
+   .generate_correspondences (ISS keypoints) on one pair;
+22. result — the card line, a JSON line of per-kernel figures (time,
    plain time, bound, launches on the fused path that runs it and in the
    sweeps), and the final JSON line {"ok": true, "device": {...}}.
 
@@ -1625,6 +1655,316 @@ def phase_sweep(device, card: str) -> dict:
     return out
 
 
+CERT_CARD_HOST_TOL = 1e-6  # |gap card - gap host| in float64, plus as much relative
+CERT_F32_TOL = 2e-2  # psulvsb_tpu/certify/drs.py:460-466
+CERT_WALL_N = (12, 64)
+FE_SEEDS = (62, 11, 1375)  # 62: JAX's test_match_quality_regime
+FE_TOL = 1e-2  # a feature row "off" beyond this (tests/test_torch_frontend.py)
+FE_ROWS_OFF = 0.05  # the CPU tests' share for the structured scene
+FE_LABELS_OFF = 0.025  # keypoint labels, as the CPU tests allow against JAX (the active mask: 0)
+FE_MATCH_AGREE = 0.99
+FE_SWEEP_PAIRS = 6
+FE_SWEEP_DDTIME = 3
+
+
+def certifier_cases():
+    """tests/test_certify.py:151-191 as numpy inputs: (name, certifier
+    kwargs, R, src, dst, theta, polish, expected is_optimal, float32 holds)."""
+    from psulvsb_tpu_torch.core.linalg import _quat_to_rot, svd_rot
+
+    rng = np.random.default_rng(12345)
+
+    def rotation():
+        q = rng.normal(size=4)
+        return _quat_to_rot(torch.as_tensor(q / np.linalg.norm(q))).numpy()
+
+    r = rotation()
+    src = rng.normal(size=(3, 10))
+    dst = r @ src + rng.normal(size=(3, 10)) * 0.002
+    r_est = svd_rot(torch.as_tensor(src), torch.as_tensor(dst)).numpy()
+    # float32 floors this case's gap near 0.8 (mu ~ noise^2): the JAX
+    # package's float32 mode refuses it too.
+    cases = [("svd_optimum_polished", {}, r_est, src, dst, np.ones(10), True, True, False)]
+    r = rotation()
+    src = rng.normal(size=(3, 10))
+    turn = np.array([[np.cos(0.2), -np.sin(0.2), 0], [np.sin(0.2), np.cos(0.2), 0], [0, 0, 1]])
+    cases.append(("rotation_0.2_off", {"max_iterations": 50}, r @ turn, src, r @ src,
+                  np.ones(10), False, False, True))
+    r = rotation()
+    src = rng.normal(size=(3, 12))
+    dst = r @ src
+    dst[:, :2] += 5.0
+    theta = np.ones(12)
+    theta[:2] = -1.0
+    # Noise-free inliers: mu -> 0 amplifies the eigen-solve's error without
+    # bound, so the JAX package holds such inputs to float64 only
+    # (psulvsb_tpu/certify/drs.py:466-469).
+    cases.append(("two_outliers", {}, r, src, dst, theta, False, True, False))
+    return cases
+
+
+def wall_problem(n, seed):
+    """N noisy TIMs (noise 0.01) of a random rotation, two of them gross
+    outliers at theta = -1: a certify that runs all 200 iterations."""
+    from psulvsb_tpu_torch.core.linalg import _quat_to_rot
+
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=4)
+    r = _quat_to_rot(torch.as_tensor(q / np.linalg.norm(q))).numpy()
+    src = rng.normal(size=(3, n))
+    dst = r @ src + rng.normal(size=(3, n)) * 0.01
+    dst[:, :2] += 5.0
+    theta = np.ones(n)
+    theta[:2] = -1.0
+    return r, src, dst, theta
+
+
+def certificates_agree(card: dict, host: dict) -> bool:
+    """{"certified", "gap"} of the card and of the host: the same verdict,
+    gaps within CERT_CARD_HOST_TOL (absolute and relative), inf for inf."""
+    if card["certified"] != host["certified"]:
+        return False
+    if np.isinf(host["gap"]) or np.isinf(card["gap"]):
+        return card["gap"] == host["gap"]
+    return abs(card["gap"] - host["gap"]) <= CERT_CARD_HOST_TOL * (1.0 + abs(host["gap"]))
+
+
+def phase_certifier(device, card: str) -> dict:
+    """Phase 20: the DRS certifier in float64 on the card against the host."""
+    from psulvsb_tpu_torch.certify.drs import DRSCertifier
+
+    out = {"cases": {}, "walls_s": {}}
+    for name, kw, r, src, dst, theta, polish, expected, f32_holds in certifier_cases():
+        cert = DRSCertifier(**kw)
+        on_card = cert.certify(r, src, dst, theta, polish=polish)
+        host = cert.certify(r, src, dst, theta, polish=polish, device="cpu")
+        f32 = cert.certify(r, src, dst, theta, polish=polish, dtype=torch.float32)
+        gap = on_card.best_suboptimality
+        if gap.device.type != "cuda" or gap.dtype != torch.float64:
+            raise AssertionError(f"{name}: the certificate is {gap.dtype} on {gap.device}")
+        row = {"card": float(gap), "host": float(host.best_suboptimality),
+               "card_f32": float(f32.best_suboptimality), "optimal": bool(on_card.is_optimal),
+               "iterations": int(torch.isfinite(on_card.suboptimality_traj).sum())}
+        out["cases"][name] = row
+        print(f"[certify] {name}: {row}")
+        verdicts = [{"certified": bool(c.is_optimal), "gap": float(c.best_suboptimality)}
+                    for c in (on_card, host)]
+        if not certificates_agree(*verdicts) or row["optimal"] != expected:
+            raise AssertionError(f"{name}: card {row} against host, expected optimal={expected}")
+        if f32_holds and (bool(f32.is_optimal) != expected
+                          or abs(row["card_f32"] - row["host"]) > CERT_F32_TOL):
+            raise AssertionError(f"{name}: float32 on the card {row['card_f32']} against "
+                                 f"{row['host']}")
+    for n in CERT_WALL_N:
+        args = wall_problem(n, n)
+        cert = DRSCertifier(noise_bound=0.03)
+        walls = {"cuda": [], "cpu": []}
+        for dev in ("cuda", "cpu", "cpu", "cuda"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cert.certify(*args, device=dev)
+            float(res.best_suboptimality)
+            walls[dev].append(time.perf_counter() - t0)
+        out["walls_s"][n] = walls
+        print(f"[certify] N={n} TIMs, {int(torch.isfinite(res.suboptimality_traj).sum())} "
+              f"iterations: wall card {walls['cuda']} s, host {walls['cpu']} s (in turns); "
+              f"card: {card}")
+    return out
+
+
+def phase_frontend_sweep(device, card: str) -> dict:
+    """Phase 21: the front end on the card and the certified sweep."""
+    from psulvsb_tpu_torch import RobustRegistrationSolver
+    from psulvsb_tpu_torch.eval import batch_harness, corr_gen, realdata, realscan
+    from psulvsb_tpu_torch.core.se3 import random_se3
+    from psulvsb_tpu_torch.eval import frontend_protocol as fp
+    from psulvsb_tpu_torch.frontend.icp import icp_point_to_point
+    from psulvsb_tpu_torch.frontend.voxel import voxel_downsample
+    from psulvsb_tpu_torch.io.ply import write_ply
+    from psulvsb_tpu_torch.utils.padding import pad_columns
+
+    out = {"pairs": {}}
+    # 1. Pairs at full size, in the regime of JAX's test.
+    pairs = {}
+    for seed in FE_SEEDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src, dst, gt = fp.make_frontend_pair(seed)
+        wall = time.perf_counter() - t0
+        resid = np.linalg.norm(gt[:3, :3] @ src + gt[:3, 3:4] - dst, axis=0)
+        row = {"C": src.shape[1], "inliers": int((resid < fp.NOISE_BOUND).sum()), "wall_s": wall}
+        out["pairs"][seed] = row
+        pairs[seed] = (src, dst, gt)
+        print(f"[frontend] make_frontend_pair({seed}) on the card: {row}")
+        if row["C"] < 800 or row["inliers"] < 20:
+            raise AssertionError(f"pair {seed} is outside the regime C >= 800, >= 20 inliers")
+
+    # 2. The card against the CPU on one cloud, and one pair's matches.
+    seed = FE_SEEDS[0]
+    src_cloud, dst_cloud, gt = fp.frontend_views(seed)
+    agree = {}
+    for keypoints in ("all", "iss"):
+        pc, kc, fc = fp._extract_padded(src_cloud, keypoints=keypoints, device="cpu")
+        pg, kg, fg = fp._extract_padded(src_cloud, keypoints=keypoints, device=device)
+        rows_off = float(((fg.cpu() - fc).abs().amax(1) > FE_TOL).float().mean())
+        agree[keypoints] = {"keypoints": int(kc.sum()), "labels_off": int((kc != kg.cpu()).sum()),
+                            "rows_off": rows_off, "max_diff": float((fg.cpu() - fc).abs().max())}
+        if not torch.equal(pc, pg.cpu()) or rows_off > FE_ROWS_OFF \
+                or agree[keypoints]["labels_off"] > (
+                    0 if keypoints == "all" else FE_LABELS_OFF * int(kc.numel())):
+            raise AssertionError(f"_extract_padded({keypoints!r}) card against CPU: {agree}")
+    cpu_pair = fp.make_frontend_pair(seed, pose=(gt[:3, :3], gt[:3, 3]), device="cpu")
+    rows = [{tuple(np.round(c, 5)) for c in np.concatenate(p[:2]).T}
+            for p in (pairs[seed], cpu_pair)]
+    agree["matches"] = {"card": len(rows[0]), "cpu": len(rows[1]),
+                        "common": len(rows[0] & rows[1])}
+    agree["matches"]["agree"] = agree["matches"]["common"] / max(len(rows[1]), len(rows[0]))
+    out["card_vs_cpu"] = agree
+    print(f"[frontend] card against the CPU: {json.dumps(agree)}")
+    if agree["matches"]["agree"] < FE_MATCH_AGREE:
+        raise AssertionError(f"mutual matches agree on {agree['matches']['agree']:.4f}")
+
+    # 3. Stage walls, each ending in a synchronization (one warm pass first).
+    def stages():
+        walls = {}
+
+        def lap(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            return result
+
+        down = lap("voxel_host", lambda: voxel_downsample(src_cloud, fp.NOISE_BOUND))
+        m = min(down.shape[1], fp.FRONT_BUCKET)
+        down = down[:, np.linspace(0, down.shape[1] - 1, m).astype(int)]
+        pts = torch.as_tensor(pad_columns(down.astype(np.float32), fp.FRONT_BUCKET), device=device)
+        act = torch.arange(fp.FRONT_BUCKET, device=device) < m
+        normals = lap("normals", lambda: fp.estimate_normals(pts, k=20, active=act,
+                                                             solve_dtype=torch.float64))
+        lap("iss", lambda: fp.iss_keypoints(pts, 6 * fp.NOISE_BOUND, 4 * fp.NOISE_BOUND, k=64,
+                                            active=act))
+        feats = lap("fpfh", lambda: fp.compute_fpfh(pts, normals, 5 * fp.NOISE_BOUND, k=64,
+                                                    active=act))
+        lap("matching", lambda: fp.mutual_matches(feats, act, feats, act))
+        return walls
+
+    stages()
+    out["stage_s"] = stages()
+    print(f"[frontend] stage walls (one cloud at the {fp.FRONT_BUCKET} bucket): "
+          f"{json.dumps(out['stage_s'])}; card: {card}")
+
+    # 4. The certified sweep, the winners' certificates held to the host's.
+    calls = []
+    certify_winner = batch_harness._certify_winner
+
+    def recorded(*args):
+        result = certify_winner(*args)
+        calls.append((args, result))
+        return result
+
+    params = fp.frontend_solver_params(**CAPS)
+    with tempfile.TemporaryDirectory(prefix="psulvsb_frontend_") as root:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        fp.write_frontend_benchmark(data, ["fe"], n_pairs=FE_SWEEP_PAIRS, seed=11)
+        write_s = time.perf_counter() - t0
+        batch_harness._certify_winner = recorded
+        try:
+            sweeps = {}
+            for tag, ddtime, unknown in (("known", FE_SWEEP_DDTIME, False), ("unknown", 1, True)):
+                reset_launches()
+                stats = batch_harness.run_benchmark_batched(
+                    data, os.path.join(root, tag), dataset="kitti", scenes=["fe"],
+                    params=params, ddtime=ddtime, unknown_scale=unknown, certify=True,
+                )["fe"]
+                sweeps[tag] = (stats, read_launches(), list(calls))
+                calls.clear()
+        finally:
+            batch_harness._certify_winner = certify_winner
+        with open(os.path.join(root, "known", "fe_fpfh_0.csv")) as f:
+            success = {ln.split(",")[0]: ln.strip().endswith(",1") for ln in list(f)[1:]}
+    launches = {k: sweeps["known"][1][k] + sweeps["unknown"][1][k] for k in sweeps["known"][1]}
+    for tag, (stats, tag_launches, tag_calls) in sweeps.items():
+        for args, result in tag_calls:
+            if args[-1].type != "cuda":
+                raise AssertionError(f"the {tag} sweep certified on {args[-1]}")
+            host = certify_winner(*args[:-1], torch.device("cpu"))
+            if not certificates_agree(result, host):
+                raise AssertionError(f"{tag}: card certificate {result} != host {host}")
+        row = {k: stats[k] for k in ("pairs", "recall", "certified_frac", "avg_cert_gap",
+                                     "pairs_per_s")}
+        row.update(sweep=tag, split=stats["split"], launches=tag_launches,
+                   certificates=stats["certificates"], winners_held_to_host=len(tag_calls),
+                   write_s=write_s, card=card)
+        out[tag] = row
+        print(json.dumps(row))
+    known = out["known"]
+    if known["recall"] < 5 / 6:
+        raise AssertionError(f"front-end sweep recall {known['recall']} < 5/6")
+    missing = [t for t, ok in success.items()
+               if ok and not np.isfinite(known["certificates"][t]["gap"])]
+    if len(success) != FE_SWEEP_PAIRS or missing:
+        raise AssertionError(f"successes without a certificate: {missing}")
+    for name in ("consistency_degree", "pair_ratio_hist", "gnc_batch"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} did not launch in the front-end sweeps: {launches}")
+    out["launches"] = launches
+
+    # 5. ICP on one solved pair.
+    src, dst, gt = pairs[seed]
+    sol = RobustRegistrationSolver(params, seed=0, device=device).solve(
+        src.astype(np.float32), dst.astype(np.float32))
+    down_src = voxel_downsample(src_cloud, fp.NOISE_BOUND)
+    down_dst = voxel_downsample(dst_cloud, fp.NOISE_BOUND)
+    t0 = time.perf_counter()
+    icp = icp_point_to_point(down_src, down_dst, sol.rotation, sol.translation,
+                             max_correspondence_distance=2 * fp.NOISE_BOUND, max_iterations=100)
+    icp_s = time.perf_counter() - t0
+    from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
+
+    r_icp = icp.rotation.cpu().numpy().astype(np.float64)
+    out["icp"] = {"rmse": float(icp.rmse), "iterations": icp.iterations, "wall_s": icp_s,
+                  "deg_vs_coarse": angular_error_deg_np(
+                      sol.rotation.cpu().numpy().astype(np.float64), r_icp),
+                  "deg_vs_gt": angular_error_deg_np(gt[:3, :3], r_icp)}
+    print(f"[frontend] ICP on pair {seed}: {json.dumps(out['icp'])}")
+    # At this pair's translation (|t| up to 10) a float32 update moves by
+    # about 1e-6 from one iteration to the next, ICP's default tolerance, so
+    # the loop may run to its cap; the gate is that it stays in the basin.
+    if not np.isfinite(out["icp"]["rmse"]) or out["icp"]["deg_vs_coarse"] > 5.0:
+        raise AssertionError(f"ICP left the coarse pose's basin: {out['icp']}")
+
+    # 6. The real-scan path on two PLYs written from a structured-scene pair
+    #    (moved by a turn of seed 11's and a translation of norm 1.14, within
+    #    which float32 ICP converges to its 1e-6 tolerance).
+    # 7. Correspondences from ISS keypoints.
+    turn = random_se3(np.random.default_rng(FE_SEEDS[1])).rotation
+    a_cloud, b_cloud, _ = fp.frontend_views(FE_SEEDS[1], pose=(turn, np.array([1.0, -0.5, 0.2])))
+    with tempfile.TemporaryDirectory(prefix="psulvsb_scans_") as root:
+        paths = os.path.join(root, "a.ply"), os.path.join(root, "b.ply")
+        write_ply(paths[0], a_cloud)
+        write_ply(paths[1], b_cloud)
+        t0 = time.perf_counter()
+        res = realscan.register_realscan(*paths, voxel=fp.NOISE_BOUND, caps=CAPS)
+        scan_s = time.perf_counter() - t0
+    out["realscan"] = {k: res[k] for k in ("n_raw_src", "n_down_src", "n_corr", "solve_s",
+                                           "icp_rmse", "icp_fitness", "icp_iters",
+                                           "rot_vs_icp_deg")}
+    out["realscan"]["wall_s"] = scan_s
+    print(f"[frontend] register_realscan: {json.dumps(out['realscan'])}")
+    if not np.isfinite(res["icp_rmse"]) or res["icp_iters"] >= 100:
+        raise AssertionError(f"the real-scan path's ICP did not converge: {out['realscan']}")
+    t0 = time.perf_counter()
+    ks, _ = corr_gen.generate_correspondences(a_cloud, b_cloud, fp.NOISE_BOUND)
+    out["corr_gen"] = {"C": ks.shape[1], "wall_s": time.perf_counter() - t0}
+    print(f"[frontend] generate_correspondences (ISS keypoints): {out['corr_gen']}")
+    if ks.shape[1] == 0:
+        raise AssertionError("generate_correspondences found no correspondence")
+    return out
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from psulvsb_tpu_torch.ops._build import BUILD_INFO, load_library
@@ -1672,11 +2012,15 @@ def main() -> int:
     phase_exact_clique(device, card)
     phase_rotation_variants(device, card)
     sweeps = phase_sweep(device, card)
+    phase_certifier(device, card)
+    frontend = phase_frontend_sweep(device, card)
+    sweeps["frontend"] = {"launches": frontend["launches"]}
 
     def row(name, source, replaces, path, staged, err, timed):
         """`launches`: over the fused path's N_TIMED_SOLVES solves, replayed
         launches included; `launches_staged`: over the staged path's solves;
-        `launches_sweep`: over phase 19's two dataset sweeps."""
+        `launches_sweep`: over phase 19's two dataset sweeps and phase 21's
+        two front-end sweeps."""
         ms, plain_ms, (bound, bound_by) = timed
         if staged <= 0 or fused[path]["launches"][name] <= 0:
             raise AssertionError(f"{name} did not launch on the {path} path")

@@ -11,12 +11,15 @@ rotation), staged (`psulvsb_solve`) or as one dispatch of replayed CUDA
 graphs (`psulvsb_register`), one pair or a batch of pairs
 (`register_batch`), with or without the normal-angle pre-filter
 (`solve_with_prefilter`); the classic decoupled solve
-(`RobustRegistrationSolver.solve_decoupled`); and the evaluation harnesses
-over them (`psulvsb_tpu_torch.eval`: the synthetic protocol, the dataset
-generator, the serial and the batched dataset sweep).
+(`RobustRegistrationSolver.solve_decoupled`); the DRS optimality certifier
+in float64 (`psulvsb_tpu_torch.certify`); the FPFH front end from raw
+clouds to correspondences (`psulvsb_tpu_torch.frontend`, `io`); and the
+evaluation harnesses over them (`psulvsb_tpu_torch.eval`: the synthetic
+protocol, the dataset generator, the serial and the batched dataset sweep
+with certification, the front-end protocol and the real-scan path).
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from psulvsb_tpu_torch.api import RobustRegistrationSolver, register_pair
 from psulvsb_tpu_torch.eval.pipeline import solve_with_prefilter

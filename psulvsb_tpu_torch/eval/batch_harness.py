@@ -189,22 +189,23 @@ def run_scene_batched(
     use_prefilter: bool = True,
     sharded: bool = False,
     certify: bool = False,
+    certify_tim_cap: int = 64,
     device="cuda",
 ) -> dict:
     """Evaluate one scene with all (pair, retry) solves of a pad-bucket group
     in one batch. Returns the aggregate stats of eval/realdata.run_scene
     plus `pairs_per_s` (scene pairs / total timed wall clock),
     `timing = "amortized-batch"` and `split`: the wall seconds of this call's
-    timed region by part (pre-filter, flattening, solves, readback, scoring),
-    their sum `wall_s` and the number of solves.
+    timed region by part (pre-filter, flattening, solves, readback), their
+    sum `wall_s`, the number of solves, and the seconds outside it
+    (`scoring_s`, `certify_s`).
 
-    certify=True (the DRS optimality certificate of each pair's winning
-    solve) raises: the certifier is not part of this package yet."""
-    if certify:
-        raise NotImplementedError(
-            "certify=True needs the DRS certifier (certify/drs.py), which is not ported "
-            "yet: ROADMAP.md Queue 1 item 13"
-        )
+    certify=True runs the DRS optimality certifier (certify/drs.py, float64
+    on `device`) on each pair's winning solve after the timed region, the
+    reference's post-solve step (teaserpp_python.cc:169-207), as
+    `_certify_winner` poses it. Stats gain `certified_frac` (certified
+    successes / successes), `avg_cert_gap` (mean best_suboptimality over
+    the certified ones) and `certificates` ({pair: {"certified", "gap"}})."""
     device = resolve_device(device)
     pin_float32()
     pairs = read_pair_labels(label_file)
@@ -222,8 +223,9 @@ def run_scene_batched(
                        salt, pad_to_bucket(src.shape[1])))
 
     results: dict[str, PairResult] = {}
+    cert_results: dict[str, dict] = {}
     split = {"prefilter_s": 0.0, "flatten_s": 0.0, "solve_s": 0.0, "readback_s": 0.0,
-             "scoring_s": 0.0, "solves": 0}
+             "scoring_s": 0.0, "certify_s": 0.0, "solves": 0}
     solve_wall = 0.0
     sharded_groups = 0
 
@@ -276,6 +278,7 @@ def run_scene_batched(
         # gate measures (main.cc:424 gates the WINNING retry's solve time).
         amortized = group_wall / n_g
         per_retry = group_wall / max(n_flat, 1)
+        winners = {}
         for p, (tag, src, _dst_s, gt, test_scale, _salt, _bucket) in enumerate(group):
             src64 = np.asarray(src, np.float64)
             best = None
@@ -283,9 +286,18 @@ def run_scene_batched(
                 res = score_pose(src64, gt, poses[f, 0], poses[f, 1:10].reshape(3, 3),
                                  poses[f, 10:], test_scale, amortized)
                 if best is None or _rmse_key(res) < _rmse_key(best):
-                    best = res
+                    best, winners[tag] = res, f
             results[tag] = best._replace(success=meets(best, criteria, per_retry))
-        split["scoring_s"] += time.monotonic() - t
+        t = lap("scoring_s", t)
+        if certify:
+            for tag, src, dst_s, *_rest in group:
+                f = winners[tag]
+                cert_results[tag] = _certify_winner(
+                    np.asarray(src, np.float64), np.asarray(dst_s, np.float64),
+                    float(poses[f, 0]), poses[f, 1:10].reshape(3, 3).astype(np.float64),
+                    poses[f, 10:].astype(np.float64), params, certify_tim_cap, device,
+                )
+            lap("certify_s", t)
 
     # The CSV's rows in the label file's order, as the serial harness writes them.
     ordered = {rec[0]: results[rec[0]] for rec in loaded}
@@ -298,6 +310,15 @@ def run_scene_batched(
         "sharded": sharded_groups > 0,
     })
     stats["split"] = dict(split, wall_s=solve_wall)
+    if certify:
+        # Over SUCCESSES: certification asks whether a solve is provably the
+        # TLS global optimum, which means something only for a solution.
+        cert_succ = [cert_results[tag] for tag, r in ordered.items() if r.success]
+        gaps = [c["gap"] for c in cert_succ if c["certified"] and np.isfinite(c["gap"])]
+        stats["certified_frac"] = (sum(c["certified"] for c in cert_succ)
+                                   / max(len(cert_succ), 1))
+        stats["avg_cert_gap"] = sum(gaps) / len(gaps) if gaps else None
+        stats["certificates"] = {tag: cert_results[tag] for tag in ordered}
     # Sidecar for resume: the exact stats plus the protocol fingerprint,
     # written atomically AFTER the CSV, so a kill mid-scene leaves no meta
     # and the scene re-runs.
@@ -346,6 +367,38 @@ def _scene_fingerprint(params, ddtime, unknown_scale, descriptor, seed, use_pref
     }
 
 
+def _certify_winner(src, dst_s, s_b, r_b, t_b, params, tim_cap, device) -> dict:
+    """DRS-certify one winning solve (certification.cc:20-190), posing the
+    rotation subproblem as the solver does: correspondence inliers by
+    residual against (s, R, t) at 2x the dataset noise bound (scaled into
+    the dst frame), chain TIMs over at most tim_cap + 1 of them (evenly
+    subsampled: an iteration is O(N^2) dense), v2 brought back to the src
+    metric by /s, the TIM bound 2 sqrt(3) x the point bound (per-axis
+    uniform noise of +-nb, PSULVSB.cc:190-194, moves a point by up to
+    sqrt(3) nb), theta the TLS signs of the TIM residuals, polish=True.
+    Returns {"certified": bool, "gap": float}; fewer than 4 inliers give
+    {"certified": False, "gap": inf}."""
+    from psulvsb_tpu_torch.certify.drs import DRSCertifier
+
+    est = s_b * (r_b @ src + t_b[:, None])
+    resid = np.linalg.norm(dst_s - est, axis=0)
+    scale = max(s_b, 1e-6)
+    inl = np.where(resid <= 2.0 * params.noise_bound_dataset * scale)[0]
+    if inl.size < 4:
+        return {"certified": False, "gap": float("inf")}
+    if inl.size > tim_cap + 1:
+        inl = inl[np.linspace(0, inl.size - 1, tim_cap + 1).astype(int)]
+    v1 = src[:, inl[1:]] - src[:, inl[:-1]]
+    v2 = (dst_s[:, inl[1:]] - dst_s[:, inl[:-1]]) / scale
+    tim_nb = 2.0 * np.sqrt(3.0) * params.noise_bound_dataset
+    tim_resid = np.linalg.norm(v2 - r_b @ v1, axis=0)
+    theta = np.where(tim_resid <= tim_nb * np.sqrt(params.cbar2), 1.0, -1.0)
+    cert = DRSCertifier(noise_bound=tim_nb, cbar2=params.cbar2).certify(
+        r_b, v1, v2, theta, polish=True, device=device
+    )
+    return {"certified": bool(cert.is_optimal), "gap": float(cert.best_suboptimality)}
+
+
 def _resume_scene(out_csv: str, fingerprint: dict) -> dict | None:
     """The sidecar stats of a completed run_scene_batched call; None unless
     the stored fingerprint matches the requested protocol and the CSV is
@@ -378,6 +431,7 @@ def run_benchmark_batched(
     sharded: bool = False,
     resume: bool = False,
     certify: bool = False,
+    certify_tim_cap: int = 64,
     device="cuda",
 ) -> dict:
     """Dataset sweep through the batched harness (per-scene CSVs + averages
@@ -406,7 +460,8 @@ def run_benchmark_batched(
             stats = run_scene_batched(
                 scene_dir, label_file, params, criteria, out_csv, descriptor=descriptor,
                 ddtime=ddtime, unknown_scale=unknown_scale, seed=seed,
-                use_prefilter=use_prefilter, sharded=sharded, certify=certify, device=device,
+                use_prefilter=use_prefilter, sharded=sharded, certify=certify,
+                certify_tim_cap=certify_tim_cap, device=device,
             )
         summary[scene] = stats
     if summary:

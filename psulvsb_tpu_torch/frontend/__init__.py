@@ -1,2 +1,3 @@
-"""Front-end stages ahead of the solver: neighbours, normals and the
-normal-angle pre-filter (counterparts of psulvsb_tpu/frontend/)."""
+"""Front-end stages ahead of the solver (counterparts of
+psulvsb_tpu/frontend/): neighbours, normals, the normal-angle pre-filter,
+the voxel grid, ISS keypoints, FPFH features, the matcher and ICP."""

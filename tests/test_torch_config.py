@@ -226,6 +226,12 @@ def test_port_imports_without_jax():
         "from psulvsb_tpu_torch.clique import graph, kcore, pmc\n"
         "from psulvsb_tpu_torch.rotation import fgr\n"
         "from psulvsb_tpu_torch.solver import classic\n"
+        "from psulvsb_tpu_torch import certify, io\n"
+        "from psulvsb_tpu_torch.certify import drs\n"
+        "from psulvsb_tpu_torch.core import geometry\n"
+        "from psulvsb_tpu_torch.io import ply\n"
+        "from psulvsb_tpu_torch.frontend import fpfh, iss, matcher, icp, voxel\n"
+        "from psulvsb_tpu_torch.eval import corr_gen, realscan\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'psulvsb_tpu.'))"
         " or m == 'psulvsb_tpu' for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

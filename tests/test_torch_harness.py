@@ -356,15 +356,32 @@ def test_decoupled_fallback_rescues_a_failed_pair(tmp_path):
     assert rescued.scale_error < 0.05
 
 
-def test_certify_raises_naming_the_roadmap_item(port_scene, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bh.run_scene_batched(port_scene, _labels(port_scene), PARAMS,
-                             rd.SuccessCriteria.threedmatch(), str(tmp_path / "c.csv"),
-                             certify=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bh.run_benchmark_batched(os.path.dirname(port_scene), str(tmp_path / "o"),
-                                 scenes=[os.path.basename(port_scene)], certify=True,
-                                 device="cpu")
+def test_certified_sweep_and_its_sidecar(tmp_path):
+    """A three-pair scene with certify=True: certified_frac and avg_cert_gap
+    in the stats, the certifier's seconds in split["certify_s"] and outside
+    wall_s, and a sidecar that serves certify=True and no certify=False."""
+    root, out = str(tmp_path / "data"), str(tmp_path / "out")
+    md.write_scene(os.path.join(root, "s"), n_pairs=3, n_corr=300, outlier_rates=(0.5, 0.7, 0.8),
+                   seed=5)
+    kw = dict(scenes=["s"], params=PARAMS, ddtime=1, device="cpu")
+    stats = bh.run_benchmark_batched(root, out, certify=True, certify_tim_cap=8, **kw)["s"]
+    split = stats["split"]
+    assert stats["recall"] == 1.0
+    assert 0.0 <= stats["certified_frac"] <= 1.0 and stats["certified_frac"] > 0
+    assert stats["avg_cert_gap"] is not None and stats["avg_cert_gap"] < 1e-3
+    assert split["certify_s"] > 0.01
+    assert sorted(stats["certificates"]) == ["0+1", "1+2", "2+3"]
+    certified = [c["certified"] for c in stats["certificates"].values()]
+    assert stats["certified_frac"] == pytest.approx(sum(certified) / 3)  # all 3 succeeded
+    timed = ("prefilter_s", "flatten_s", "solve_s", "readback_s")
+    assert split["wall_s"] == pytest.approx(sum(split[k] for k in timed), abs=1e-3)
+    assert stats["pairs_per_s"] == pytest.approx(3 / split["wall_s"])
+    again = bh.run_benchmark_batched(root, out, certify=True, certify_tim_cap=8, resume=True,
+                                     **kw)["s"]
+    assert again["timing"] == "resumed" and again["certified_frac"] == stats["certified_frac"]
+    plain = bh.run_benchmark_batched(root, out, resume=True, **kw)["s"]
+    assert plain["timing"] == "amortized-batch" and "certified_frac" not in plain
+    assert plain["split"]["certify_s"] == 0.0
 
 
 def test_warm_scene_builds_a_plan_a_bucket(port_scene):

@@ -4,6 +4,7 @@
     python tools/port_profile.py fused [path ...]
     python tools/port_profile.py batch [path ...]
     python tools/port_profile.py sweep
+    python tools/port_profile.py frontend_pair
 
 For each named path, two warm-up solves, then 5 solves through
 RobustRegistrationSolver under torch.profiler (CPU and CUDA activities);
@@ -39,6 +40,11 @@ sweep's own ratio), at known and at unknown scale, under the profiler. Printed
 per group: the harness's own split of its timed region, the device busy share
 of the wall, the operations a solve and the kernels that took the most device
 time.
+
+`frontend_pair` profiles eval.frontend_protocol.make_frontend_pair(62) at its
+defaults (24000 scene points, the 8192 bucket) after one warm-up call:
+the wall, the device busy share, and the kernels that took the most device
+time, each with the PyTorch operation that launched it.
 """
 
 from __future__ import annotations
@@ -220,6 +226,43 @@ def profile_sweep(device, card):
                               f"{100 * sum(runs) / busy_us:.2f}% of device time")
 
 
+def profile_frontend_pair(device, card, seed=62):
+    """One make_frontend_pair call at its defaults under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from psulvsb_tpu_torch.eval.frontend_protocol import make_frontend_pair
+
+    make_frontend_pair(seed, device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_MARGIN_S)
+        t0 = time.perf_counter()
+        src, _, _ = make_frontend_pair(seed, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILER_MARGIN_S)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    # The PyTorch operation that launched each kernel: the innermost CPU
+    # operation whose time range holds the kernel's launch call.
+    by_op = collections.Counter()
+    for op in prof.key_averages():
+        if op.device_type == DeviceType.CPU and op.self_device_time_total > 0:
+            by_op[op.key] += op.self_device_time_total
+    print(f"[frontend_pair] card: {card}; make_frontend_pair({seed}), C = {src.shape[1]}: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of wall), {len(kernels)} device operations")
+    for kname, us in by_name.most_common(10):
+        print(f"[frontend_pair]   {100 * us / busy_us:5.1f}%  {us / 1e3:.3f} ms  {kname[:110]}")
+    for op, us in by_op.most_common(10):
+        print(f"[frontend_pair]   op {op}: {us / 1e3:.3f} ms of device time, "
+              f"{100 * us / busy_us:.1f}%")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device", file=sys.stderr)
@@ -230,6 +273,8 @@ def main() -> int:
     for name in sys.argv[1:] or ["anchor", "unknown", "gror", "frontend"]:
         if name == "sweep":
             profile_sweep(device, card)
+        elif name == "frontend_pair":
+            profile_frontend_pair(device, card)
         elif name == "fused":
             modes = ["fused"]
         elif name == "batch":
