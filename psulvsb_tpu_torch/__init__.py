@@ -16,10 +16,13 @@ in float64 (`psulvsb_tpu_torch.certify`); the FPFH front end from raw
 clouds to correspondences (`psulvsb_tpu_torch.frontend`, `io`); and the
 evaluation harnesses over them (`psulvsb_tpu_torch.eval`: the synthetic
 protocol, the dataset generator, the serial and the batched dataset sweep
-with certification, the front-end protocol and the real-scan path).
+with certification, the front-end protocol and the real-scan path). From
+outside Python: the CLI behind the MATLAB bridge (`python -m
+psulvsb_tpu_torch.cli`, `matlab/torch/`) and the seven examples (`python -m
+psulvsb_tpu_torch.examples.<name>`).
 """
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 from psulvsb_tpu_torch.api import RobustRegistrationSolver, register_pair
 from psulvsb_tpu_torch.eval.pipeline import solve_with_prefilter

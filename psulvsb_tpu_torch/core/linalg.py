@@ -13,6 +13,7 @@ Kabsch rotation with the reflection fix and no sign branch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from psulvsb_tpu_torch.utils.precision import mm
@@ -43,6 +44,28 @@ def nearest_psd(a: torch.Tensor) -> torch.Tensor:
     eigenvalues at 0 (linalg.h:84-99)."""
     w, v = torch.linalg.eigh((a + a.T) / 2)
     return mm(v * torch.clamp(w, min=0)[None, :], v.T)
+
+
+# torch.linalg.eigh takes cuSOLVER's batched solver (cusolverDnXsyevBatched)
+# for a batch of small matrices on the card, and that solver refuses a large
+# batch of 3x3 matrices with CUSOLVER_STATUS_INVALID_VALUE (seen on the H100
+# at the 44027 covariances of the KITTI example's voxel grid). The front end
+# solves one 3x3 covariance a point, so it goes through `batched_eigh` in
+# chunks of EIGH_BATCH, which chip_smoke.py holds to the host's solve.
+EIGH_BATCH = 16384
+
+
+def batched_eigh(a: torch.Tensor, vectors: bool = True):
+    """torch.linalg.eigh (vectors=True) or eigvalsh of a (B, n, n) batch of
+    symmetric matrices, EIGH_BATCH matrices a call. Each matrix is solved
+    alone either way, so the chunks change no result."""
+    fn = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
+    if a.shape[0] <= EIGH_BATCH:
+        return fn(a)
+    parts = [fn(a[i:i + EIGH_BATCH]) for i in range(0, a.shape[0], EIGH_BATCH)]
+    if not vectors:
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def _davenport_matrix(s: torch.Tensor) -> torch.Tensor:
@@ -173,3 +196,39 @@ def weighted_procrustes_srt(
     r = rot_from_correlation(h, method=method)
     t = c_dst - mm(r, c_src)
     return r, t
+
+
+# --- small teaser::utils parity helpers (utils.h:31-171) ---------------------
+
+
+def random_sample(generator: torch.Generator, n: int, k: int) -> torch.Tensor:
+    """k distinct indices from [0, n) on the generator's device —
+    utils::randomSample (utils.h:31-56; the reference's rejection loop
+    becomes a permutation slice)."""
+    return torch.randperm(n, generator=generator, device=generator.device)[:k]
+
+
+def mask_vector(mask, elements) -> list:
+    """utils::maskVector (utils.h:144-157): the elements where mask is True.
+    Host-side helper (the output's size depends on the data)."""
+    mask = np.asarray(_host(mask), bool)
+    return [e for e, m in zip(elements, mask) if m]
+
+
+def find_nonzero(mask) -> list[int]:
+    """utils::findNonzero (utils.h:164-171). Host-side helper."""
+    return [int(i) for i in np.nonzero(np.asarray(_host(mask)))[0]]
+
+
+def remove_columns(arr, cols) -> np.ndarray:
+    """utils::removeColumn generalization (utils.h:58-105): `arr` without
+    the columns `cols`, as a numpy array. Host-side."""
+    arr = np.asarray(_host(arr))
+    keep = np.ones(arr.shape[1], bool)
+    keep[list(cols)] = False
+    return arr[:, keep]
+
+
+def _host(x):
+    """A tensor as a numpy array on the host; anything else as it is."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x

@@ -35,6 +35,11 @@ def angular_error_deg_np(r_exp, r_est) -> float:
     return float(abs(np.arccos(min(1.0, max(-1.0, c)))) * (180.0 / np.pi))
 
 
+def translation_error(t_exp: torch.Tensor, t_est: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance between two translations, over leading batch dims."""
+    return torch.linalg.vector_norm(t_exp - t_est, dim=-1)
+
+
 def masked_rmse(
     src: torch.Tensor,
     dst: torch.Tensor,

@@ -25,17 +25,33 @@ def transform_points(t: SE3, pts: torch.Tensor) -> torch.Tensor:
     return t.scale * (mm(t.rotation, pts) + t.translation[:, None])
 
 
-def _rodrigues_np(axis: np.ndarray, angle: float) -> np.ndarray:
-    """Axis-angle -> rotation matrix (PSULVSB.cc:259-271)."""
-    axis = axis / (np.linalg.norm(axis) + 1e-30)
-    k = np.array(
-        [
-            [0.0, -axis[2], axis[1]],
-            [axis[2], 0.0, -axis[0]],
-            [-axis[1], axis[0], 0.0],
-        ]
+def compose_srt(outer_r: torch.Tensor, outer_t: torch.Tensor, inner: SE3) -> SE3:
+    """Compose p -> outer_r @ inner(p) + outer_t, keeping inner's scale.
+
+    Mirrors weightedSVD's `finalTransform * initialTransform`
+    (registration.cc:562-566), where the initial transform embeds (R, t)
+    with the scale applied outside."""
+    return SE3(
+        scale=inner.scale,
+        rotation=mm(outer_r, inner.rotation),
+        translation=mm(outer_r, inner.translation)
+        + outer_t / torch.clamp(torch.as_tensor(inner.scale), min=1e-30),
     )
-    return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * (k @ k)
+
+
+def rodrigues(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Axis-angle -> rotation matrix (Rodrigues), in the axis's dtype and
+    on its device (PSULVSB.cc:259-271)."""
+    axis = axis / (torch.linalg.vector_norm(axis) + 1e-30)
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    zero = torch.zeros((), dtype=axis.dtype, device=axis.device)
+    k = torch.stack([
+        torch.stack([zero, -axis[2], axis[1]]),
+        torch.stack([axis[2], zero, -axis[0]]),
+        torch.stack([-axis[1], axis[0], zero]),
+    ])
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
+    return eye + torch.sin(angle) * k + (1.0 - torch.cos(angle)) * mm(k, k)
 
 
 def random_se3(
@@ -46,7 +62,7 @@ def random_se3(
     of uniform random direction with norm uniform in [0, max_translation)."""
     axis = rng.uniform(-1.0, 1.0, size=3)
     angle = rng.uniform(0.0, np.pi)
-    r = _rodrigues_np(axis, angle)
+    r = rodrigues(torch.as_tensor(axis), angle).numpy()  # float64
     t_dir = rng.uniform(-0.5, 0.5, size=3)
     t_dir = t_dir / (np.linalg.norm(t_dir) + 1e-30)
     t_norm = max_translation * rng.uniform()

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from psulvsb_tpu_torch.core.linalg import batched_eigh
 from psulvsb_tpu_torch.frontend.knn import knn
 
 
@@ -47,7 +48,7 @@ def iss_keypoints(
     mean = torch.einsum("nk,nkd->nd", w, neigh) / cnt[:, None]
     cen = (neigh - mean[:, None, :]) * w[:, :, None]
     cov = torch.einsum("nkd,nke->nde", cen, cen) / cnt[:, None, None]
-    evals = torch.linalg.eigvalsh(cov)  # ascending: l3, l2, l1
+    evals = batched_eigh(cov, vectors=False)  # ascending: l3, l2, l1
     l3, l2, l1 = evals[:, 0], evals[:, 1], evals[:, 2]
 
     ok = (

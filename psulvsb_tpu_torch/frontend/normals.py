@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from psulvsb_tpu_torch.core.linalg import batched_eigh
 from psulvsb_tpu_torch.frontend.knn import knn
 
 
@@ -46,7 +47,7 @@ def neighbourhood_normals(
     else:
         centered = neigh - neigh.mean(2, keepdim=True)
         cov = torch.einsum("ink,jnk->nij", centered, centered) / k
-    _, vecs = torch.linalg.eigh(cov)  # ascending eigenvalues
+    _, vecs = batched_eigh(cov)  # ascending eigenvalues
     return vecs[:, :, 0].T.to(points.dtype)
 
 

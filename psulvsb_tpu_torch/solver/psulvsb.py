@@ -1436,3 +1436,13 @@ def psulvsb_solve(
         "host_syncs": host_syncs,
     }
     return solution, info
+
+
+def write_iteration_stats(path: str, info: dict) -> None:
+    """static.txt-equivalent iteration-count dump of a solve's `info` (host
+    rounds, local batches, hypotheses; written by the WT variant and read by
+    teaser_cpp_ply_main.cc:448-466)."""
+    with open(path, "w") as f:
+        f.write(f"{info['rounds']}\n")
+        f.write(f"{info['total_local_batches']}\n")
+        f.write(f"{info['total_hypotheses']}\n")

@@ -1,7 +1,8 @@
 """JAX-package reference figures that chip_smoke.py prints beside the
 PyTorch port's, computed on the CPU.
 
-    JAX_PLATFORMS=cpu python tools/port_jax_reference.py [hostile|frontend ...]
+    JAX_PLATFORMS=cpu python tools/port_jax_reference.py \
+        [hostile|frontend|frontend_unknown|demo ...]
 
 - hostile: the hostile pair of chip_smoke.py's clique phase (the anchor
   protocol, C = 1889, 99% displaced outliers, data seed 5, made with the
@@ -10,7 +11,16 @@ PyTorch port's, computed on the CPU.
   solve seed of that phase; success is valid, RE < 5 deg, TE < 0.3;
 - frontend: the two committed real pairs of tests/data/frontend_aliasing/
   through `frontend_solver_params` at the same caps, 5 keys each; success
-  is the KITTI gates, RE < 5 deg, TE < 0.6.
+  is the KITTI gates, RE < 5 deg, TE < 0.6;
+- frontend_unknown: the front-end sweep scene of chip_smoke.py's phase 21
+  (`write_frontend_benchmark` of FE_SWEEP_PAIRS pairs, seed 11, written by
+  the port on the CPU) at unknown scale, ddtime 1, KITTI criteria, through
+  the JAX package's `run_benchmark_batched` and, on the same files, the
+  port's on the CPU; each harness's recall;
+- demo: the synthetic protocol of `psulvsb_demo` at its defaults (a 500-point
+  `synthetic_cloud`, 10 trials, 90% outliers, noise 0.05,
+  `preset_artificial()`) through the JAX package's `run_protocol`; recall is
+  the share of trials with RE < 5 deg and TE < 0.3.
 
 The pairs, caps and seeds are chip_smoke.py's own.
 
@@ -21,7 +31,11 @@ packages; the port and chip_smoke.py import no JAX.
 
 from __future__ import annotations
 
+import csv
+import os
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import jax
@@ -68,8 +82,54 @@ def frontend() -> None:
                 range(smoke.N_TIMED_SOLVES), *smoke.KITTI_LIMITS[:2])
 
 
+def frontend_unknown() -> None:
+    from psulvsb_tpu.eval import batch_harness as jax_harness
+    from psulvsb_tpu_torch.eval import batch_harness
+    from psulvsb_tpu_torch.eval import frontend_protocol as fp
+
+    with tempfile.TemporaryDirectory(prefix="psulvsb_fe_ref_") as root:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        fp.write_frontend_benchmark(data, ["fe"], n_pairs=smoke.FE_SWEEP_PAIRS, seed=11,
+                                    device="cpu")
+        print(f"scene written on the CPU in {time.perf_counter() - t0:.1f} s", flush=True)
+        runs = {
+            "JAX": lambda out: jax_harness.run_benchmark_batched(
+                data, out, dataset="kitti", scenes=["fe"],
+                params=frontend_solver_params(**smoke.CAPS), ddtime=1, unknown_scale=True),
+            "port": lambda out: batch_harness.run_benchmark_batched(
+                data, out, dataset="kitti", scenes=["fe"],
+                params=fp.frontend_solver_params(**smoke.CAPS), ddtime=1, unknown_scale=True,
+                device="cpu"),
+        }
+        for name, run in runs.items():
+            out = os.path.join(root, name)
+            t0 = time.perf_counter()
+            stats = run(out)["fe"]
+            with open(os.path.join(out, "fe_fpfh_1.csv")) as f:
+                for row in list(csv.reader(f))[1:]:
+                    print(f"{name} {row}", flush=True)
+            print(f"{name} CPU recall, front-end sweep at unknown scale (ddtime 1): "
+                  f"{stats['recall']} of {stats['pairs']} pairs "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def demo() -> None:
+    from psulvsb_tpu.eval.protocol import run_protocol
+    from psulvsb_tpu.eval.synthetic import synthetic_cloud
+
+    with tempfile.TemporaryDirectory(prefix="psulvsb_demo_ref_") as out:
+        run_protocol({"synthetic": synthetic_cloud(500, seed=0)}, SolverParams.preset_artificial(),
+                     out, trials=10, noise_bound=0.05, outlier_rate=0.9)
+        with open(os.path.join(out, "synthetic.csv")) as f:
+            rows = list(csv.DictReader(f))
+    ok = sum(float(r["AngleError"]) < 5.0 and float(r["TransError"]) < 0.3 for r in rows)
+    print(f"JAX CPU recall, psulvsb_demo at its defaults: {ok}/{len(rows)}", flush=True)
+
+
 def main() -> None:
-    cases = {"hostile": hostile, "frontend": frontend}
+    cases = {"hostile": hostile, "frontend": frontend, "frontend_unknown": frontend_unknown,
+             "demo": demo}
     for name in sys.argv[1:] or list(cases):
         cases[name]()
 
