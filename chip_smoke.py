@@ -201,10 +201,22 @@ and prints no result line):
    cloud) against the host's float64 (within 1e-9). Then utils.timing: timed() around an
    anchor solve reads at least its CUDA-event time, and trace() writes a
    Chrome trace that names gnc_batch_kernel;
-23. result — the card line, a JSON line of per-kernel figures (time,
+23. reference-scale tools — tools/fullscale_sweep_torch.py's `sweep` on
+   the smallest 3DMatch scene of the full-scale protocol (sun3d-hotel_umd-
+   maryland_hotel3, 54 pairs) and on kitti_seq07 (69 pairs), at ddtime 10
+   and the tool's full correspondence counts: recall 1.0 on each scene, as
+   FULLSCALE_r05/summary.json has for both; tools/clique_scale_audit_torch.py's
+   `audit_case` on the C = 2048 ratio-window case of tests/test_clique.py
+   (93% mismatch, seed 2093): the exact search finishes and tri-greedy /
+   exact >= 0.95; tools/cap_sweep_torch.py's `sweep_point` at the shipped
+   caps and at (2048, 512, 4, 16384), k = 3: ok on both fixtures; the five
+   TEASER++ sub-solver facades once on the card, each held to its CPU result
+   (rotation within 1e-4, scale and translation within 1e-5, inlier masks
+   equal). gnc_batch must have launched in the sweeps and the cap sweep;
+24. result — the card line, a JSON line of per-kernel figures (time,
    plain time, bound, launches on the fused path that runs it, in the
-   sweeps and on the CLI), and the final JSON line {"ok": true, "device":
-   {...}}.
+   sweeps, on the CLI and in phase 23's tools), and the final JSON line
+   {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a phase drives a solve path and
 read just after it; launches made to compare a kernel with its plain
@@ -2266,6 +2278,119 @@ def phase_entry_points(device, card: str, sweep_data: str) -> dict:
     return out
 
 
+FULLSCALE_SCENES = {"3dmatch": "sun3d-hotel_umd-maryland_hotel3", "kitti": "kitti_seq07"}
+AUDIT_CASE = dict(c=2048, rate=0.93, mode="mismatch", estimate_scaling=True, seed=2093)
+AUDIT_TIME_LIMIT_S = 120.0
+AUDIT_MIN_RATIO = 0.95  # tests/test_clique.py::TestGreedyVsExactAtScale
+CAP_POINTS = ((2048, 256, 4, 8192), (2048, 512, 4, 16384))
+CAP_K = 3
+FACADE_SCALAR_TOL = 1e-5
+
+
+def facade_cases() -> list:
+    """(name, call) pairs: call(device) runs one facade and gives its outputs
+    as a tuple of tensors. Inputs from a numpy seed, as tests/test_variants.py
+    builds them; the scale mode's draws are the same uniforms on both sides."""
+    from psulvsb_tpu_torch.core.linalg import _quat_to_rot
+    from psulvsb_tpu_torch.robust.scalar_tls import ScalarTLSEstimator
+    from psulvsb_tpu_torch.robust.scale import ScaleInliersSelector, TLSScaleSolver
+    from psulvsb_tpu_torch.robust.translation import TLSTranslationSolver
+    from psulvsb_tpu_torch.rotation.gnc import GNCTLSRotationSolver
+
+    rng = np.random.default_rng(0)
+    x = np.array([0.5, 1.0, 0.6, 0.7, 1.2, 10.0], np.float32)
+    r = np.array([0.9, 0.9, 0.4, 0.5, 0.4, 0.5], np.float32)
+    xt = np.array([2.0, 2.1, 1.9, 7.0], np.float32)
+    u = torch.as_tensor(rng.uniform(size=256).astype(np.float32))
+    src = rng.normal(size=(3, 50)).astype(np.float32)
+    q = rng.normal(size=4)
+    rot = _quat_to_rot(torch.as_tensor(q / np.linalg.norm(q))).numpy().astype(np.float32)
+    dst = rot @ src
+    t_true = np.array([0.3, -0.2, 0.7], np.float32)
+    return [
+        ("ScalarTLSEstimator.estimate_tiled",
+         lambda d: ScalarTLSEstimator(device=d).estimate_tiled(x, r)),
+        ("ScalarTLSEstimator.estimate scale",
+         lambda d: ScalarTLSEstimator(device=d).estimate(x, r, mode="scale", u=u)),
+        ("ScalarTLSEstimator.estimate translation",
+         lambda d: ScalarTLSEstimator(device=d).estimate(xt, r[:4], mode="translation",
+                                                        noise=0.2)),
+        ("TLSScaleSolver", lambda d: TLSScaleSolver(0.01, 1.0, device=d).solveForScale(
+            src, 1.5 * src, u=u)),
+        ("ScaleInliersSelector", lambda d: ScaleInliersSelector(0.01, 1.0, device=d)
+         .solveForScale(src, src)),
+        ("TLSTranslationSolver", lambda d: TLSTranslationSolver(0.01, 1.0, device=d)
+         .solveForTranslation(src, src + t_true[:, None])),
+        ("GNCTLSRotationSolver", lambda d: GNCTLSRotationSolver(noise_bound=0.01, device=d)
+         .solveForRotation(src, dst)),
+    ]
+
+
+def phase_reference_tools(device, card: str) -> dict:
+    """Phase 23: the three reference-scale tools at a cut size and the five
+    sub-solver facades, on the card."""
+    from psulvsb_tpu_torch.solver.fused import clear_plan_cache
+    from tools import cap_sweep_torch, clique_scale_audit_torch, fullscale_sweep_torch
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="psulvsb_fullscale_") as root:
+        for dataset, scene in FULLSCALE_SCENES.items():
+            clear_plan_cache()
+            reset_launches()
+            agg = fullscale_sweep_torch.sweep(
+                dataset, os.path.join(root, "data"), os.path.join(root, "out", dataset), 10,
+                device, scenes=[scene],
+            )
+            out["launches"][f"fullscale_{dataset}"] = launches = read_launches()
+            out[dataset] = agg
+            print(f"[tools] fullscale {dataset} {scene}: {json.dumps(agg)}; launches {launches}")
+            if agg["per_scene_recall"][scene] != 1.0:
+                raise AssertionError(f"{scene}: recall {agg['per_scene_recall'][scene]} < 1.0 "
+                                     "(FULLSCALE_r05 has 1.0)")
+            if launches["gnc_batch"] <= 0:
+                raise AssertionError(f"the {dataset} sweep never launched the GNC kernel")
+    clear_plan_cache()
+
+    clique_scale_audit_torch.warm_up(device)
+    row = clique_scale_audit_torch.audit_case(**AUDIT_CASE, time_limit_s=AUDIT_TIME_LIMIT_S,
+                                              device=device)
+    out["audit"] = row
+    print(f"[tools] clique audit: {row}; card: {card}")
+    if row["exact_timed_out"] or row["exact"] <= 0 or row["ratio"] < AUDIT_MIN_RATIO:
+        raise AssertionError(f"clique audit at C = 2048: {row}")
+
+    reset_launches()
+    out["caps"] = [cap_sweep_torch.sweep_point(caps, CAP_K, device) for caps in CAP_POINTS]
+    out["launches"]["cap_sweep"] = launches = read_launches()
+    for r in out["caps"]:
+        print(f"[tools] cap sweep {json.dumps(r)}; card: {card}")
+        if not (r["easy90"]["ok"] and r["hard95"]["ok"]):
+            raise AssertionError(f"cap point {r['caps']} is not ok on both fixtures: {r}")
+    if launches["gnc_batch"] <= 0:
+        raise AssertionError("the cap sweep never launched the GNC kernel")
+
+    for name, call in facade_cases():
+        got, want = call(device), call("cpu")
+        if any(g.device.type != "cuda" for g in got):
+            raise AssertionError(f"{name} did not run on the card")
+        diffs = []
+        for g, w in zip(got, want):
+            if g.dtype == torch.bool:
+                if not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"{name}: the inlier masks differ card vs CPU")
+            else:
+                diffs.append(float((g.cpu() - w).abs().max()))
+        tol = ROT_TOL if "Rotation" in name else FACADE_SCALAR_TOL
+        if max(diffs) > tol:
+            raise AssertionError(f"{name}: card vs CPU {max(diffs)} > {tol}")
+        print(f"[tools] facade {name}: max |card - CPU| {max(diffs):.3g} (tol {tol}), "
+              "masks equal")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[tools] phase 23 in {out['phase_s']:.1f} s; card: {card}")
+    return out
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from psulvsb_tpu_torch.ops._build import BUILD_INFO, load_library
@@ -2318,6 +2443,7 @@ def main() -> int:
         frontend = phase_frontend_sweep(device, card)
         sweeps["frontend"] = {"launches": frontend["launches"]}
         entry = phase_entry_points(device, card, scene_root)
+    tools = phase_reference_tools(device, card)
 
     def row(name, source, replaces, path, staged, err, timed):
         """`launches`: over the fused path's N_TIMED_SOLVES solves, replayed
@@ -2325,7 +2451,8 @@ def main() -> int:
         `launches_sweep`: over phase 19's two dataset sweeps and phase 21's
         two front-end sweeps; `launches_cli`: over phase 22's in-process CLI
         solves (two at known scale on the anchor, two at estimated scale at
-        C = 5000, the CLI's defaults otherwise)."""
+        C = 5000, the CLI's defaults otherwise); `launches_tools`: over phase
+        23's full-scale sweeps and cap-sweep points."""
         ms, plain_ms, (bound, bound_by) = timed
         if staged <= 0 or fused[path]["launches"][name] <= 0:
             raise AssertionError(f"{name} did not launch on the {path} path")
@@ -2336,6 +2463,7 @@ def main() -> int:
             "launches_sweep": {tag: sw["launches"][name] for tag, sw in sweeps.items()},
             "launches_cli": sum(entry["cli"][tag]["launches"][name]
                                 for tag in ("anchor", "unknown")),
+            "launches_tools": {tag: n[name] for tag, n in tools["launches"].items()},
             "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             # No single PyTorch call computes any of these functions.

@@ -124,6 +124,41 @@ class SyntheticPair(NamedTuple):
     outlier_mask: np.ndarray  # (N,) bool — True where dst was corrupted
 
 
+def _clustered_outliers(rng, src, dst, gt, out_idx, noise_bound, max_translation):
+    """dst with the outliers `out_idx` in colluding groups, as the JAX
+    package's "clustered" mode makes them (psulvsb_tpu/eval/synthetic.py:
+    184-229): each center claims its `cap` nearest unassigned outliers, cap
+    = max(8, 0.6 of the inlier count), so the true consensus stays the
+    largest; a group's points go to T_g(T_gt(src)) + noise under a decoy
+    motion T_g of its own, the way matching two identical chairs does."""
+    src64 = np.asarray(src, np.float64)
+    n_out = out_idx.size
+    cap = max(8, int(0.6 * (src.shape[1] - n_out)))
+    n_groups = max(1, -(-n_out // cap))
+    centers = src64[:, rng.choice(out_idx, size=n_groups, replace=False)]
+    d2 = np.sum((src64[:, out_idx, None] - centers[:, None, :]) ** 2, axis=0)  # (n_out, groups)
+    group_of = np.full(n_out, -1)
+    taken = np.zeros(n_out, bool)
+    for g in range(n_groups):
+        order = np.argsort(np.where(taken, np.inf, d2[:, g]))
+        pick = order[: min(cap, n_out - int(taken.sum()))]
+        group_of[pick] = g
+        taken[pick] = True
+    noise = rng.uniform(-noise_bound, noise_bound, size=(3, n_out))
+    out = np.array(dst, np.float64)
+    gt_r = np.asarray(gt.rotation, np.float64)
+    gt_t = np.asarray(gt.translation, np.float64)
+    for g in range(n_groups):
+        members = out_idx[group_of == g]
+        if members.size == 0:
+            continue
+        decoy = random_se3(rng, max_translation=max_translation, dtype=np.float64)
+        base = gt_r @ src64[:, members] + gt_t[:, None]
+        out[:, members] = np.asarray(decoy.rotation) @ base + np.asarray(decoy.translation)[:, None]
+    out[:, out_idx] += noise
+    return out
+
+
 def make_synthetic_pair(
     rng: np.random.Generator,
     src: np.ndarray,
@@ -140,7 +175,9 @@ def make_synthetic_pair(
     uniform in [5, 10] with a random sign (the published protocol);
     "mismatch" gives each outlier the (transformed, noisy) target of
     another random point (the JAX package's eval/synthetic.py mode, used by
-    the correspondence-benchmark fixtures).
+    the correspondence-benchmark fixtures); "clustered" makes colluding
+    wrong matches, spatial groups of outliers each rigidly consistent with
+    a decoy motion of its own (`_clustered_outliers`).
 
     The test scale follows the batch harness's unknown-scale protocol
     (psulvsb_tpu/eval/batch_harness.py:285-303): the returned transform
@@ -163,8 +200,13 @@ def make_synthetic_pair(
     elif outlier_mode == "mismatch":
         wrong = rng.permutation(n)
         dst = np.where(outlier_mask[None, :], dst[:, wrong], dst)
+    elif outlier_mode == "clustered":
+        dst = _clustered_outliers(rng, src, dst, gt, np.where(outlier_mask)[0], noise_bound,
+                                  max_translation)
     else:
-        raise ValueError(f"outlier_mode must be 'displace' or 'mismatch', got {outlier_mode!r}")
+        raise ValueError(
+            f"outlier_mode must be 'displace', 'mismatch' or 'clustered', got {outlier_mode!r}"
+        )
     gt = gt._replace(scale=np.asarray(test_scale, dtype))
     return SyntheticPair(
         src=src, dst=(dst * test_scale).astype(dtype), transform=gt, outlier_mask=outlier_mask

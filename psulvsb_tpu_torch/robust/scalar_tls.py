@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from psulvsb_tpu_torch.utils.precision import mm
-from psulvsb_tpu_torch.utils.scalars import as_scalar
+from psulvsb_tpu_torch.utils.scalars import as_float32, as_generator, as_scalar
 
 _BIG = 1e30
 _GRID_LIMIT = 1 << 27  # entries of one slice of the 1-point consensus grid
@@ -206,3 +206,44 @@ def max_stabbing(
     )[..., 0]
     inliers = (torch.abs(x - estimate[..., None]) <= noise) & active
     return estimate, inliers
+
+
+class ScalarTLSEstimator:
+    """Facade of teaser::ScalarTLSEstimator (registration.h:107-133).
+    `estimate` gives the PSULVSB fork's two modes through explicit arguments
+    in place of the reference's STswitch/first_time globals
+    (registration.cc:41-42); `estimate_tiled` is stock adaptive voting.
+
+    The inputs are moved to `device` as float32: the card unless the caller
+    asks for the CPU. The scale mode draws from `generator` (a
+    torch.Generator on `device`, or an int seed), or from the uniforms `u`
+    a call passes in (JAX's own give JAX's draws)."""
+
+    def __init__(self, generator=0, device="cuda"):
+        self.device = torch.device(device)
+        self._gen = as_generator(generator, self.device)
+
+    def estimate(self, x, ranges, mode: str = "scale", warm_value=None, noise=None, u=None):
+        """mode="scale": 1-point RANSAC consensus (the STswitch == 0 path);
+        mode="translation": max-interval stabbing (STswitch >= 1; `noise` is
+        the per-axis translation noise, by default ranges[0]). A warm value
+        takes the first draw (registration.cc:76-86, 136-161). Returns
+        (estimate, inlier mask)."""
+        x = as_float32(x, self.device)
+        ranges = as_float32(ranges, self.device)
+        warm = None if warm_value is None else as_float32(warm_value, self.device)
+        if mode == "scale":
+            return scale_consensus_1pt(
+                x, ranges, warm_value=warm, use_warm=warm is not None, u=u, generator=self._gen,
+            )
+        if mode == "translation":
+            n = ranges[0] if noise is None else as_float32(noise, self.device)
+            return max_stabbing(x, n, warm_value=warm, use_warm=warm is not None)
+        raise ValueError(f"unknown mode {mode!r}")
+
+    def estimate_tiled(self, x, ranges, s: int = 64):
+        """Stock TEASER adaptive voting (registration.cc:206-320). The tile
+        size `s` is a CPU cache-blocking knob of the reference; it is taken
+        for the signature's sake and ignored."""
+        del s
+        return tls_vote(as_float32(x, self.device), as_float32(ranges, self.device))

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from psulvsb_tpu_torch.robust.scalar_tls import scale_consensus_1pt, tls_vote
-from psulvsb_tpu_torch.utils.scalars import as_scalar
+from psulvsb_tpu_torch.utils.scalars import as_float32, as_generator, as_scalar
 
 
 def tim_norms(tims: torch.Tensor, active: torch.Tensor | None = None) -> torch.Tensor:
@@ -91,3 +91,44 @@ def select_scale_inliers(
     beta = _beta(noise_bound, cbar2, v1)
     inliers = (torch.abs(v1 - v2) <= beta) & active
     return torch.ones(src_tims.shape[:-2], dtype=dtype, device=dev), inliers, beta
+
+
+class TLSScaleSolver:
+    """Facade of teaser::TLSScaleSolver (registration.h:138-166): the
+    unknown-scale estimate of `solve_scale_tls` on float32 TIMs moved to
+    `device` (the card unless the caller asks for the CPU). Each solve
+    draws from `seed` (an int, or a torch.Generator on `device`), or from
+    the uniforms `u` it is given."""
+
+    def __init__(self, noise_bound: float, cbar2: float, seed=0, device="cuda"):
+        self.noise_bound = noise_bound
+        self.cbar2 = cbar2
+        self.device = torch.device(device)
+        self._gen = as_generator(seed, self.device)
+
+    def solveForScale(self, src_tims, dst_tims, u=None):
+        """Returns (scale, inlier mask over the TIM columns)."""
+        scale, inliers, _ = solve_scale_tls(
+            as_float32(src_tims, self.device), as_float32(dst_tims, self.device),
+            self.noise_bound, self.cbar2, u=u, generator=self._gen,
+        )
+        return scale, inliers
+
+
+class ScaleInliersSelector:
+    """Facade of teaser::ScaleInliersSelector (registration.h:168-189): the
+    known-scale inlier test of `select_scale_inliers` on float32 TIMs moved
+    to `device` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, noise_bound: float, cbar2: float, device="cuda"):
+        self.noise_bound = noise_bound
+        self.cbar2 = cbar2
+        self.device = torch.device(device)
+
+    def solveForScale(self, src_tims, dst_tims):
+        """Returns (scale = 1, inlier mask over the TIM columns)."""
+        scale, inliers, _ = select_scale_inliers(
+            as_float32(src_tims, self.device), as_float32(dst_tims, self.device),
+            self.noise_bound, self.cbar2,
+        )
+        return scale, inliers

@@ -9,7 +9,7 @@ import torch
 
 from psulvsb_tpu_torch.robust.scalar_tls import max_stabbing
 from psulvsb_tpu_torch.utils.precision import mm
-from psulvsb_tpu_torch.utils.scalars import as_scalar
+from psulvsb_tpu_torch.utils.scalars import as_float32, as_scalar
 
 
 def scatter_or(num_points: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -129,3 +129,22 @@ def global_translation_vote(
     s_safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     cur_box = (torch.abs(d - scale * current_translation) <= beta).all(-1) & real
     return center / s_safe, member.sum(), cur_box.sum()
+
+
+class TLSTranslationSolver:
+    """Facade of teaser::TLSTranslationSolver (registration.h:194-217): the
+    component-wise translation of `solve_translation` on float32 points
+    moved to `device` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, noise_bound: float, cbar2: float, device="cuda"):
+        self.noise_bound = noise_bound
+        self.cbar2 = cbar2
+        self.device = torch.device(device)
+
+    def solveForTranslation(self, src, dst):
+        """Returns (translation (3,), inlier mask over the points)."""
+        t, inliers, _ = solve_translation(
+            as_float32(src, self.device), as_float32(dst, self.device), self.noise_bound,
+            self.cbar2,
+        )
+        return t, inliers

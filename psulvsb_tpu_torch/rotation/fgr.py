@@ -20,7 +20,7 @@ import torch
 from psulvsb_tpu_torch.core.linalg import svd_rot
 from psulvsb_tpu_torch.core.metrics import calculate_diameter
 from psulvsb_tpu_torch.utils.precision import mm
-from psulvsb_tpu_torch.utils.scalars import as_scalar
+from psulvsb_tpu_torch.utils.scalars import as_float32, as_scalar
 
 
 class FGRResult(NamedTuple):
@@ -127,8 +127,7 @@ class FastGlobalRegistrationSolver:
 
     def solveForRotation(self, src, dst):
         res = fgr_rotation(
-            torch.as_tensor(src).to(self.device, torch.float32),
-            torch.as_tensor(dst).to(self.device, torch.float32), self.noise_bound,
+            as_float32(src, self.device), as_float32(dst, self.device), self.noise_bound,
             max_iterations=self.max_iterations, gnc_factor=self.gnc_factor,
             cost_threshold=self.cost_threshold,
         )

@@ -20,6 +20,7 @@ import torch
 
 from psulvsb_tpu_torch.core.linalg import svd_rot
 from psulvsb_tpu_torch.utils.precision import mm
+from psulvsb_tpu_torch.utils.scalars import as_float32
 
 
 class GNCResult(NamedTuple):
@@ -164,3 +165,28 @@ def gnc_tls_rotation(
         cost=cost[0],
         iterations=iters[0],
     )
+
+
+class GNCTLSRotationSolver:
+    """Facade of teaser::GNCTLSRotationSolver (registration.h:267-295): the
+    single-problem `gnc_tls_rotation` on float32 TIMs moved to `device` (the
+    card unless the caller asks for the CPU), as the JAX facade runs it."""
+
+    def __init__(self, noise_bound: float = 0.01, cost_threshold: float = 1e-6,
+                 gnc_factor: float = 1.4, max_iterations: int = 100, device="cuda"):
+        self.noise_bound = noise_bound
+        self.cost_threshold = cost_threshold
+        self.gnc_factor = gnc_factor
+        self.max_iterations = max_iterations
+        self.device = torch.device(device)
+
+    def solveForRotation(self, src, dst, warm_rotation=None):
+        """Returns (rotation (3, 3), inlier mask over the TIM columns); a warm
+        rotation replaces the solve of iteration 0 (registration.cc:1617-1621)."""
+        warm = None if warm_rotation is None else as_float32(warm_rotation, self.device)
+        res = gnc_tls_rotation(
+            as_float32(src, self.device), as_float32(dst, self.device), self.noise_bound,
+            max_iterations=self.max_iterations, gnc_factor=self.gnc_factor,
+            cost_threshold=self.cost_threshold, warm_rotation=warm, use_warm=warm is not None,
+        )
+        return res.rotation, res.inliers

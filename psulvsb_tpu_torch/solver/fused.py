@@ -71,7 +71,7 @@ from psulvsb_tpu_torch.solver.psulvsb import (
 )
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 from psulvsb_tpu_torch.utils.precision import pin_float32
-from psulvsb_tpu_torch.utils.scalars import device_flag
+from psulvsb_tpu_torch.utils.scalars import as_generator, device_flag
 
 _F32 = torch.float32
 _F64 = torch.float64
@@ -672,19 +672,6 @@ def clear_plan_cache() -> None:
     _PLANS.clear()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-
-
-def as_generator(generator_or_seed, device: torch.device) -> torch.Generator:
-    """A generator on `device`: the caller's own, or a new one from a seed."""
-    if isinstance(generator_or_seed, torch.Generator):
-        if generator_or_seed.device.type != device.type:
-            raise ValueError(
-                f"the generator lies on {generator_or_seed.device}, the solve runs on {device}"
-            )
-        return generator_or_seed
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(generator_or_seed))
-    return gen
 
 
 def stage_inputs(src, dst, keep_mask, device: torch.device):

@@ -22,6 +22,24 @@ def as_scalar(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
+def as_float32(x, device: torch.device) -> torch.Tensor:
+    """A facade's input (tensor, numpy or a list) as float32 on `device`."""
+    return torch.as_tensor(x).to(device, torch.float32)
+
+
+def as_generator(generator_or_seed, device: torch.device) -> torch.Generator:
+    """A generator on `device`: the caller's own, or a new one from a seed."""
+    if isinstance(generator_or_seed, torch.Generator):
+        if generator_or_seed.device.type != device.type:
+            raise ValueError(
+                f"the generator lies on {generator_or_seed.device}, the work runs on {device}"
+            )
+        return generator_or_seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(generator_or_seed))
+    return gen
+
+
 def pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """x[i] along dim 0 for a 0-d index tensor, without the host read that
     x[i] makes (indexing by a 0-d tensor converts it to a Python int)."""

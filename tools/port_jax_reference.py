@@ -2,7 +2,7 @@
 PyTorch port's, computed on the CPU.
 
     JAX_PLATFORMS=cpu python tools/port_jax_reference.py \
-        [hostile|frontend|frontend_unknown|demo ...]
+        [hostile|frontend|frontend_unknown|demo|audit ...]
 
 - hostile: the hostile pair of chip_smoke.py's clique phase (the anchor
   protocol, C = 1889, 99% displaced outliers, data seed 5, made with the
@@ -17,6 +17,11 @@ PyTorch port's, computed on the CPU.
   the port on the CPU) at unknown scale, ddtime 1, KITTI criteria, through
   the JAX package's `run_benchmark_batched` and, on the same files, the
   port's on the CPU; each harness's recall;
+- audit: the worst case of the port's clique audit on the card
+  (docs/CLIQUE_AUDIT_torch.md: C = 2000, 95% clustered outliers, ratio
+  window, seed 2095), on the port's own numpy pair: the JAX package's
+  `dense_consistency_adjacency` and its core- and triangle-ordered
+  `greedy_clique` beside the port's, on the CPU, and the native exact size;
 - demo: the synthetic protocol of `psulvsb_demo` at its defaults (a 500-point
   `synthetic_cloud`, 10 trials, 90% outliers, noise 0.05,
   `preset_artificial()`) through the JAX package's `run_protocol`; recall is
@@ -114,6 +119,34 @@ def frontend_unknown() -> None:
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def audit() -> None:
+    from psulvsb_tpu.clique.kcore import greedy_clique, triangle_scores
+    from psulvsb_tpu.solver.psulvsb import dense_consistency_adjacency
+    from psulvsb_tpu_torch.clique.pmc import exact_max_clique
+    from tools import clique_scale_audit_torch as audit_tool
+
+    c, rate, mode = 2000, 0.95, "clustered"
+    pair = audit_tool.case_pair(c, rate, mode, seed=c + int(rate * 100))
+    port_adj = audit_tool.case_adjacency(pair, True, "cpu")
+    port = audit_tool.greedy_sizes(port_adj)
+    params = SolverParams.preset_3dmatch(estimate_scaling=True, sampled_cap=2048, basic_cap=256,
+                                         hypothesis_batch=4)
+    inl = np.where(~pair.outlier_mask)[0]
+    adj = dense_consistency_adjacency(
+        jnp.asarray(pair.src), jnp.asarray(pair.dst), jnp.asarray(inl[:-1], jnp.int32),
+        jnp.asarray(inl[1:], jnp.int32), jnp.asarray(inl.size - 1, jnp.int32), params,
+        jnp.ones((c,), bool),
+    )
+    core = int(np.asarray(greedy_clique(adj)).sum())
+    tri = int(np.asarray(greedy_clique(adj, order_scores=triangle_scores(adj))).sum())
+    flipped = int((np.asarray(adj) != port_adj.numpy()).sum())
+    exact = len(exact_max_clique(np.asarray(adj), time_limit_s=600.0))
+    print(f"audit case C={c} {rate} {mode} ratio window, the port's pair: JAX graph "
+          f"{int(np.asarray(adj).sum()) // 2} edges ({flipped} entries flipped against the "
+          f"port's), JAX greedy core {core} tri {tri}; port greedy core {port['core_greedy']} "
+          f"tri {port['tri_greedy']}; exact {exact} (native, on JAX's graph)", flush=True)
+
+
 def demo() -> None:
     from psulvsb_tpu.eval.protocol import run_protocol
     from psulvsb_tpu.eval.synthetic import synthetic_cloud
@@ -129,7 +162,7 @@ def demo() -> None:
 
 def main() -> None:
     cases = {"hostile": hostile, "frontend": frontend, "frontend_unknown": frontend_unknown,
-             "demo": demo}
+             "demo": demo, "audit": audit}
     for name in sys.argv[1:] or list(cases):
         cases[name]()
 
