@@ -10,7 +10,8 @@ and prints no result line):
 2. build — compile the four kernels (csrc/gnc_batch.cu,
    csrc/pair_ratio_hist.cu, csrc/pair_beta_count.cu,
    csrc/consistency_degree.cu; the last three share csrc/pair_sweep.cuh)
-   with nvcc, one process each, all started together, and print ptxas's
+   and csrc/graph_cond.cu (the one-launch graph's conditional nodes) with
+   nvcc, one process each, all started together, and print ptxas's
    register lines;
 3. kernel vs plain — ops.gnc.gnc_batch (the kernel) against
    gnc_batch_reference (plain PyTorch) on the card, at (B, N) = (4, 256),
@@ -91,25 +92,33 @@ and prints no result line):
    peak device memory of the clique round's batched triangle products at
    C = 8192 (printed);
 12. replay against eager — solver.fused.psulvsb_register with graphs=True
-   (each segment of the solve a replayed CUDA graph) and graphs=False (the
-   same segments run eagerly), same seed, on the anchor, the unknown-scale
-   pair (C = 5000), the wide pair (C = 12000), the GROR preset,
-   pair_seed1375 under the front-end preset and the hostile pair: the
-   solutions must be equal (difference 0), on a second pair of the same
-   shape through the same plan too; each plan's build time, segments and
-   device bytes are printed;
+   (the whole solve one CUDA graph launch, its control flow conditional
+   nodes) and graphs=False (the same solve run eagerly), same seed, on the
+   anchor, the unknown-scale pair (C = 5000), the wide pair (C = 12000), the
+   GROR preset, pair_seed1375 under the front-end preset, the eager clique
+   seed, the lazy seed at the sweep's 8192 bucket (scale estimated, 95%
+   mismatch outliers) and the hostile pair: every replayed solve one graph
+   launch with 0 host reads, the solutions equal (difference 0), on a
+   second pair of the same shape through the same plan too; each plan's
+   build, capture and instantiate seconds, graph nodes (conditional nodes
+   among them) and device bytes are printed;
 13. the fused path — psulvsb_register on each of those paths over 5 seeds
-   under phase 4's pose gates (KITTI's for the real pair; the hostile pair
-   is printed beside its staged recall), walls a solve in turns (staged,
-   fused, fused, staged) in one process, graph replays and host reads a
-   solve, device operations and host-issued operations a solve
-   (torch.profiler); the launch counts, which include every replayed
-   launch, set to 0 before each path and read after it;
+   under phase 4's pose gates (KITTI's for the real pair; the hostile and
+   lazy-seed pairs are printed beside their staged recall), walls a solve in
+   turns (staged, fused, fused, staged) in one process, graph launches (1)
+   and host reads (0) a solve, rounds, batches, whether a clique seed ran
+   and the steps its greedy took on the device (fewer than C - 1: the eager
+   seed's and the lazy seed's at 8192 are gated), device operations and
+   host-issued operations a solve (torch.profiler); the launch counts,
+   which the graph counts on the device as it runs, set to 0 before each
+   path and read after it;
 14. the pair batch — parallel.pairs.register_batch at B = 8 and 32 on the
    anchor protocol (a pair a seed) and at B = 8 on the unknown-scale one,
-   in order and with pairs in flight (vectorized=True): every pair gated on
-   RE < 5 deg and TE < 0.3 against its ground truth and equal to its solve
-   alone; pairs per second beside B serial psulvsb_solve calls, in turns;
+   in order and with pairs in flight (vectorized=True), each run once more
+   under torch.cuda.set_sync_debug_mode("error") (no host synchronization
+   before the readback): every pair gated on RE < 5 deg and TE < 0.3
+   against its ground truth and equal to its solve alone; pairs per second
+   beside B serial psulvsb_solve calls, in turns;
 15. the pipeline — eval.pipeline.solve_with_prefilter on pair_seed1375
    padded to its 2048 bucket through psulvsb_register, the pre-filter off
    (KITTI gates) and on (the keep-mask counts are printed);
@@ -126,9 +135,10 @@ and prints no result line):
 17. the exact clique round — the hostile pair of phase 11 with
    exact_clique_callback=True over the same 12 seeds, staged and fused: a
    b_rate == 1.0 round must have gone through the native exact search (the
-   searches are counted), recall is printed beside the greedy's and not
-   gated (as in phase 11 (b)), and the wall a solve beside the greedy's, in
-   turns, staged and fused;
+   searches are counted; this setting's fused plan runs eagerly, since a
+   graph cannot call the host), recall is printed beside the greedy's and
+   not gated (as in phase 11 (b)), and the wall a solve beside the
+   greedy's, in turns, staged and fused;
 18. FGR and "eigh" — the anchor with rotation_estimation_algorithm=FGR and
    with gnc_rot_method="eigh", staged and fused (replayed against eager),
    under phase 4's gates; the "eigh" solves must launch the GNC kernel 0
@@ -141,7 +151,8 @@ and prints no result line):
    preset_3dmatch at the caps (2048, 256, 4): ddtime 10 at known scale (300
    solves, the pre-filter on), then ddtime 2 with unknown_scale=True, which
    launches the histogram kernel. Recall, pairs and solves per second, the
-   split of the timed region and the peak device memory are printed. Every
+   split of the timed region, the peak device memory and each bucket plan's
+   build, capture and instantiate seconds, graph nodes and bytes are printed. Every
    pair at an outlier rate <= 0.9 must succeed under
    SuccessCriteria.threedmatch() at known scale; for the first six pairs
    the serial eval.realdata.run_scene must give the batched harness's
@@ -220,10 +231,11 @@ and prints no result line):
 
 Every launch count is set to 0 just before a phase drives a solve path and
 read just after it; launches made to compare a kernel with its plain
-version are not counted in any path. A replayed graph launches the kernels
-it captured without calling their wrappers: the plan adds those to the
-wrappers' counts at each replay (a capture itself launches nothing and is
-not counted).
+version are not counted in any path. A graph launches the kernels it
+captured without calling their wrappers, and which of them run depends on
+its conditional nodes: each region of the graph adds the launches it
+captured to a counter on the device as it runs, and reading the counts
+adds those in (a capture itself launches nothing and is not counted).
 """
 
 from __future__ import annotations
@@ -543,15 +555,16 @@ def anchor_case(c=ANCHOR_C, rate=0.9, data_seed=1, cloud_seed=0):
     return pair.src, pair.dst, (t.rotation, t.translation, float(t.scale))
 
 
-def unknown_scale_case(c, seed):
+def unknown_scale_case(c, seed, rate=None):
     """The 3DMatch unknownScale protocol: noise 0.01, 85% mismatch
-    outliers, dst stretched by a test scale drawn in [1, 5) from the seed."""
+    outliers (or `rate`), dst stretched by a test scale drawn in [1, 5)
+    from the seed."""
     from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 
     rng = np.random.default_rng(seed)
     test_scale = 1.0 + 4.0 * rng.uniform()
     pair = make_synthetic_pair(
-        rng, synthetic_cloud(c, seed=seed), 0.01, UNKNOWN_RATE, outlier_mode="mismatch",
+        rng, synthetic_cloud(c, seed=seed), 0.01, rate or UNKNOWN_RATE, outlier_mode="mismatch",
         test_scale=test_scale,
     )
     t = pair.transform
@@ -689,9 +702,12 @@ def phase_slice(device, card: str) -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (the launches the plans' graphs
+    counted on the device too)."""
     from psulvsb_tpu_torch.ops import gnc, hist, pairs
+    from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
+    flush_launch_counts()
     gnc.KERNEL_LAUNCHES = 0
     pairs.KERNEL_LAUNCHES = 0
     for name in hist.KERNEL_LAUNCHES:
@@ -699,8 +715,12 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
+    """Every kernel's launch count, with the launches the plans' graphs
+    counted on the device since the last read added in."""
     from psulvsb_tpu_torch.ops import gnc, hist, pairs
+    from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
+    flush_launch_counts()
     return {
         "gnc_batch": gnc.KERNEL_LAUNCHES, **hist.KERNEL_LAUNCHES,
         "consistency_degree": pairs.KERNEL_LAUNCHES,
@@ -1091,22 +1111,37 @@ def phase_clique(device, card: str) -> dict:
     return {"seeded": seeded, "rounds": rounds}
 
 
-FUSED_PATHS = ("anchor", "unknown", "wide", "gror", "frontend", "hostile")
+FUSED_PATHS = ("anchor", "unknown", "wide", "gror", "frontend", "eager_seed", "lazy_seed",
+               "hostile")
 BATCH_SIZES = {"anchor": (8, 32), "unknown": (8,)}
 BATCH_C = {"anchor": ANCHOR_C, "unknown": UNKNOWN_C}
 PIPELINE_BUCKET = 2048
+LAZY_SEED_C = 8192  # the sweep's largest bucket
+LAZY_SEED_RATE = 0.95  # the sweep's highest outlier rate (write_scene's cycle)
+LAZY_SEED_DATA_SEED = 21
+LAZY_SEED_MORE = 20  # seeds beyond the timed ones that may be needed to see it run
 
 
 def fused_case(name, variant=0):
     """(params, case, limits, gated) of a path the fused solve is held on:
-    path_case's, or the hostile pair of phase 11. variant 1 is a second pair
-    of the same shape: other data seeds for the synthetic protocols, the
-    columns turned by one for the real pair."""
+    path_case's; the eager clique seed (phase 11 (a)); the lazy seed at the
+    sweep's 8192 bucket with scale estimated (the sweep's preset, 95%
+    mismatch outliers; pose printed, not gated); or the hostile pair of
+    phase 11. variant 1 is a second pair of the same shape: other data seeds
+    for the synthetic protocols, the columns turned by one for the real
+    pair."""
     from psulvsb_tpu_torch import SolverParams
 
     if name == "hostile":  # recall is printed, not gated: phase 11 (b)
         case = anchor_case(rate=HOSTILE_RATE, data_seed=HOSTILE_DATA_SEED + variant)
         return SolverParams.preset_artificial(**CAPS), case, LIMITS, False
+    if name == "lazy_seed":
+        case = unknown_scale_case(LAZY_SEED_C, LAZY_SEED_DATA_SEED + variant, LAZY_SEED_RATE)
+        return sweep_params().replace(estimate_scaling=True), case, LIMITS, False
+    if name == "eager_seed":
+        params = SolverParams.preset_artificial_gror(clique_init="eager", **CAPS)
+        case = anchor_case(data_seed=11, cloud_seed=11) if variant else anchor_case()
+        return params, case, LIMITS, True
     params, case = path_case(name)
     if variant:
         if name == "frontend":
@@ -1131,8 +1166,24 @@ def solution_difference(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
 
 
+def one_launch(tag: str, stats: dict) -> None:
+    """A replayed solve must be one graph launch with no host read."""
+    if stats["graph_launches"] != 1 or stats["host_reads"] != 0:
+        raise AssertionError(f"{tag}: {stats['graph_launches']} graph launches and "
+                             f"{stats['host_reads']} host reads, not 1 and 0")
+
+
+def plan_figures(plan) -> dict:
+    """A plan's build (its first solve: eager run, capture, instantiate),
+    capture and instantiate seconds, graph nodes and device bytes."""
+    return {"build_s": round(plan.build_s, 3), "capture_s": round(plan.capture_s, 3),
+            "instantiate_s": plan.instantiate_s and round(plan.instantiate_s, 3),
+            "graph_nodes": plan.graph_nodes, "conditional_nodes": plan.conditional_nodes,
+            "bytes": plan.nbytes, "MiB": round(plan.nbytes / 2**20, 1)}
+
+
 def phase_replay_vs_eager(device, card: str) -> dict:
-    """Phase 12: replayed graphs against the same segments run eagerly."""
+    """Phase 12: the one graph launch against the same solve run eagerly."""
     from psulvsb_tpu_torch.solver.fused import plan_for, psulvsb_register
 
     plans = {}
@@ -1140,22 +1191,22 @@ def phase_replay_vs_eager(device, card: str) -> dict:
         for variant in (0, 1):
             params, case, _, _ = fused_case(name, variant)
             src, dst, keep = on_device(case, device)
+            plan = plan_for(params, src.shape[1], device)
             for seed in (3, 4):
                 replayed = psulvsb_register(src, dst, keep, seed, params)
+                one_launch(f"{name} pair {variant} seed {seed}", plan.stats)
                 eager = psulvsb_register(src, dst, keep, seed, params, graphs=False)
                 torch.cuda.synchronize()
                 diff = solution_difference(replayed, eager)
                 print(f"[replay] {name} pair {variant} seed {seed}: valid={bool(replayed.valid)} "
-                      f"inliers={int(replayed.final_inlier_count)} replay - eager = {diff}")
+                      f"inliers={int(replayed.final_inlier_count)} rounds={plan.stats['rounds']} "
+                      f"batches={plan.stats['local_batches']} seeded={plan.stats['seeded']} "
+                      f"replay - eager = {diff}")
                 if diff != 0.0 or bool(replayed.valid) != bool(eager.valid):
                     raise AssertionError(f"{name}: a replayed plan differs from its eager run by "
                                          f"{diff}")
-        plan = plan_for(params, src.shape[1], device)
-        plans[name] = {"build_s": plan.build_s, "segments": len(plan.segments),
-                       "bytes": plan.nbytes}
-        print(json.dumps({"plan": name, "C": src.shape[1], "build_s": round(plan.build_s, 3),
-                          "segments": len(plan.segments), "bytes": plan.nbytes,
-                          "MiB": round(plan.nbytes / 2**20, 1), "card": card}))
+        plans[name] = plan_figures(plan)
+        print(json.dumps({"plan": name, "C": src.shape[1], **plans[name], "card": card}))
     return plans
 
 
@@ -1200,7 +1251,7 @@ def profiled_operations(fn, reps: int = 3) -> tuple[float, float]:
 
 
 def phase_fused_paths(device, card: str) -> dict:
-    """Phase 13: the fused path's gates, walls, reads and launches."""
+    """Phase 13: the fused path's gates, walls, launches and reads."""
     from psulvsb_tpu_torch import psulvsb_solve
     from psulvsb_tpu_torch.solver.fused import plan_for, psulvsb_register
 
@@ -1218,19 +1269,20 @@ def phase_fused_paths(device, card: str) -> dict:
         def fused(seed):
             return psulvsb_register(src, dst, keep, seed, params)
 
-        fused(0)  # every segment this path takes is captured before the count
+        fused(0)  # the plan's graph is captured before the count
         reset_launches()
-        passed, reads, replays, syncs, staged_passed = 0, [], [], [], 0
+        passed, staged_passed, syncs, runs = 0, 0, [], []
         for seed in seeds:
             sol = fused(seed)
             valid, re, te, se, ok = score_solution(f"fused {name}", sol, case[2], limits)
             stats = dict(plan.stats)
-            reads.append(stats["host_reads"])
-            replays.append(stats["graph_replays"])
+            one_launch(f"fused {name} seed {seed}", stats)
+            runs.append(stats)
             print(f"[fused {name}] seed={seed}: valid={valid} RE={re:.4f} deg TE={te:.5f} "
                   f"scale error {se:.5f} rounds={stats['rounds']} "
-                  f"batches={stats['local_batches']} host_reads={stats['host_reads']} "
-                  f"graph_replays={stats['graph_replays']}")
+                  f"batches={stats['local_batches']} seeded={stats['seeded']} "
+                  f"seed greedy steps={stats['seed_greedy_steps']} "
+                  f"graph launches={stats['graph_launches']} host reads={stats['host_reads']}")
             if gated and not ok:
                 raise AssertionError(f"fused {name} seed {seed} failed its gate: valid={valid} "
                                      f"RE={re} TE={te} scale error={se}")
@@ -1240,8 +1292,6 @@ def phase_fused_paths(device, card: str) -> dict:
             sol_s, info = staged(seed)
             syncs.append(info["host_syncs"])
             staged_passed += score_solution(f"staged {name}", sol_s, case[2], limits)[4]
-            if reads[len(syncs) - 1] > info["host_syncs"] - 1:
-                raise AssertionError(f"fused {name}: more host reads than the staged solver")
         turns = [timed_walls(f, seeds) for f in (staged, fused, fused, staged)]
         med = [statistics.median(t) for t in turns]
         dev_f, host_f = profiled_operations(lambda: fused(7))
@@ -1250,22 +1300,50 @@ def phase_fused_paths(device, card: str) -> dict:
             "path": name, "C": src.shape[1], "passed": passed, "staged_passed": staged_passed,
             "solves": len(seeds),
             "wall_ms_staged": [med[0], med[3]], "wall_ms_fused": [med[1], med[2]],
-            "host_reads_fused": reads, "host_syncs_staged": syncs, "graph_replays": replays,
+            "graph_launches_fused": [r["graph_launches"] for r in runs],
+            "host_reads_fused": [r["host_reads"] for r in runs], "host_syncs_staged": syncs,
+            "rounds": [r["rounds"] for r in runs], "batches": [r["local_batches"] for r in runs],
+            "seeded": [r["seeded"] for r in runs],
+            "seed_greedy_steps": [r["seed_greedy_steps"] for r in runs],
             "device_ops_fused": dev_f, "host_issued_ops_fused": host_f,
             "device_ops_staged": dev_s, "host_issued_ops_staged": host_s,
-            "launches": launches, "plan_build_s": round(plan.build_s, 3),
-            "plan_bytes": plan.nbytes, "card": card,
+            "launches": launches, "plan": plan_figures(plan), "card": card,
         }
         print(json.dumps(out[name]))
-        if launches["gnc_batch"] < sum(r for r in replays) // 4:
-            raise AssertionError(f"fused {name}: the replays' GNC launches were not counted: "
+        if launches["gnc_batch"] < sum(r["local_batches"] for r in runs):
+            raise AssertionError(f"fused {name}: the graph's GNC launches were not counted: "
                                  f"{launches}")
     need = {"unknown": "pair_ratio_hist", "wide": "pair_beta_count", "gror": "consistency_degree",
-            "frontend": "consistency_degree"}
+            "frontend": "consistency_degree", "eager_seed": "consistency_degree",
+            "lazy_seed": "pair_ratio_hist"}
     for name, kernel in need.items():
         if out[name]["launches"][kernel] != N_TIMED_SOLVES:
             raise AssertionError(f"fused {name} must launch {kernel} once a solve: "
                                  f"{out[name]['launches']}")
+    # The seeds' greedy runs on the device until no candidate is left: the
+    # lazy seed at the 8192 bucket must have run, in fewer steps than C - 1.
+    # The lazy seed runs where a round escalates, which about half of this
+    # pair's solves do: where none of the timed ones did, more seeds go
+    # through the same plan until one does.
+    params, case, _, _ = fused_case("lazy_seed")
+    src, dst, keep = on_device(case, device)
+    plan = plan_for(params, src.shape[1], device)
+    for seed in range(200, 200 + LAZY_SEED_MORE):
+        if any(out["lazy_seed"]["seeded"]):
+            break
+        psulvsb_register(src, dst, keep, seed, params)
+        stats = plan.stats
+        one_launch(f"fused lazy_seed seed {seed}", stats)
+        out["lazy_seed"]["seeded"].append(stats["seeded"])
+        out["lazy_seed"]["seed_greedy_steps"].append(stats["seed_greedy_steps"])
+    for name in ("eager_seed", "lazy_seed"):
+        steps = [n for n, seeded in zip(out[name]["seed_greedy_steps"], out[name]["seeded"])
+                 if seeded or name == "eager_seed"]
+        if not steps or not all(0 < n < out[name]["C"] - 1 for n in steps):
+            raise AssertionError(f"fused {name}: the seed's greedy steps {steps} (C = "
+                                 f"{out[name]['C']}; no run, or C - 1 of them)")
+        print(f"[fused {name}] the seed's greedy ran {steps} steps on the device in place of "
+              f"C - 1 = {out[name]['C'] - 1}; card: {card}")
     return out
 
 
@@ -1306,6 +1384,16 @@ def phase_pair_batch(device, card: str) -> list:
 
             forms = {"in order": batch(False), "in flight": batch(True)}  # plans built here
             torch.cuda.synchronize()
+            # Staged inputs, draws, one launch and a copy a pair: nothing in
+            # either form may wait for the device before the readback.
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                forms = {"in order": batch(False), "in flight": batch(True)}
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"[batch {name}] B={b}: both forms ran with no host synchronization before "
+                  f"the readback (torch.cuda.set_sync_debug_mode('error'))")
             for form, sols in forms.items():
                 for i in range(b):
                     one = RegistrationSolution(*(f[i] for f in sols))
@@ -1489,11 +1577,15 @@ def phase_exact_clique(device, card: str) -> dict:
     for seed in HOSTILE_SOLVE_SEEDS:
         sol = psulvsb_register(src, dst, keep, seed, exact_p)
         fused_ok += score_solution("fused exact clique", sol, case[2])[4]
-        fused_searches += plan_for(exact_p, src.shape[1], device).stats["exact_clique_searches"]
+        plan = plan_for(exact_p, src.shape[1], device)
+        fused_searches += plan.stats["exact_clique_searches"]
+        if plan.graphs or plan.stats["graph_launches"] != 0:
+            raise AssertionError("the exact clique round calls the host: its plan must run "
+                                 "eagerly")
         eager = psulvsb_register(src, dst, keep, seed, exact_p, graphs=False)
         if solution_difference(sol, eager) != 0.0:
-            raise AssertionError(f"exact clique, seed {seed}: the replayed plan differs from "
-                                 f"its eager run")
+            raise AssertionError(f"exact clique, seed {seed}: the fused solve differs from "
+                                 f"graphs=False")
 
     def staged(params):
         return lambda seed: psulvsb_solve(
@@ -1502,7 +1594,7 @@ def phase_exact_clique(device, card: str) -> dict:
     def fused(params):
         return lambda seed: psulvsb_register(src, dst, keep, seed, params)
 
-    for seed in EXACT_TURN_SEEDS:  # the greedy's plan captures its segments
+    for seed in EXACT_TURN_SEEDS:  # the greedy's plan captures its graph
         fused(greedy_p)(seed)
     walls = {}
     for form, make in (("staged", staged), ("fused", fused)):
@@ -1515,7 +1607,7 @@ def phase_exact_clique(device, card: str) -> dict:
         "clique_rounds": rounds, "exact_searches": searches,
         "recall_staged": sum(ok for _, _, ok in runs), "recall_fused": fused_ok,
         "exact_searches_fused": fused_searches, "walls": walls, "launches": launches,
-        "gated": "the exact searches and the replay == eager check; recall is printed, "
+        "gated": "the exact searches and the fused == graphs=False check; recall is printed, "
                  "not gated, as in phase 11 (b)",
         "card": card,
     }
@@ -1639,7 +1731,7 @@ def phase_sweep(device, card: str, data: str | None = None) -> dict:
             rows = read_rows(csv_path)
             gated = [t for i, t in enumerate(rows) if rates[i % len(rates)] <= SWEEP_GATED_RATE]
             failed = [t for t in gated if not rows[t].success]
-            plans = {b: plan_for(run_params, b, device).nbytes for b in buckets}
+            plans = {b: plan_figures(plan_for(run_params, b, device)) for b in buckets}
             out[tag] = {
                 "sweep": tag, "pairs": stats["pairs"], "ddtime": ddtime,
                 "solves": split["solves"], "recall": stats["recall"],
@@ -1649,7 +1741,7 @@ def phase_sweep(device, card: str, data: str | None = None) -> dict:
                 "warm_s": warm_s, "launches": launches,
                 "peak_allocated_GiB": torch.cuda.max_memory_allocated(device) / 2**30,
                 "reserved_GiB": torch.cuda.memory_reserved(device) / 2**30,
-                "plan_MiB": {str(b): round(n / 2**20, 1) for b, n in plans.items()},
+                "plans": {str(b): fig for b, fig in plans.items()},
                 "card": card,
             }
             print(json.dumps(out[tag]))
@@ -2391,14 +2483,19 @@ def phase_reference_tools(device, card: str) -> dict:
     return out
 
 
+GRAPH_SOURCES = ("graph_cond",)  # the conditional nodes of the one-launch graph
+
+
 def build_all() -> None:
-    """Build every kernel, one nvcc each, all started together."""
+    """Build every kernel and the conditional nodes' source, one nvcc each,
+    all started together."""
     from psulvsb_tpu_torch.ops._build import BUILD_INFO, load_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(load_library, KERNELS))
-    for name in KERNELS:
+    names = KERNELS + GRAPH_SOURCES
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load_library, names))
+    for name in names:
         info = BUILD_INFO[name]
         regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
         what = f"nvcc {info['seconds']:.2f} s; " + " | ".join(regs) if info["log"] else "cached"

@@ -100,6 +100,8 @@ def greedy_clique(
     order_scores: torch.Tensor | None = None,
     chunk: int = CHUNK,
     max_steps: int | None = None,
+    repeat=None,
+    steps_run: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Greedy clique: start from the best-scored active vertex, then add the
     candidate (adjacent to every member so far) with the highest score until
@@ -115,6 +117,12 @@ def greedy_clique(
     the same clique whenever max_steps is at least the clique's size less
     one (N - 1 always is; a graph of E edges holds no clique beyond
     `max_clique_size_for_edges(E)` vertices).
+    With `repeat` (`GraphControl.repeat` of solver/conditional.py, inside a
+    CUDA graph capture: `repeat(flag, body)` runs `body`, which returns the
+    next flag, while the flag holds) the chunks run in a loop on the device
+    while any candidate is left, as the JAX package's `lax.while_loop`, and
+    nothing is read on the host either; `steps_run`, a 0-d int64 tensor, then has
+    the steps that ran (chunks times `chunk`) added to it.
 
     Returns ((..., N) bool clique mask, host reads)."""
     reads = 0
@@ -150,7 +158,33 @@ def greedy_clique(
         picked.append(v)
         return cand & row(v)
 
-    if max_steps is not None:
+    if repeat is not None:
+        # Each step writes its pick at its own column of buffers that
+        # outlive the loop's body; the columns of steps that never ran keep
+        # a best score of -inf. Every step removes a candidate, so at most
+        # N - 1 steps run.
+        width = n - 1 + chunk
+        top_all = torch.full(adj.shape[:-2] + (width,), -torch.inf, device=dev)
+        pick_all = torch.zeros(adj.shape[:-2] + (width,), dtype=torch.int64, device=dev)
+        cand_now = cand.clone()
+        done = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def body():
+            c = cand_now
+            for j in range(chunk):
+                c = step(c)
+                at = (done + j).reshape(1)
+                top_all.index_copy_(-1, at, best.pop()[..., None])
+                pick_all.index_copy_(-1, at, picked.pop()[..., None])
+            cand_now.copy_(c)
+            done.add_(chunk)
+            return cand_now.any()
+
+        repeat(cand_now.any(), body)
+        if steps_run is not None:
+            steps_run.add_(done)
+        best, picked = [top_all], [pick_all]
+    elif max_steps is not None:
         for _ in range(max_steps):
             cand = step(cand)
     else:
@@ -160,7 +194,10 @@ def greedy_clique(
             reads += 1
             if not bool(cand.any()):
                 break
-    if picked:
+    if repeat is not None:
+        added = scatter_or(n, picked[0], best[0] > -torch.inf)
+        clique = clique | added
+    elif picked:
         added = scatter_or(n, torch.stack(picked, -1), torch.stack(best, -1) > -torch.inf)
         clique = clique | added
     return clique, reads

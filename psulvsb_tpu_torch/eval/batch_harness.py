@@ -32,7 +32,7 @@ group (stats carry `time_gate = "projected-per-retry"`).
 What the JAX module does for its compiler alone is not here: the fixed
 64-solve and 32-pair chunks padded with repeats, and the warm-up of the
 flatten programs. What stays untimed is `warm_scene`'s work: the kernels'
-build and the capture of every segment of each bucket's replay plan.
+build and the capture of each bucket's one-launch graph.
 """
 
 from __future__ import annotations
@@ -121,14 +121,12 @@ def _flatten(src_b, dst_b, pre_keep, raw_keep, group_seeds, ddtime, use_prefilte
 
 
 def _warm_bucket(src0: np.ndarray, dst0: np.ndarray, c: int, params, device, use_prefilter) -> None:
-    """Untimed: see to it that the bucket's replay plan is built and every
-    segment of it captured. The plan cache of solver/fused.py is the one
-    record of that: a plan through which no solve has gone yet (a new one, or
-    one rebuilt after `clear_plan_cache` or an eviction from the cache) gets
-    one solve of a real pair of the bucket (the kernels are built, the plan
-    and the segments that solve takes are captured) and one pass of the
-    pre-filter; then `capture_all` captures whatever segment is still
-    missing, which costs nothing where none is."""
+    """Untimed: see to it that the bucket's plan holds its graph. The plan
+    cache of solver/fused.py is the one record of that: a plan through which
+    no solve has gone yet (a new one, or one rebuilt after
+    `clear_plan_cache` or an eviction from the cache) gets one solve of a
+    real pair of the bucket, which builds the kernels and captures the whole
+    solve, and one pass of the pre-filter."""
     bucket = src0.shape[1]
     plan = plan_for(params, bucket, device)
     if not plan.stats:
@@ -139,7 +137,6 @@ def _warm_bucket(src0: np.ndarray, dst0: np.ndarray, c: int, params, device, use
         if use_prefilter:
             _prefilter_batch(src[None], dst[None], valid[None])
         psulvsb_register(src, dst, keep, 0, params, device=device)
-    plan.capture_all(torch.Generator(device=device).manual_seed(0))
 
 
 def _scene_buckets(scene_dir: str, descriptor: str):

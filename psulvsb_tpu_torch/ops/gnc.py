@@ -71,11 +71,12 @@ def gnc_batch_reference(
     cost_threshold: float,
     rot_method: str = "power",
     early_exit: bool = True,
+    repeat=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `gnc_batch` (rotation/gnc.py's loop, by default
     with the power-iteration rotation), with the same front-door rules. With
     `use_warm` a tensor, iteration 0 selects between the warm rotation and
-    the solve on the device. `rot_method`, `early_exit`: as
+    the solve on the device. `rot_method`, `early_exit`, `repeat`: as
     `rotation.gnc.gnc_tls_batched` takes them."""
     _check_shapes(src_tims_b, active_b)
     nb_sq = floor_noise_sq(noise_bound_b.to(torch.float32))
@@ -83,7 +84,7 @@ def gnc_batch_reference(
         src_tims_b.to(torch.float32), dst_tims_b.to(torch.float32), active_b,
         nb_sq, warm_rotation, use_warm,
         max_iterations, gnc_factor, cost_threshold, rot_method=rot_method,
-        early_exit=early_exit,
+        early_exit=early_exit, repeat=repeat,
     )
     return rot, tls_inliers(w, active_b)
 

@@ -5,12 +5,14 @@ The reference solves its dataset sweeps pair by pair (1623 3DMatch pairs,
 555 KITTI pairs, teaser_cpp_ply_main.cc:244-795). One pair fits one card
 and no pair talks to another, so the scaling axis is the pair batch:
 
-- `register_batch`, one device. By default the pairs run in order, each
-  with its early exits, through one replay plan of the one-dispatch solve
-  (`lax.map` in the JAX package). `vectorized=True` is the counterpart of
-  its `vmap` on one card: several pairs in flight at once, each on a plan
-  instance with a CUDA stream of its own, so that one pair's kernels fill
-  the card while another waits for its host;
+- `register_batch`, one device. By default the pairs run in order through
+  one plan of the one-dispatch solve on one stream (`lax.map` in the JAX
+  package): for each pair its inputs and draws are staged, the plan's graph
+  launched once and the solution copied into the batch's row, with no host
+  synchronization from the first pair to the return. `vectorized=True` is
+  the counterpart of its `vmap` on one card: the same on PAIRS_IN_FLIGHT
+  plan instances, each with a CUDA stream of its own, the pairs dealt to
+  them in turn, so that several solves share the card;
 - `register_batch_sharded`, several devices: the batch split evenly over
   them, and the totals summed as the JAX package's `psum` sums them.
 """
@@ -68,15 +70,12 @@ def register_batch(
     `psulvsb_register` gives for that pair alone with the same seed, in both
     forms.
 
-    The inputs are staged on the device once for the batch, the results are
-    written into the batch's tensors on the device, and the host waits only
-    where a solve's replay must be steered (`solver/fused.py`): nothing
-    synchronizes between pairs.
-
-    vectorized: keep up to PAIRS_IN_FLIGHT pairs in flight, each on its own
-    plan instance and stream; the host serves them in turns, so the card
-    works on one pair while the host reads another's word. On the CPU the
-    pairs simply run in turns."""
+    The inputs are staged on the device once for the batch and the results
+    written into the batch's tensors there: on a card the host waits for
+    nothing before it returns (a plan's first solve captures its graph,
+    which synchronizes). vectorized: deal the pairs to up to PAIRS_IN_FLIGHT
+    plan instances, each on its own stream. On the CPU the pairs simply run
+    in turn."""
     device = resolve_device(device)
     pin_float32()
     params.check_port_supported()
@@ -90,40 +89,20 @@ def register_batch(
     gens = [as_generator(s, device) for s in seeds]
     out = _empty_solution(b, device)
     if not vectorized:
-        plan = plan_for(params, c, device, graphs)
-        for i in range(b):
-            plan.load(src[i], dst[i], keep[i])
-            for _ in plan.steps(gens[i]):
-                pass
-            plan.solution(out, i)
-        return out
-
-    plans = [plan_for(params, c, device, graphs, instance=1 + k)
-             for k in range(min(PAIRS_IN_FLIGHT, b))]
-    cuda = device.type == "cuda"
-    if cuda:
-        ready = torch.cuda.current_stream(device)
-        for plan in plans:
-            plan.stream.wait_stream(ready)  # the staged inputs and `out`
-    waiting = list(range(b))[::-1]
-    running: list = [None] * len(plans)  # (pair, its steps) of each plan
-    while waiting or any(running):
-        for k, plan in enumerate(plans):
-            if running[k] is None:
-                if not waiting:
-                    continue
-                i = waiting.pop()
-                plan.load(src[i], dst[i], keep[i])
-                running[k] = (i, plan.steps(gens[i]))
-            i, steps = running[k]
-            # Up to the next point where this pair waits for the device; the
-            # wait itself happens when its turn comes again.
-            if next(steps, StopIteration) is StopIteration:
-                plan.solution(out, i)
-                running[k] = None
-    if cuda:
-        for plan in plans:
-            ready.wait_stream(plan.stream)
+        plans = [plan_for(params, c, device, graphs)]
+    else:
+        plans = [plan_for(params, c, device, graphs, instance=1 + k)
+                 for k in range(min(PAIRS_IN_FLIGHT, b))]
+    ready = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    side = [plan.stream for plan in plans if plan.stream is not None]
+    for stream in side:
+        stream.wait_stream(ready)  # the staged inputs and `out`
+    for i in range(b):
+        plan = plans[i % len(plans)]
+        plan.solve(src[i], dst[i], keep[i], gens[i])
+        plan.solution(out, i)
+    for stream in side:
+        ready.wait_stream(stream)
     return out
 
 

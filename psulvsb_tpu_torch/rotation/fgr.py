@@ -41,11 +41,16 @@ def fgr_batched(
     cost_threshold: float = 1e-6,
     rot_method: str = "eigh",
     early_exit: bool = True,
+    repeat=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The FGR loop over B problems. src/dst (B, 3, N), active (B, N) bool,
     noise_bound (B,). With `early_exit` the host reads once an iteration
     whether every problem has stopped; without it all `max_iterations` run
-    masked and nothing is read, as a captured CUDA graph needs it.
+    masked and nothing is read, as a captured CUDA graph needs it. With
+    `repeat` (`GraphControl.repeat` of solver/conditional.py) the masked
+    iterations run in chunks of LOOP_CHUNK while a problem is left, decided
+    on the device (`lax.while_loop`); an iteration after every problem has
+    stopped changes nothing, so the three forms give the same results.
 
     Returns (rotations (B, 3, 3), weights l_pq (B, N), cost (B,),
     iterations (B,))."""
@@ -63,7 +68,9 @@ def fgr_batched(
     cost = torch.full((b,), float("inf"), dtype=dtype, device=dev)
     iters = torch.zeros(b, dtype=torch.int64, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
-    for _ in range(max_iterations):
+
+    def iteration(state, in_range=None):
+        rot, l_pq, cost, mu, iters, done = state
         scaled_mu = (mu * nb_sq)[:, None]
         diff = dst - mm(rot, src)
         r_sq = (diff * diff).sum(1)
@@ -73,16 +80,53 @@ def fgr_batched(
         d_sq = (diff2 * diff2).sum(1)
         cost_i = ((scaled_mu * d_sq) / (scaled_mu + d_sq) * act_f).sum(1)
         stop = (cost_i < cost_threshold) | (mu < 1.0)
-        live = ~done
-        rot = torch.where(live[:, None, None], rotation, rot)
-        l_pq = torch.where(live[:, None], new_l, l_pq)
-        cost = torch.where(live, cost_i, cost)
-        mu = torch.where(live & ~stop, mu / gnc_factor, mu)
-        iters = iters + live.to(torch.int64)
-        done = done | stop
-        if early_exit and bool(done.all()):
-            break
+        live = ~done if in_range is None else ~done & in_range
+        return (
+            torch.where(live[:, None, None], rotation, rot),
+            torch.where(live[:, None], new_l, l_pq),
+            torch.where(live, cost_i, cost),
+            torch.where(live & ~stop, mu / gnc_factor, mu),
+            iters + live.to(torch.int64),
+            done | (stop & live) if in_range is not None else done | stop,
+        )
+
+    state = (rot, l_pq, cost, mu, iters, done)
+    if repeat is not None:
+        state = masked_loop(iteration, state, max_iterations, repeat)
+    else:
+        for _ in range(max_iterations):
+            state = iteration(state)
+            if early_exit and bool(state[-1].all()):
+                break
+    rot, l_pq, cost, _, iters, _ = state
     return rot, l_pq, cost, iters
+
+
+LOOP_CHUNK = 4  # masked iterations a loop body runs
+
+
+def masked_loop(iteration, state: tuple, count: int, repeat, chunk: int = LOOP_CHUNK) -> tuple:
+    """Up to `count` runs of `iteration(state, in_range) -> state` whose
+    last entry is the (B,) done mask, in chunks of `chunk` inside
+    `repeat(flag, body)` while a problem is not done. `in_range`, a 0-d bool
+    on the device, is false for the runs of the last chunk past `count`,
+    which must then change nothing. Returns the final state, in buffers
+    that the loop's body updates in place."""
+    state = tuple(t.clone() for t in state)
+    dev = state[-1].device
+    run = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def body():
+        new = state
+        for j in range(chunk):
+            new = iteration(new, run + j < count)
+        for buf, value in zip(state, new):
+            buf.copy_(value)
+        run.add_(chunk)
+        return ~state[-1].all() & (run < count)
+
+    repeat(~state[-1].all() & (run < count), body)
+    return state
 
 
 def fgr_rotation(

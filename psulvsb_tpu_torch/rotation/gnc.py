@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from psulvsb_tpu_torch.core.linalg import svd_rot
+from psulvsb_tpu_torch.rotation.fgr import masked_loop
 from psulvsb_tpu_torch.utils.precision import mm
 from psulvsb_tpu_torch.utils.scalars import as_float32
 
@@ -57,13 +58,18 @@ def gnc_tls_batched(
     cost_threshold: float,
     rot_method: str,
     early_exit: bool = True,
+    repeat=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """GNC-TLS loop over B problems. src/dst (B, 3, N), active (B, N) bool,
     nb_sq (B,) already floored, warm_rotation (3, 3) shared by the batch.
     use_warm: a bool, or a 0-d bool tensor; the tensor selects iteration 0's
     rotation on the device (the solve runs either way). With `early_exit`
     the host reads once an iteration whether every problem is done; without
-    it all `max_iterations` run masked and nothing is read.
+    it all `max_iterations` run masked and nothing is read. With `repeat`
+    (`GraphControl.repeat` of solver/conditional.py) the iterations after
+    the first run masked, in chunks, while a problem is left, decided on the
+    device (`rotation.fgr.masked_loop`); the three forms give the same
+    results.
 
     Returns (rotations (B, 3, 3), weights (B, N), cost (B,), iterations (B,)).
     """
@@ -79,13 +85,14 @@ def gnc_tls_batched(
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     neg_inf = torch.full((b, n), -float("inf"), dtype=dtype, device=dev)
 
-    for i in range(max_iterations):
-        if i == 0 and isinstance(use_warm, torch.Tensor):
+    def iteration(state, first=False, in_range=None):
+        rot, w, mu, prev_cost, cost, iters, done = state
+        if first and isinstance(use_warm, torch.Tensor):
             rotation = torch.where(
                 use_warm, warm_rotation.to(dtype).expand(b, 3, 3),
                 svd_rot(src, dst, w * act_f, method=rot_method),
             )
-        elif i == 0 and use_warm:
+        elif first and use_warm:
             rotation = warm_rotation.to(dtype).expand(b, 3, 3)
         else:
             rotation = svd_rot(src, dst, w * act_f, method=rot_method)
@@ -93,7 +100,7 @@ def gnc_tls_batched(
         r_sq = (diff * diff).sum(1)  # (B, N)
 
         # mu initialization on the first iteration (registration.cc:1628-1638).
-        if i == 0:
+        if first:
             max_res = torch.where(active, r_sq, neg_inf).amax(1)
             mu_i = 1.0 / (2.0 * max_res / nb_sq - 1.0)
             degenerate = mu_i <= 0
@@ -118,16 +125,30 @@ def gnc_tls_batched(
         # The degenerate break exits before updating weights and cost.
         new_w = torch.where(degenerate[:, None], w, new_w)
         cost_i = torch.where(degenerate, cost, cost_i)
-        live = ~done
-        rot = torch.where(live[:, None, None], rotation, rot)
-        w = torch.where(live[:, None], new_w, w)
-        mu = torch.where(live, mu_i * gnc_factor, mu)
-        prev_cost = torch.where(live & ~degenerate, cost_i, prev_cost)
-        cost = torch.where(live, cost_i, cost)
-        iters = iters + live.to(torch.int64)
-        done = done | degenerate | converged
-        if early_exit and bool(done.all()):
-            break
+        live = ~done if in_range is None else ~done & in_range
+        stopped = degenerate | converged
+        return (
+            torch.where(live[:, None, None], rotation, rot),
+            torch.where(live[:, None], new_w, w),
+            torch.where(live, mu_i * gnc_factor, mu),
+            torch.where(live & ~degenerate, cost_i, prev_cost),
+            torch.where(live, cost_i, cost),
+            iters + live.to(torch.int64),
+            done | stopped if in_range is None else done | (stopped & live),
+        )
+
+    state = (rot, w, mu, prev_cost, cost, iters, done)
+    if max_iterations > 0:
+        state = iteration(state, first=True)
+    if repeat is not None:
+        state = masked_loop(lambda s, in_range: iteration(s, in_range=in_range), state,
+                            max_iterations - 1, repeat)
+    else:
+        for _ in range(1, max_iterations):
+            if early_exit and bool(state[-1].all()):
+                break
+            state = iteration(state)
+    rot, w, _, _, cost, iters, _ = state
     return rot, w, cost, iters
 
 

@@ -63,6 +63,7 @@ def rotation_batch(
     use_warm,
     params: SolverParams,
     sync_free: bool = False,
+    repeat=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The rotation stage of a batch of basic iterations with the PSULVSB
     inner-loop constants. This function owns the choice of the estimator, by
@@ -77,9 +78,11 @@ def rotation_batch(
     - FGR: its batched loop, which takes no warm start
       (registration.cc:322-394).
 
-    `sync_free`: nothing is read on the host (a captured segment); the plain
+    `sync_free`: nothing is read on the host (inside a CUDA graph); the plain
     loops then run every iteration masked and take the Jacobi form of the
-    eigenvector, since torch.linalg.eigh cannot be captured into a CUDA graph.
+    eigenvector, since torch.linalg.eigh cannot be captured into a CUDA graph;
+    with `repeat` too, those masked iterations run in a loop on the device
+    while a problem is left (`rotation.fgr.masked_loop`).
 
     Returns (rotations (B, 3, 3), inliers (B, N) bool)."""
     global PLAIN_ROUTE_CALLS
@@ -88,7 +91,8 @@ def rotation_batch(
         gnc_factor=params.inner_rotation_gnc_factor,
         cost_threshold=params.inner_rotation_cost_threshold,
     )
-    plain = dict(rot_method="jacobi" if sync_free else "eigh", early_exit=not sync_free)
+    plain = dict(rot_method="jacobi" if sync_free else "eigh", early_exit=not sync_free,
+                 repeat=repeat if sync_free else None)
     if params.rotation_estimation_algorithm != RotationEstimationAlgorithm.GNC_TLS:
         rots, l_pq, _, _ = fgr_batched(
             src_tims_b, dst_tims_b, active_b, noise_bound_b, **loop, **plain
@@ -130,13 +134,15 @@ def basic_step(
     generator: torch.Generator | None = None,
     scale_u: torch.Tensor | None = None,
     sync_free: bool = False,
+    repeat=None,
 ) -> BasicResult:
     """One decoupled solve over the TIMs (src[:, idx_j] - src[:, idx_i]) with
     the PSULVSB inner-loop noise bound (registration.cc:938-939). The
     rotation goes through `rotation_batch` as a batch of one, so at the
     default GNC-TLS setting it launches the GNC kernel on the card. At
     estimated scale `scale_u` (optional (scale_max_draws,) uniforms) picks
-    the 1-point consensus's draws, as `_local_stage` takes them."""
+    the 1-point consensus's draws, as `_local_stage` takes them;
+    `sync_free` and `repeat` as `rotation_batch` takes them."""
     dtype, dev = src.dtype, src.device
     c = src.shape[1]
     nb = torch.full((), params.inner_noise_bound, dtype=dtype, device=dev)
@@ -158,7 +164,7 @@ def basic_step(
     inv_s = 1.0 / torch.clamp(scale, min=1e-30)
     rots, rot_inl = rotation_batch(
         src_tims[None], (dst_tims * inv_s)[None], rot_mask[None], (nb * 2.0 * inv_s)[None],
-        warm.rotation, use_warm, params, sync_free,
+        warm.rotation, use_warm, params, sync_free, repeat,
     )
     rotation, rotation_inliers = rots[0], rot_inl[0]
     trans_points = endpoint_mask(idx_i, idx_j, rotation_inliers, c)

@@ -27,7 +27,12 @@ or estimated scale:
 Every stage that draws random numbers takes them as an optional argument
 (hash constants, pair draws, sort keys, Gumbel keys, uniforms) and
 otherwise draws them from the `torch.Generator` it is given, so a test can
-feed the JAX package's own draws to both sides. Tensors stay on the device of the inputs; the
+feed the JAX package's own draws to both sides. A whole solve takes its
+draws from one buffer filled before it starts (`DrawLayout`): each draw has
+a place named by its kind, round and batch, as the JAX package derives a
+round's and a batch's keys from (key, round, batch), so a batch that does
+not run shifts no later draw, and `psulvsb_solve` and the one-launch solve
+(solver/fused.py) see the same draws for one seed. Tensors stay on the device of the inputs; the
 host reads a value only where control flow needs it, and `psulvsb_solve`
 counts those reads in info["host_syncs"].
 """
@@ -53,6 +58,7 @@ from psulvsb_tpu_torch.core.metrics import (
 from psulvsb_tpu_torch.gror.gror import gror_align
 from psulvsb_tpu_torch.ops.hist import exact_peak_bin, pair_beta_count, pair_ratio_histogram
 from psulvsb_tpu_torch.pairs.tims import (
+    _KEY_SPAN,
     compute_tims,
     gather_tims,
     masked_random_compact,
@@ -76,16 +82,21 @@ from psulvsb_tpu_torch.solver.basic import (
 from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, InlierSelectionMode, SolverParams
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 from psulvsb_tpu_torch.utils.precision import mm, pin_float32
-from psulvsb_tpu_torch.utils.scalars import device_flag, pick as _pick
+from psulvsb_tpu_torch.utils.scalars import as_scalar, device_flag, pick as _pick
 
 _F32 = torch.float32
 _I64 = torch.int64
 
 
-def _gumbel(shape, generator: torch.Generator | None, device) -> torch.Tensor:
-    """Standard Gumbel draws, -log(-log(u)) with u uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=_F32)
+def gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel keys -log(-log(u)) from uniforms u, clamped to
+    [tiny, 1)."""
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(_F32).tiny)))
+
+
+def _gumbel(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Standard Gumbel draws from `generator`."""
+    return gumbel_of(torch.rand(shape, generator=generator, device=device, dtype=_F32))
 
 
 # =============================================================================
@@ -520,6 +531,8 @@ def _clique_seed_stage(
     scale_u: torch.Tensor | None = None,
     max_steps: int | None = None,
     sync_free: bool = False,
+    repeat=None,
+    steps_run: torch.Tensor | None = None,
 ) -> tuple[WarmState, torch.Tensor, int]:
     """Greedy clique over the reduced-set consistency graph, then one basic
     step over the clique's chain TIMs, as a warm-state seed (the JAX
@@ -532,8 +545,10 @@ def _clique_seed_stage(
     ordering. At most clique_cap members (the first by index) form the
     chain (k, k+1 mod m); `scale_u` gives the basic step's scale draws.
     With `max_steps` the greedy runs that many steps and reads nothing on the
-    host (C - 1 steps reach any clique of C points); `sync_free` asks the
-    same of the basic step's rotation (`solver.basic.rotation_batch`).
+    host (C - 1 steps reach any clique of C points); with `repeat` it runs
+    on the device until no candidate is left (`greedy_clique`); `sync_free`
+    asks the same of the basic step's rotation, and `repeat` its loop on the
+    device (`solver.basic.rotation_batch`).
 
     Returns (seed WarmState, ok () bool — at least clique_seed_min_size
     members, host reads of the greedy). Where not ok the seed is the
@@ -546,7 +561,8 @@ def _clique_seed_stage(
     else:
         slot_ok = torch.arange(red_i.shape[0], device=dev) < red_pool
         adj = _edge_graph(red_i, red_j, slot_ok, c)
-    clique, reads = greedy_clique(adj, order_scores=triangle_scores(adj), max_steps=max_steps)
+    clique, reads = greedy_clique(adj, order_scores=triangle_scores(adj), max_steps=max_steps,
+                                  repeat=repeat, steps_run=steps_run)
     m = torch.clamp(clique.sum(), max=cap)
 
     # Compact the member indices to (cap,); members past the cap drop out.
@@ -559,7 +575,7 @@ def _clique_seed_stage(
     nxt = (ar + 1) % torch.clamp(m, min=1)
     res = basic_step(
         ori_src, ori_dst, cq, cq[nxt], ar < m, params, WarmState.initial(dev),
-        generator, scale_u, sync_free,
+        generator, scale_u, sync_free, repeat,
     )
     ok = m >= params.clique_seed_min_size
     warm = WarmState(
@@ -581,7 +597,7 @@ def _sample_stage(
     red_j: torch.Tensor,
     red_count: torch.Tensor,
     pool: torch.Tensor,
-    l_rate: float,
+    l_rate,
     params: SolverParams,
     num_points: int,
     generator: torch.Generator | None = None,
@@ -590,14 +606,15 @@ def _sample_stage(
     """Draw floor(|reduced| * L_sampled_rate) TIMs without replacement
     (registration.cc:834-895): the top of Gumbel keys over the valid pool
     slots is a uniform random subset; a floor of 0 takes the whole reduced
-    set. Sizes cap at sampled_cap. `gumbel`: optional (pool,) keys.
+    set. Sizes cap at sampled_cap. `l_rate`: a float or a float32 scalar on
+    the device; `gumbel`: optional (pool,) keys.
 
     Returns (s_i (S,), s_j (S,), slot mask (S,), sampled_count (),
     sampled point mask (C,))."""
     dev = red_i.device
     r_cap = red_i.shape[0]
     cap = min(params.sampled_cap, r_cap)
-    rate = torch.full((), l_rate, dtype=_F32, device=dev)
+    rate = as_scalar(l_rate, _F32, dev)
     want = torch.floor(red_count.to(_F32) * rate).to(_I64)
     want = torch.where(want == 0, red_count, want)
     count = torch.minimum(torch.clamp(want, max=cap), pool)
@@ -697,7 +714,7 @@ def _local_round(
     s_ok: torch.Tensor,
     sampled_count: torch.Tensor,
     sampled_pt_mask: torch.Tensor,
-    b_rate: float,
+    b_rate,
     b_rate_is_one: bool,
     host_r: torch.Tensor,
     warm_in: WarmState,
@@ -707,17 +724,20 @@ def _local_round(
     clique_max_steps: int | None = None,
     track_extras: bool = True,
     sync_free: bool = False,
+    repeat=None,
 ):
     """One host round's local RANSAC loop (registration.cc:903-1398) as its
     starting `LocalState` and a function `step(state, g, u) -> LocalState`
     that runs one batch of `hypothesis_batch` hypotheses: `g` (batch, S)
     Gumbel keys pick each hypothesis' basic set, `u` (batch,
     scale_max_draws) uniforms (or None: drawn from `generator`) feed the
-    1-point scale consensus. A step decides everything with selects on the
+    1-point scale consensus; `b_rate` is a float or a float32 scalar on the
+    device. A step decides everything with selects on the
     device, `warm.first_time` included, so it reads nothing on the host
     (with `clique_max_steps`, the b_rate == 1.0 greedy clique neither: see
     `greedy_clique`; with `sync_free`, an "eigh" or FGR rotation neither:
-    see `solver.basic.rotation_batch`); the caller reads `state.done` when
+    see `solver.basic.rotation_batch`, which with `repeat` runs its loop on
+    the device); the caller reads `state.done` when
     it wants to stop early. The one step that always goes to the host is the
     b_rate == 1.0 round under `exact_clique_callback` with PMC_EXACT: its
     graphs are copied to the host, searched there and the members copied
@@ -734,7 +754,7 @@ def _local_round(
         # b_rate == 1.0: basic set = whole sampled set (capped).
         basic_choose = torch.clamp(sampled_count, max=bcap)
     else:
-        rate = torch.full((), b_rate, dtype=_F32, device=dev)
+        rate = as_scalar(b_rate, _F32, dev)
         basic_choose = torch.floor(sampled_count.to(_F32) * rate).to(_I64)
         basic_choose = torch.clamp(basic_choose, 1, bcap)
     nb = torch.full((), params.inner_noise_bound, dtype=_F32, device=dev)
@@ -797,7 +817,7 @@ def _local_round(
         inv_s = 1.0 / torch.clamp(scale, min=1e-30)
         rots, rot_inl = rotation_batch(
             src_t, dst_t * inv_s[:, None, None], rot_mask, nb * 2.0 * inv_s,
-            warm.rotation, use_warm, params, sync_free,
+            warm.rotation, use_warm, params, sync_free, repeat,
         )
         if run_clique:
             t_pts, clique_reads = clique_points(b_i, b_j, src_t, dst_t, sel_ok, sc_inl)
@@ -967,18 +987,25 @@ def _local_stage(
     """The local RANSAC loop of one host round (registration.cc:903-1398),
     `hypothesis_batch` hypotheses at a time (`_local_round`'s steps). The
     loop reads `done` on the host once per batch. `gumbels`: optional
-    (max_batches, batch, S) keys that pick each hypothesis' basic set;
-    `scale_us`: optional (max_batches, batch, scale_max_draws) uniforms of
-    the 1-point scale consensus."""
+    (max_batches, batch, S) keys that pick each hypothesis' basic set, or a
+    function of the batch index that gives them; `scale_us`: optional
+    (max_batches, batch, scale_max_draws) uniforms of the 1-point scale
+    consensus, or such a function."""
     dev = ori_src.device
     state, step = _local_round(
         ori_src, ori_dst, s_i, s_j, s_ok, sampled_count, sampled_pt_mask, b_rate,
         b_rate_is_one, host_r, warm_in, thr, params, generator,
     )
     batch, cap = params.hypothesis_batch, s_i.shape[0]
+    def pick_draw(draws, it):
+        return draws(it) if callable(draws) else draws[it]
+
     for it in range(local_max_batches(params)):
-        g = _gumbel((batch, cap), generator, dev) if gumbels is None else gumbels[it].to(dev, _F32)
-        state = step(state, g, None if scale_us is None else scale_us[it])
+        if gumbels is None:
+            g = _gumbel((batch, cap), generator, dev)
+        else:
+            g = pick_draw(gumbels, it).to(dev, _F32)
+        state = step(state, g, None if scale_us is None else pick_draw(scale_us, it))
         if bool(state.done):
             break
     # One read of `done` a batch, beside the greedy clique's own.
@@ -1215,6 +1242,140 @@ def _finalize_stage(
 
 
 # =============================================================================
+# The draws of a solve
+# =============================================================================
+
+DRAW_SPAN = 1 << 62  # every draw is an int64 in [0, 2^62)
+_UNIT_SHIFT = 62 - 24  # its top 24 bits give a float32 uniform in [0, 1)
+
+
+def fused_scan_rounds(params: SolverParams) -> int:
+    """Host-round count of the one-dispatch solve: `max_host_rounds` capped
+    by the projected wall-clock budget, value for value what the JAX
+    function gives.
+
+    The staged solver checks the host clock between rounds
+    (registration.cc:1475); one graph launch cannot. The budget is applied
+    when the plan is built: at most time_budget_s / fused_round_ceiling_s
+    rounds run, the ceiling being a pessimistic bound on one round's time
+    (config.py). At the reference caps it never binds."""
+    rounds = params.max_host_rounds
+    if (
+        params.fused_round_ceiling_s > 0
+        and params.time_budget_s > 0
+        and math.isfinite(params.time_budget_s)
+    ):
+        rounds = min(rounds, max(1, int(params.time_budget_s / params.fused_round_ceiling_s)))
+    return rounds
+
+
+class DrawLayout:
+    """Where every random draw of one solve lies in one int64 buffer.
+
+    The JAX package derives the keys of round r from (key, r)
+    (psulvsb.py:1614, fused.py:118-121) and those of local batch k from
+    (round key, k) (psulvsb.py:1065-1066), so what a batch draws does not
+    depend on how many batches earlier rounds ran. This layout does the same
+    with places: the init's draws, the clique seed's scale uniforms
+    ("u_seed", one slot: a solve seeds at most once), and per round r the
+    sample stage's uniforms ("u_sample"), the host stage's ("u_host") and
+    per batch k the basic sets' ("u_local") and the 1-point scale
+    consensus' ("u_scale"). `fill` draws the whole buffer with one call on
+    the caller's generator; a place is read as integers (`integers`) or
+    float32 uniforms (`uniform`). Its size depends on (params, C, rounds)
+    only."""
+
+    def __init__(self, params: SolverParams, c: int, rounds: int):
+        self.c = c
+        self.rounds = rounds
+        self.batches = local_max_batches(params)
+        self.route = init_route(params, c)
+        pool_cap, _ = _pool_caps(params)
+        s_cap = min(params.sampled_cap, pool_cap)
+        hb = params.hypothesis_batch
+        self.scale = params.estimate_scaling and params.scale_estimator == "ransac1pt"
+        shapes: dict[str, tuple] = {}
+        if self.route == "exact":
+            shapes["exact_keys"] = (c * (c - 1) // 2,)
+        else:
+            if params.estimate_scaling:
+                shapes["peak_a"] = shapes["peak_b"] = (params.init_peak_sample,)
+            if self.route == "dense":
+                shapes["ab"] = (2,)
+            else:
+                shapes["fill_a"] = shapes["fill_b"] = shapes["fill_keys"] = (
+                    params.init_reject_budget,)
+        if self.scale and (params.clique_eager or params.clique_lazy):
+            shapes["u_seed"] = (params.scale_max_draws,)
+        shapes["u_sample"] = (rounds, pool_cap)
+        shapes["u_host"] = (rounds, c)
+        shapes["u_local"] = (rounds, self.batches, hb, s_cap)
+        if self.scale:
+            shapes["u_scale"] = (rounds, self.batches, hb, params.scale_max_draws)
+        self.places: dict[str, tuple[int, tuple]] = {}
+        offset = 0
+        for name, shape in shapes.items():
+            self.places[name] = (offset, shape)
+            offset += math.prod(shape)
+        self.size = offset
+
+    def fill(self, generator: torch.Generator | None, device, out: torch.Tensor | None = None):
+        """Every draw of a solve, from one call on `generator` (into `out`
+        when given)."""
+        if out is None:
+            out = torch.empty(self.size, dtype=_I64, device=device)
+        return out.random_(0, DRAW_SPAN, generator=generator)
+
+    def has(self, name: str) -> bool:
+        return name in self.places
+
+    def view(self, draws: torch.Tensor, name: str, *index) -> torch.Tensor:
+        """The place's draws at `index`: ints, or 0-d index tensors on the
+        device, taken with index_select (indexing by a tensor reads it on
+        the host)."""
+        offset, shape = self.places[name]
+        out = draws[offset:offset + math.prod(shape)].view(shape)
+        for i in index:
+            out = out[i] if isinstance(i, int) else out.index_select(0, i.reshape(1))[0]
+        return out
+
+    def integers(self, draws: torch.Tensor, name: str, low: int, high: int) -> torch.Tensor:
+        """The place's draws as integers in [low, high)."""
+        return low + self.view(draws, name) % (high - low)
+
+    def uniform(self, draws: torch.Tensor, name: str, *index) -> torch.Tensor:
+        """The place's draws (at `index`: a round, a batch) as float32
+        uniforms in [0, 1) with 24 random bits, as torch.rand makes them."""
+        return (self.view(draws, name, *index) >> _UNIT_SHIFT).to(_F32) * (2.0 ** -24)
+
+    def init_draws(self, draws: torch.Tensor) -> InitDraws:
+        """The init stage's random inputs."""
+        c = self.c
+        if self.route == "exact":
+            return InitDraws(exact_keys=self.integers(draws, "exact_keys", 0, _KEY_SPAN))
+
+        def pairs(prefix):
+            if not self.has(f"{prefix}_a"):
+                return None
+            return _draw_pairs(self.integers(draws, f"{prefix}_a", 0, c),
+                               self.integers(draws, f"{prefix}_b", 0, max(c - 1, 1)))
+
+        return InitDraws(
+            ab=self.integers(draws, "ab", 1, 2**31 - 1) if self.has("ab") else None,
+            peak_pairs=pairs("peak"),
+            fill_pairs=pairs("fill"),
+            fill_keys=self.integers(draws, "fill_keys", 0, _KEY_SPAN) if self.has("fill_keys")
+            else None,
+        )
+
+    def seed_u(self, draws: torch.Tensor) -> torch.Tensor | None:
+        return self.uniform(draws, "u_seed") if self.has("u_seed") else None
+
+    def scale_u(self, draws: torch.Tensor, r: int, k) -> torch.Tensor | None:
+        return self.uniform(draws, "u_scale", r, k) if self.scale else None
+
+
+# =============================================================================
 # Orchestration
 # =============================================================================
 
@@ -1231,7 +1392,11 @@ def psulvsb_solve(
 
     keep_mask: (C,) integer tensor in {1, 0, -1} from the histogram
     pre-filter (-2 marks padding columns). All tensors stay on the device
-    of ori_src; `generator` (on that device) supplies every random draw.
+    of ori_src; `generator` (on that device) supplies every random draw,
+    in one call before the init (`DrawLayout`, sized for
+    `fused_scan_rounds(params)` rounds; a round beyond them, which only a
+    wall-clock budget below the projection lets run, takes its draws from
+    one more such call for every that many rounds).
 
     The host-round loop runs in Python with the wall-clock budget checked
     between rounds, as registration.cc:1475 does. profile=True adds
@@ -1269,8 +1434,21 @@ def psulvsb_solve(
         stage_s[name] = stage_s.get(name, 0.0) + (time.monotonic() - t0)
         return out
 
+    layout = DrawLayout(params, c, fused_scan_rounds(params))
+    draws = layout.fill(generator, dev)
+    more_draws = draws  # the draws of rounds past the layout's
+
+    def round_draws(r):
+        nonlocal more_draws
+        if r < layout.rounds:
+            return draws, r
+        if r % layout.rounds == 0:
+            more_draws = layout.fill(generator, dev)
+        return more_draws, r % layout.rounds
+
     red_i, red_j, red_count, red_pool = timed(
-        "init", _init_stage, ori_src, ori_dst, keep_mask, params, generator
+        "init", _init_stage, ori_src, ori_dst, keep_mask, params, None,
+        layout.init_draws(draws),
     )
     # adoptive_thr_multiplier = 1 + |reduced| / |ori| (registration.cc:669).
     n_reduced_pts, n_real = torch.stack(
@@ -1304,7 +1482,7 @@ def psulvsb_solve(
         nonlocal warm, clique_seeded, host_syncs
         warm_seed, seed_ok, reads = timed(
             "clique_seed", _clique_seed_stage, ori_src, ori_dst, red_i, red_j, red_pool,
-            params, active, generator,
+            params, active, None, layout.seed_u(draws),
         )
         host_syncs += reads + 1
         if bool(seed_ok):
@@ -1330,13 +1508,16 @@ def psulvsb_solve(
         rounds += 1
         l_rate, b_rate = RATE_SCHEDULE[rate_idx]
         b_one = b_rate >= 1.0
+        rd, r = round_draws(rounds - 1)
         s_i, s_j, s_ok, s_count, s_pts = timed(
             "sample", _sample_stage, red_i, red_j, red_count, red_pool, l_rate,
-            params, c, generator,
+            params, c, None, gumbel_of(layout.uniform(rd, "u_sample", r)),
         )
         local = timed(
             "local", _local_stage, ori_src, ori_dst, s_i, s_j, s_ok, s_count, s_pts,
-            b_rate, b_one, hs.host_r, warm, thr, params, generator,
+            b_rate, b_one, hs.host_r, warm, thr, params, None,
+            lambda k: gumbel_of(layout.uniform(rd, "u_local", r, k)),
+            (lambda k: layout.scale_u(rd, r, k)) if layout.scale else None,
         )
         host_syncs += local.host_syncs
         clique_rounds += int(b_one and use_clique)
@@ -1344,7 +1525,7 @@ def psulvsb_solve(
         total_local_batches += local.iterations
         hs, new_corr, host_take = timed(
             "host", _host_stage, ori_src, ori_dst, hs, best_sampled, local.local_r,
-            b_one, thr, params, generator,
+            b_one, thr, params, None, layout.uniform(rd, "u_host", r),
         )
         # One host read for every decision of the round.
         hyp, extras_valid, take, pro_host, escalate, n_new, best_count = torch.stack(

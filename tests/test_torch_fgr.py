@@ -199,3 +199,39 @@ def test_basic_step_rotation_variants_match_jax(setting):
                                    atol=1e-4)
         np.testing.assert_array_equal(got.rotation_inliers.numpy(),
                                       np.asarray(want.rotation_inliers))
+
+
+def _host_repeat(flag, body):
+    """`GraphControl.repeat` on the host: the body while its flag holds."""
+    while bool(flag):
+        flag = body()
+
+
+@pytest.mark.parametrize("loop", ["fgr", "gnc"])
+@pytest.mark.parametrize("max_iterations", [100, 13])
+def test_device_loop_equals_the_masked_iterations(loop, max_iterations):
+    """The loop form inside a CUDA graph (chunks of masked iterations while a
+    problem is left, here with its body run on the host) gives the results
+    of every iteration run masked and of the early exit, at a cap the chunk
+    does not divide too."""
+    from psulvsb_tpu_torch.rotation.gnc import gnc_tls_batched
+
+    problems = [_problem(30 + k, 96, rate, True) for k, rate in enumerate((0.0, 0.3, 0.6))]
+    src = torch.as_tensor(np.stack([p[0] for p in problems]))
+    dst = torch.as_tensor(np.stack([p[1] for p in problems]))
+    act = torch.as_tensor(np.stack([p[2] for p in problems]))
+    nb = torch.tensor([0.02, 0.02, 0.05])
+    if loop == "fgr":
+        def run(**kw):
+            return fgr_batched(src, dst, act, nb, max_iterations=max_iterations,
+                               rot_method="jacobi", **kw)
+    else:
+        def run(**kw):
+            return gnc_tls_batched(src, dst, act, nb**2, torch.eye(3), torch.tensor(False),
+                                   max_iterations, 1.4, 0.005, "jacobi", **kw)
+    early = run()
+    masked = run(early_exit=False)
+    looped = run(early_exit=False, repeat=_host_repeat)
+    for a, b, c in zip(early, masked, looped):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    assert len(set(early[-1].tolist())) > 1 or max_iterations == 13

@@ -2,17 +2,19 @@
 against the staged solver and against the JAX package's `psulvsb_register`.
 
 On the CPU nothing is captured: `psulvsb_register(device="cpu")` runs the
-plan's segments eagerly, which is the module's plain version. The same seed
+plan's solve eagerly, which is the module's plain version. The same seed
 must give the staged `psulvsb_solve`'s solution (valid and inlier count
 equal, scale, rotation and translation within 1e-6; in fact the same
-operations on the same draws). The random streams of the two packages
-differ, so against JAX the comparison is distributional, under BASELINE.md's
-success criteria (RE < 5 deg, TE < 0.3). The CUDA case holds a replayed plan
-against its eager run on the card and skips here; JAX is imported by a
-fixture, so on a machine with a card and without JAX it runs with
+operations on the same draws, taken from one `DrawLayout`). The random
+streams of the two packages differ, so against JAX the comparison is
+distributional, under BASELINE.md's success criteria (RE < 5 deg, TE < 0.3).
+The CUDA case holds the one graph launch of a plan against its eager run on
+the card and skips here; JAX is imported by a fixture, so on a machine with
+a card and without JAX it runs with
 `python -m pytest tests/test_torch_fused.py -m cuda --noconftest`.
 """
 
+import collections
 import types
 
 import numpy as np
@@ -32,6 +34,7 @@ from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_clou
 from psulvsb_tpu_torch.solver import fused
 from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.psulvsb import (
+    DrawLayout,
     _init_stage,
     _local_round,
     _local_stage,
@@ -88,7 +91,9 @@ def _case(name):
     if name == "eager_seed":
         return SolverParams.preset_artificial_gror(clique_init="eager", **CAPS), anchor(), 1
     if name == "lazy_seed":  # 97% outliers: the first escalation runs the seed
-        return SolverParams.preset_artificial(clique_init="auto", **CAPS), anchor(0.97, 5, 300), 1
+        # Seeds 3, 4, 6 and 11 of 0-11 adopt the seed under the draw layout
+        # (seeds 1, 2 and 10 did under the sequential draws before it).
+        return SolverParams.preset_artificial(clique_init="auto", **CAPS), anchor(0.97, 5, 300), 3
     if name == "vote":
         return SolverParams.preset_3dmatch(
             estimate_scaling=True, scale_estimator="vote", **CAPS), scaled(), 3
@@ -141,6 +146,119 @@ def test_register_equals_staged_solve(name):
     again = psulvsb_register(src, dst, keep, torch.Generator().manual_seed(seed), params,
                              device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(again, sol))
+
+
+def test_draws_of_a_batch_do_not_depend_on_earlier_batches(monkeypatch):
+    """Every draw of a solve has its place (kind, round, batch) in one
+    buffer filled before the solve, as the JAX package derives a batch's keys
+    from (key, round, batch): two solves of one seed whose round 1 runs
+    different numbers of local batches take the same draws at every place
+    both reach, and the later rounds' draws do not move."""
+    params, pair, seed = _case("lazy_seed")
+    src, dst, keep = _tensors(pair)
+    seen: list[dict] = []
+    uniform = DrawLayout.uniform
+
+    def recording(self, draws, name, *index):
+        out = uniform(self, draws, name, *index)
+        seen[-1][(name,) + index] = out.clone()
+        return out
+
+    monkeypatch.setattr(DrawLayout, "uniform", recording)
+    for confidence in (0.99, 0.5):
+        seen.append({})
+        psulvsb_solve(src, dst, keep, params.replace(local_confidence=confidence),
+                      torch.Generator().manual_seed(seed))
+    batches = [collections.Counter(key[1] for key in run if key[0] == "u_local") for run in seen]
+    assert batches[0][1] > batches[1][1] > 0  # round 1 ran more batches in the first solve
+    assert batches[0][2] > 0 and batches[1][2] > 0
+    shared = seen[0].keys() & seen[1].keys()
+    assert {("u_local", 2, 0), ("u_host", 2), ("u_sample", 3)} <= shared
+    for key in shared:
+        assert torch.equal(seen[0][key], seen[1][key]), key
+    # The layout itself: places that do not overlap and fill the buffer.
+    layout = DrawLayout(params, src.shape[1], fused.fused_scan_rounds(params))
+    spans = sorted((off, off + int(np.prod(shape))) for off, shape in layout.places.values())
+    assert spans[0][0] == 0 and spans[-1][1] == layout.size
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_greedy_clique_device_loop_equals_fixed_steps():
+    """The greedy's loop form (chunks while candidates are left, a WHILE
+    node in the graph; here its body runs on the host while the flag holds)
+    gives the fixed-step clique and counts the steps it took."""
+    def repeat(flag, body):
+        while bool(flag):
+            flag = body()
+
+    rng = np.random.default_rng(7)
+    n = 90
+    adj = rng.uniform(size=(n, n)) < 0.2
+    adj[10:40, 10:40] = True  # a planted clique of 30
+    adj = torch.as_tensor(adj | adj.T)
+    active = torch.as_tensor(rng.uniform(size=(n,)) < 0.95)
+    scores = triangle_scores(adj, active)
+    fixed, _ = greedy_clique(adj, active, scores, max_steps=n - 1)
+    for chunk in (1, 4, 32):
+        steps = torch.zeros((), dtype=torch.int64)
+        looped, reads = greedy_clique(adj, active, scores, chunk=chunk, repeat=repeat,
+                                      steps_run=steps)
+        assert reads == 0 and torch.equal(looped, fixed)
+        size = int(fixed.sum())
+        assert size - 1 <= int(steps) < size - 1 + chunk + 1 and int(steps) % chunk == 0
+    assert int(fixed.sum()) >= 25
+
+
+class _FlagControl:
+    """The graph's control flow run on the CPU: each IF decided by its flag's
+    value where the graph's conditional node reads it, each WHILE body run
+    while its flag holds, nothing read where the plain version reads."""
+
+    def __init__(self, bufs):
+        self.bufs = bufs
+
+    def when(self, name, slot=None):
+        if bool(self.bufs[name]):
+            yield
+
+    def loop(self, name, count, body, slot=None):
+        k = torch.zeros((), dtype=torch.int64)  # a counter on the device, as in the graph
+        while bool(self.bufs[name]) and int(k) < count:
+            body(k)
+            k = k + 1
+
+    def know(self, name, value):
+        pass
+
+    def read(self, *names):
+        pass
+
+    @staticmethod
+    def repeat(flag, body):
+        while bool(flag):
+            flag = body()
+
+
+@pytest.mark.parametrize("name", PATHS)
+def test_graph_control_flow_equals_plain_version(name):
+    """The description the graph captures, its IFs and WHILEs decided by the
+    flags the solve keeps on the device (the carry), gives the plain
+    version's solution, rounds and batches on every path; its seeds' greedy
+    runs in the loop form."""
+    params, pair, seed = _case(name)
+    src, dst, keep = _tensors(pair)
+    plain = psulvsb_register(src, dst, keep, seed, params, device="cpu")
+    plan = fused.plan_for(params, src.shape[1], "cpu")
+    stats = dict(plan.stats)
+    plan.layout.fill(torch.Generator().manual_seed(seed), "cpu", out=plan.bufs["draws"])
+    plan._solve(_FlagControl(plan.bufs))
+    assert all(torch.equal(a, b) for a, b in zip(plan.solution(), plain))
+    plan._pending = True
+    flagged = plan.stats
+    assert (flagged["rounds"], flagged["local_batches"]) == (stats["rounds"],
+                                                           stats["local_batches"])
+    seeded = name in ("eager_seed", "lazy_seed")
+    assert (flagged["seed_greedy_steps"] > 0) == seeded
 
 
 def _local_inputs(params, pair, seed=0):
@@ -330,9 +448,10 @@ def test_plan_cache_is_bounded_and_entry_points_want_a_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["anchor", "estimated_scale", "gror", "eager_seed", "lazy_seed"])
 def test_cuda_replay_equals_eager_segments(name):
-    """On the card a replayed plan gives its eager run's solution exactly
-    (the same kernels on the same inputs), on a second pair through the same
-    plan too, and the replays' kernel launches are counted."""
+    """On the card a solve is one graph launch with no host read, and gives
+    its eager run's solution exactly (the same kernels on the same inputs),
+    on a second pair through the same plan too; the launches its kernels
+    make in the graph are counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     from psulvsb_tpu_torch.ops import gnc
@@ -341,9 +460,12 @@ def test_cuda_replay_equals_eager_segments(name):
     for k in range(2):
         src, dst, keep = _tensors(pair)
         src, dst = src.roll(k, 1), dst.roll(k, 1)
+        fused.flush_launch_counts()
         before = gnc.KERNEL_LAUNCHES
         replayed = psulvsb_register(src, dst, keep, seed + k, params)
+        stats = fused.plan_for(params, src.shape[1], "cuda").stats
         launched = gnc.KERNEL_LAUNCHES - before
+        assert stats["graph_launches"] == 1 and stats["host_reads"] == 0
         eager = psulvsb_register(src, dst, keep, seed + k, params, graphs=False)
-        assert launched >= fused.plan_for(params, src.shape[1], "cuda").stats["local_batches"]
+        assert launched >= stats["local_batches"]
         assert all(torch.equal(a, b) for a, b in zip(replayed, eager))

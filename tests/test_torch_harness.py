@@ -392,7 +392,7 @@ def test_warm_scene_builds_a_plan_a_bucket(port_scene):
     keys = [k for k in fused._PLANS if k[0] == params]
     assert sorted(k[1] for k in keys) == [256, 512]
     assert all(plan_for(params, b, "cpu").stats for b in (256, 512))  # a solve went through each
-    assert plan_for(params, 512, "cpu").capture_all(torch.Generator()) == 0  # no graphs here
+    assert plan_for(params, 512, "cpu").graph is None  # no graph here
     # The plan cache is the one record of what is warm: plans rebuilt after
     # the cache was emptied are warmed again.
     fused.clear_plan_cache()

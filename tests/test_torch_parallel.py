@@ -1,7 +1,7 @@
 """The pair batch of the port (psulvsb_tpu_torch/parallel/pairs.py) on the
 cases of tests/test_parallel.py at its TINY caps.
 
-On the CPU a batch runs each pair's segments eagerly, so each pair of
+On the CPU a batch runs each pair's solve eagerly, so each pair of
 `register_batch` must equal its `psulvsb_register` alone with the same seed
 exactly, in order and with pairs in flight (`vectorized=True`); the split
 over the devices ["cpu", "cpu"] must equal the local batch and sum its
@@ -139,5 +139,29 @@ def test_cuda_batch_equals_solves_alone(vectorized):
     src, dst, keep, seeds, _ = _make_batch(9)
     sols = register_batch(src, dst, keep, seeds, params, vectorized=vectorized)
     for i in range(9):
+        alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
+        assert all(torch.equal(got[i], want) for got, want in zip(sols, alone))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vectorized", [False, True])
+def test_cuda_batch_syncs_nothing_before_the_readback(vectorized):
+    """Once its plans hold their graphs, a batch of B = 32 pairs staged on the
+    card runs with no host synchronization up to the readback (each pair: its
+    draws, one graph launch, a copy of its solution), and each pair still
+    gets its solve alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    params = SolverParams.preset_artificial(**TINY)
+    src, dst, keep, seeds, _ = _make_batch(32)
+    src, dst, keep = (torch.as_tensor(x, device="cuda") for x in (src, dst, keep))
+    register_batch(src, dst, keep, seeds, params, vectorized=vectorized)  # graphs captured
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sols = register_batch(src, dst, keep, seeds, params, vectorized=vectorized)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i in (0, 17, 31):
         alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
         assert all(torch.equal(got[i], want) for got, want in zip(sols, alone))

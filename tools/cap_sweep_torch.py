@@ -7,13 +7,13 @@ its two fixtures: the bunny-sized anchor (1889 correspondences, 90%
 displaced outliers, noise 0.05, "easy90") and a hostile pair (95% mismatch
 outliers, noise 0.01, "hard95"), both from the port's numpy generator. For
 each point and fixture, `psulvsb_register` first solves once and captures
-every segment of the point's replay plan (outside the timing); then k
+the point's plan as one graph (outside the timing); then k
 back-to-back solves run between two CUDA events, and the figure is their
 wall over k. The grid is swept twice, in order and back, so each point has
-two figures taken at different times of the run. The fused solve reads the
-host once a local batch and once a round, so this is the wall of a solve on
-the card, not a device time amortized inside one program as the JAX tool's
-`lax.scan` measures it.
+two figures taken at different times of the run. Each solve stages its
+inputs and draws from the host and launches its graph once, so this is the
+wall of a solve on the card, not a device time amortized inside one program
+as the JAX tool's `lax.scan` measures it.
 "ok" means RE < 5 deg and TE < 0.3 on the fixture, as the JAX tool's column.
 
 Usage:
@@ -88,9 +88,7 @@ def measure(caps, pair, noise_bound, k: int, device: torch.device) -> dict:
     src = torch.as_tensor(np.asarray(pair.src, np.float32), device=device)
     dst = torch.as_tensor(np.asarray(pair.dst, np.float32), device=device)
     keep = torch.ones(src.shape[1], dtype=torch.int64, device=device)
-    psulvsb_register(src, dst, keep, SOLVE_SEED, params, device=device)
-    plan_for(params, src.shape[1], device).capture_all(
-        torch.Generator(device=device).manual_seed(0))
+    psulvsb_register(src, dst, keep, SOLVE_SEED, params, device=device)  # captures the graph
     sol = psulvsb_register(src, dst, keep, SOLVE_SEED, params, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -151,11 +149,11 @@ def render(rows: list[dict], card: str, k: int, device: torch.device) -> str:
         f"Card: {card}. Generated by `tools/cap_sweep_torch.py` over the JAX tool's grid",
         "(`tools/cap_sweep.py` GRID x POOL_GRID) and fixtures (easy90: 1889 correspondences,",
         "90% displaced outliers, noise 0.05; hard95: 95% mismatch outliers, noise 0.01; both",
-        "from the port's numpy generator). Each point's replay plan was built and every",
-        "segment captured before the timing.",
+        "from the port's numpy generator). Each point's plan was built and its graph",
+        "captured before the timing.",
         f"Figure: {what}, solve seed {SOLVE_SEED};",
         "the grid ran twice, in order and then back, and each cell gives both turns.",
-        "The fused solve reads the host once a local batch and once a round, so the figure",
+        "Each solve stages its inputs and draws and launches its graph once, so the figure",
         "is a solve's wall on the card, not a device time amortized inside one program as",
         "docs/CAP_SWEEP.md's `lax.scan` figure is; the two tables are not comparable and",
         "neither is the other's yardstick. \"ok\" = RE < 5 deg and TE < 0.3; r and b are",

@@ -2,7 +2,7 @@
 PyTorch port's, computed on the CPU.
 
     JAX_PLATFORMS=cpu python tools/port_jax_reference.py \
-        [hostile|frontend|frontend_unknown|demo|audit ...]
+        [hostile|frontend|frontend_unknown|demo|audit|pipeline ...]
 
 - hostile: the hostile pair of chip_smoke.py's clique phase (the anchor
   protocol, C = 1889, 99% displaced outliers, data seed 5, made with the
@@ -22,6 +22,12 @@ PyTorch port's, computed on the CPU.
   window, seed 2095), on the port's own numpy pair: the JAX package's
   `dense_consistency_adjacency` and its core- and triangle-ordered
   `greedy_clique` beside the port's, on the CPU, and the native exact size;
+- pipeline: chip_smoke.py's phase 15 pair (pair_seed1375 padded to its 2048
+  bucket) through each package's `eval.pipeline.solve_with_prefilter` with
+  the pre-filter on, at `frontend_solver_params` at chip_smoke's caps: the
+  JAX package with keys 0-19 and the port on the CPU with seeds 0-19; each
+  package's keep-mask counts (1 / 0 / -1 / -2) and its poses grouped by
+  (RE, TE) rounded to 3 and 4 places;
 - demo: the synthetic protocol of `psulvsb_demo` at its defaults (a 500-point
   `synthetic_cloud`, 10 trials, 90% outliers, noise 0.05,
   `preset_artificial()`) through the JAX package's `run_protocol`; recall is
@@ -147,6 +153,43 @@ def audit() -> None:
           f"tri {port['tri_greedy']}; exact {exact} (native, on JAX's graph)", flush=True)
 
 
+PIPELINE_KEYS = range(20)
+
+
+def pipeline() -> None:
+    from collections import Counter
+
+    import torch
+
+    from psulvsb_tpu.eval.pipeline import solve_with_prefilter as jax_pipeline
+    from psulvsb_tpu_torch.eval import frontend_protocol as fp
+    from psulvsb_tpu_torch.eval.pipeline import solve_with_prefilter as port_pipeline
+
+    src, dst, (rot_true, t_true, _) = smoke.frontend_case(smoke.FRONTEND_GATED)
+    runs = {
+        "JAX": lambda k: jax_pipeline(src, dst, frontend_solver_params(**smoke.CAPS),
+                                      jax.random.PRNGKey(k)),
+        "port": lambda k: port_pipeline(src, dst, fp.frontend_solver_params(**smoke.CAPS), k,
+                                        device="cpu"),
+    }
+    for name, run in runs.items():
+        modes: Counter = Counter()
+        keeps = set()
+        for k in PIPELINE_KEYS:
+            res = run(k)
+            keep = torch.as_tensor(np.array(res.keep_mask)).numpy()
+            keeps.add(tuple(int((keep == v).sum()) for v in (1, 0, -1, -2)))
+            rot = np.asarray(res.solution.rotation, np.float64)
+            trans = np.asarray(res.solution.translation, np.float64)
+            re = angular_error_deg_np(rot_true, rot)
+            te = float(np.linalg.norm(trans - t_true))
+            modes[(round(re, 3), round(te, 4))] += 1
+            print(f"{name} {smoke.FRONTEND_GATED} prefilter on, key {k}: RE={re:.4f} deg "
+                  f"TE={te:.5f}", flush=True)
+        print(f"{name}: keep-mask counts (1, 0, -1, -2) {sorted(keeps)}; poses (RE deg, TE) x "
+              f"keys: {sorted(modes.items(), key=lambda m: -m[1])}", flush=True)
+
+
 def demo() -> None:
     from psulvsb_tpu.eval.protocol import run_protocol
     from psulvsb_tpu.eval.synthetic import synthetic_cloud
@@ -162,7 +205,7 @@ def demo() -> None:
 
 def main() -> None:
     cases = {"hostile": hostile, "frontend": frontend, "frontend_unknown": frontend_unknown,
-             "demo": demo, "audit": audit}
+             "demo": demo, "audit": audit, "pipeline": pipeline}
     for name in sys.argv[1:] or list(cases):
         cases[name]()
 

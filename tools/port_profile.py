@@ -103,7 +103,7 @@ def profile_path(name, device, card, mode="staged"):
     dst = torch.as_tensor(dst, device=device)
     solve = runner(mode, params, src, dst, device)
     solve([0, 1])
-    solve(SEEDS)  # a replayed path has captured every segment these seeds take
+    solve(SEEDS)
     torch.cuda.synchronize()
     for _ in range(PROFILER_ATTEMPTS):
         reset_launches()
