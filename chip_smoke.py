@@ -25,7 +25,12 @@ and prints no result line):
    version; an all-inactive hypothesis gives the identity and no inliers;
    N = 0 raises; medians of 20 timed runs (CUDA events) at (4, 256) and
    (16, 1024), and the profiler's device time a launch there, where a call
-   must run one kernel and no other device operation;
+   must run one kernel and no other device operation. The pair axis: P =
+   1 and 8 pairs of 4 hypotheses at N = 256, each pair with its own warm
+   rotation and flag, in one launch, within PAIR_GNC_TOL of the plain
+   version and of P launches of one pair each, masks equal; the
+   launch, the P launches and the plain version timed, device time a
+   launch and the bound;
 4. slice — the bench anchor pair (C = 1889, 90% displaced outliers, noise
    0.05) solved through RobustRegistrationSolver(SolverParams.
    preset_anchor()) on the card: one warm-up and 5 timed solves with
@@ -48,7 +53,10 @@ and prints no result line):
    not be certified. Medians of 20 timed runs (CUDA events) at C = 1250,
    5000 and 16384 (the beta count at 5000, 12000 and 16384), and
    exact_peak_bin's and the beta count's device time a launch (profiler),
-   where a call must run the kernel and the zeroing of its counts only;
+   where a call must run the kernel and the zeroing of its counts only.
+   exact_peak_bin's pair axis at P = 1 and 8 unknown-scale pairs
+   of C = 5000: one launch against the plain version with the pair axis
+   and P calls of one pair (difference 0), timed as phase 3's;
 6. slice, unknown scale — the 3DMatch unknownScale protocol at C = 5000
    (noise 0.01, 85% mismatch outliers, dst stretched by a test scale drawn
    in [1, 5) from the seed) solved through RobustRegistrationSolver(
@@ -113,11 +121,20 @@ and prints no result line):
    which the graph counts on the device as it runs, set to 0 before each
    path and read after it;
 14. the pair batch — parallel.pairs.register_batch at B = 8 and 32 on the
-   anchor protocol (a pair a seed) and at B = 8 on the unknown-scale one,
-   in order and with pairs in flight (vectorized=True), each run once more
-   under torch.cuda.set_sync_debug_mode("error") (no host synchronization
-   before the readback): every pair gated on RE < 5 deg and TE < 0.3
-   against its ground truth and equal to its solve alone; pairs per second
+   anchor protocol (a pair a seed), at B = 8 on the unknown-scale one and
+   at B = 8 at the sweep's 8192 bucket (known scale, clique "auto"), in
+   its three forms: in order, with pairs in flight
+   (parallel.pairs._register_in_flight; not at 8192, whose plans hold 6-7
+   GiB each) and batched (vectorized=True: chunks of P pairs, each one
+   graph launch of a plan with a pair axis), each run once more under
+   torch.cuda.set_sync_debug_mode("error") (no host synchronization before
+   the readback), the batched plan one graph launch a chunk: every pair
+   equal to its solve alone (in order and in flight difference 0; batched
+   valid and counts equal, R, t and scale within BATCH_TOL); on the anchor
+   and the unknown-scale protocol every pair of every form within the pose
+   gates, at the 8192 bucket every pair that passes them alone (the count
+   printed); the plan cache makes room for the 8192 bucket's plans by
+   itself; the kernels' launches of one batched call; pairs per second
    beside B serial psulvsb_solve calls, in turns;
 15. the pipeline — eval.pipeline.solve_with_prefilter on pair_seed1375
    padded to its 2048 bucket through psulvsb_register, the pre-filter off
@@ -226,8 +243,10 @@ and prints no result line):
    equal). gnc_batch must have launched in the sweeps and the cap sweep;
 24. result — the card line, a JSON line of per-kernel figures (time,
    plain time, bound, launches on the fused path that runs it, in the
-   sweeps, on the CLI and in phase 23's tools), and the final JSON line
-   {"ok": true, "device": {...}}.
+   sweeps, on the CLI and in phase 23's tools; and for the GNC and
+   histogram kernels a second entry, their pair-axis launch at P = 8 with
+   its launches in one batched register_batch call of phase 14), and the
+   final JSON line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a phase drives a solve path and
 read just after it; launches made to compare a kernel with its plain
@@ -404,22 +423,27 @@ def profiled_kernels(fn, reps=PROFILED_REPS) -> dict:
     return out
 
 
-def kernel_device_us(fn, kernel: str, reps=PROFILED_REPS, others=0) -> float:
+def kernel_device_us(fn, kernel: str, reps=PROFILED_REPS, others=0, min_recorded=None) -> float:
     """Mean device microseconds of `kernel`'s launches over `reps` profiled
     calls of fn; fails unless it launched once a call and the calls ran at
     most `others` other device operations each. The profiler now and then
-    loses a window's device records: a window with fewer launches than
-    calls is taken again, up to PROFILER_ATTEMPTS times."""
+    loses a window's device records: a window with fewer than
+    `min_recorded` (default `reps`) launches is taken again, up to
+    PROFILER_ATTEMPTS times, and the mean is over the records kept. Late in
+    a process it may drop one record in every window (9 of 10 launches, six
+    windows running, on the card): the pair-axis rows take reps - 1."""
+    need = reps if min_recorded is None else min_recorded
     for _ in range(PROFILER_ATTEMPTS):
         ops = profiled_kernels(fn, reps)
         runs = [us for name, v in ops.items() if f"{kernel}_kernel" in name for us in v]
         rest = sum(len(v) for name, v in ops.items() if f"{kernel}_kernel" not in name)
-        if len(runs) >= reps:
+        if len(runs) >= need:
             break
         print(f"[profiler] {len(runs)} {kernel} launches recorded over {reps} calls: again")
-    if len(runs) != reps or rest > others * reps:
-        raise AssertionError(f"{reps} calls must launch {kernel} {reps} times with at most "
-                             f"{others * reps} other device operations: {ops.keys()}")
+    if not need <= len(runs) <= reps or rest > others * reps:
+        raise AssertionError(f"{reps} calls must launch {kernel} {reps} times ({need} recorded) "
+                             f"with at most {others * reps} other device operations: "
+                             f"{ops.keys()}")
     return statistics.mean(runs)
 
 
@@ -540,7 +564,61 @@ def phase_kernel_vs_plain(device) -> dict:
               f"of {PROFILED_REPS}), {dev_us / int(iters.max()):.3f} us an iteration of the "
               f"longest hypothesis; iterations {iters.tolist()}, bound "
               f"{bound[0]:.6f} ms by {bound[1]}")
-    return {"max_abs_err": max_err, "times": times}
+    pair_axis = gnc_pair_axis(rng, device)
+    return {"max_abs_err": max_err, "times": times, "pair_axis": pair_axis}
+
+
+def gnc_pair_axis(rng, device, h=4, n=256) -> dict:
+    """The GNC kernel's pair axis (jax.vmap of gnc_batch): P pairs of H
+    hypotheses at the anchor's (hypothesis_batch, basic_cap), each pair with
+    its own warm rotation and flag, in one launch: against the plain version
+    and against P launches of one pair each (within PAIR_GNC_TOL, masks
+    equal), timed at P = 1 and PAIR_AXIS_P beside the P launches, with the
+    device time a launch and the bound at that shape."""
+    from psulvsb_tpu_torch.ops import gnc
+    from psulvsb_tpu_torch.rotation.gnc import floor_noise_sq, gnc_tls_batched
+
+    out = {"max_abs_err": 0.0, "times": {}}
+    for p in (1, PAIR_AXIS_P):
+        src, dst, act, nb, _ = gnc_problem(rng, p * h, n, device)
+        warm = torch.stack([gnc_problem(rng, 1, 8, device)[4] for _ in range(p)])
+        flags = torch.as_tensor(np.arange(p) % 2 == 0, device=device)
+        args = (src, dst, act, nb, warm, flags)
+        rows = [slice(q * h, (q + 1) * h) for q in range(p)]
+
+        def singles():
+            return [gnc.gnc_batch(src[r], dst[r], act[r], nb[r], warm[q], flags[q], **LOOP)
+                    for q, r in enumerate(rows)]
+
+        rk, ik = gnc.gnc_batch(*args, **LOOP)
+        rr, ir = gnc.gnc_batch_reference(*args, **LOOP)
+        one = singles()
+        rs, is_ = torch.cat([o[0] for o in one]), torch.cat([o[1] for o in one])
+        torch.cuda.synchronize()
+        e_plain, e_one = float((rk - rr).abs().max()), float((rk - rs).abs().max())
+        if not (e_plain <= PAIR_GNC_TOL and e_one <= PAIR_GNC_TOL and torch.equal(ik, ir)
+                and torch.equal(ik, is_)):
+            raise AssertionError(f"GNC pair axis P={p}: |dR| {e_plain} to plain, {e_one} to "
+                                 f"single launches (tolerance {PAIR_GNC_TOL}), masks equal "
+                                 f"{torch.equal(ik, ir)}, {torch.equal(ik, is_)}")
+        out["max_abs_err"] = max(out["max_abs_err"], e_plain)
+        ms = median_ms(lambda: gnc.gnc_batch(*args, **LOOP))
+        plain = median_ms(lambda: gnc.gnc_batch_reference(*args, **LOOP))
+        apart = median_ms(singles)
+        dev_us = kernel_device_us(lambda: gnc.gnc_batch(*args, **LOOP), "gnc_batch",
+                                  min_recorded=PROFILED_REPS - 1)
+        _, _, _, iters = gnc_tls_batched(
+            src, dst, act, floor_noise_sq(nb), warm.repeat_interleave(h, 0),
+            flags.repeat_interleave(h)[:, None, None], rot_method="power", **LOOP)
+        ops = float((iters * (act.sum(1) * GNC_OPS_PER_COLUMN + GNC_OPS_PER_ITERATION)).sum())
+        bound = bound_ms(p * h * n * 26 + p * h * 40 + p * 37, ops)
+        out["times"][p] = (ms, plain, bound)
+        print(f"[kernel] pair axis P={p} x H={h}, N={n}: |dR| to plain {e_plain:.3g}, to {p} "
+              f"single launches {e_one:.3g}, masks equal; one launch {ms:.4f} ms, {p} single "
+              f"launches {apart:.4f} ms, plain {plain:.4f} ms (medians of 20, CUDA events); "
+              f"device {dev_us:.2f} us a launch (profiler); bound {bound[0]:.6f} ms by "
+              f"{bound[1]}")
+    return out
 
 
 def anchor_case(c=ANCHOR_C, rate=0.9, data_seed=1, cloud_seed=0):
@@ -912,6 +990,7 @@ def phase_pair_kernels(device) -> dict:
         )
         print(f"[pairs] C={c} exact_peak_bin: device {dev_us:.2f} us a launch (profiler, mean "
               f"of {PROFILED_REPS})")
+    pair_axis = peak_pair_axis(device)
     for c in BETA_TIMED_SIZES:
         src, dst, act = hist_inputs(c, c, device, 1.0)
         ms = median_ms(lambda: hist.pair_beta_count(src, dst, 0.1, act))
@@ -925,7 +1004,46 @@ def phase_pair_kernels(device) -> dict:
         print(f"[pairs] C={c} beta 0.1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
               f"20, CUDA events); device {dev_us:.2f} us a launch (profiler, mean of "
               f"{PROFILED_REPS}); bound {bound[0]:.6f} ms by {bound[1]}")
-    return {"max_diff": worst, "times": times}
+    return {"max_diff": worst, "times": times, "pair_axis": pair_axis}
+
+
+def peak_pair_axis(device, c=UNKNOWN_C) -> dict:
+    """exact_peak_bin's pair axis (jax.vmap of exact_peak_bin): P pairs of
+    the unknown-scale protocol (test scales 1 ... 4.5) in one launch and one
+    zero fill, against the plain version with the pair axis and against P
+    calls of one pair each (difference 0), timed at P = 1 and PAIR_AXIS_P
+    beside the P calls, with the device time a launch and the bound."""
+    from psulvsb_tpu_torch.ops import hist
+
+    out = {"max_diff": 0, "times": {}}
+    for p in (1, PAIR_AXIS_P):
+        inputs = [hist_inputs(c, 40 + q, device, 1.0 + 0.5 * q) for q in range(p)]
+        src, dst, act = (torch.stack(x) for x in zip(*inputs))
+        got = hist.exact_peak_bin(src, dst, act)
+        plain = hist.peak_from_full_histogram(
+            hist.pair_ratio_histogram_reference(src, dst, act, num_bins=PEAK_BINS), 128, 16)
+        one = [hist.exact_peak_bin(*x) for x in inputs]
+        for k in range(3):
+            apart = torch.stack([o[k] for o in one])
+            diff = max(compare_counts(f"pair axis P={p} field {k}", got[k].to(torch.int64),
+                                      w.to(torch.int64)) for w in (plain[k], apart))
+            out["max_diff"] = max(out["max_diff"], diff)
+        ms = median_ms(lambda: hist.exact_peak_bin(src, dst, act))
+        plain_ms = median_ms(lambda: hist.peak_from_full_histogram(
+            hist.pair_ratio_histogram_reference(src, dst, act, num_bins=PEAK_BINS), 128, 16))
+        apart_ms = median_ms(lambda: [hist.exact_peak_bin(*x) for x in inputs])
+        dev_us = kernel_device_us(lambda: hist.exact_peak_bin(src, dst, act),
+                                  "pair_ratio_hist", others=1, min_recorded=PROFILED_REPS - 1)
+        n = act.sum(1).tolist()
+        bound = bound_ms(p * (c * 25 + PEAK_BINS * 8 + 17),
+                         sum(k * (k - 1) // 2 for k in n) * OPS_PER_PAIR["pair_ratio_hist"])
+        out["times"][p] = (ms, plain_ms, bound)
+        print(f"[pairs] exact_peak_bin pair axis P={p}, C={c}: (peak, count, certified) as the "
+              f"plain version and as {p} single calls (difference 0); one launch {ms:.4f} ms, "
+              f"{p} single calls {apart_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20, "
+              f"CUDA events); device {dev_us:.2f} us a launch (profiler); bound "
+              f"{bound[0]:.6f} ms by {bound[1]}; peaks {got[0].tolist()}")
+    return out
 
 
 def phase_unknown_scale(device, card: str) -> dict:
@@ -1113,8 +1231,15 @@ def phase_clique(device, card: str) -> dict:
 
 FUSED_PATHS = ("anchor", "unknown", "wide", "gror", "frontend", "eager_seed", "lazy_seed",
                "hostile")
-BATCH_SIZES = {"anchor": (8, 32), "unknown": (8,)}
-BATCH_C = {"anchor": ANCHOR_C, "unknown": UNKNOWN_C}
+BATCH_SIZES = {"anchor": (8, 32), "unknown": (8,), "bucket8192": (8,)}
+BATCH_TOL = 1e-4  # a batched pair against its solve alone: float32 sums in another order
+BATCH_FORMS = ("in order", "in flight", "batched")
+# How phase 14 gates a batch's poses: "absolute", every pair of every form
+# within LIMITS; "as alone", every pair of every form that passes LIMITS
+# alone (the 8192 bucket's 85% mismatch outliers fail some pairs alone).
+BATCH_GATES = {"anchor": "absolute", "unknown": "absolute", "bucket8192": "as alone"}
+PAIR_AXIS_P = 8  # pairs of the kernels' pair-axis launches (phases 3 and 5)
+PAIR_GNC_TOL = 7.2e-07  # the pair-axis GNC launch against its plain version and single launches
 PIPELINE_BUCKET = 2048
 LAZY_SEED_C = 8192  # the sweep's largest bucket
 LAZY_SEED_RATE = 0.95  # the sweep's highest outlier rate (write_scene's cycle)
@@ -1348,82 +1473,149 @@ def phase_fused_paths(device, card: str) -> dict:
 
 
 def batch_cases(name, b):
-    """B pairs of a protocol, a pair a seed: stacked (src, dst), truths."""
-    cases = [
-        anchor_case(data_seed=200 + i, cloud_seed=200 + i) if name == "anchor"
-        else unknown_scale_case(UNKNOWN_C, 200 + i)
-        for i in range(b)
-    ]
+    """B pairs of a protocol, a pair a seed: stacked (src, dst), keep masks,
+    truths, params. "bucket<C>": the 3DMatch protocol at known scale (noise
+    0.01, 85% mismatch outliers) with the sweep's correspondences for pad
+    bucket C (3500, 5000, 6500 for 4096, 6144, 8192) padded to C with keep
+    -2, through the sweep's preset (clique "auto"). "lazy8192": the lazy
+    seed's path of phase 13 (the sweep's preset with scale estimated, C =
+    8192, 95% mismatch outliers), a pair a data seed from 21 on."""
+    if name == "anchor":
+        cases = [anchor_case(data_seed=200 + i, cloud_seed=200 + i) for i in range(b)]
+        params = path_case("anchor")[0]
+    elif name == "unknown":
+        cases = [unknown_scale_case(UNKNOWN_C, 200 + i) for i in range(b)]
+        params = unknown_scale_params()
+    elif name == "lazy8192":
+        cases = [fused_case("lazy_seed", i)[1] for i in range(b)]
+        params = fused_case("lazy_seed")[0]
+    else:
+        from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+
+        bucket = int(name.removeprefix("bucket"))
+        n = dict(zip((4096, 6144, 8192), SWEEP_SIZES))[bucket]
+        cases = []
+        for i in range(b):
+            pair = make_synthetic_pair(np.random.default_rng(200 + i),
+                                       synthetic_cloud(n, seed=200 + i), 0.01,
+                                       UNKNOWN_RATE, outlier_mode="mismatch")
+            t = pair.transform
+            pad = np.zeros((3, bucket - n), np.float32)
+            cases.append((np.concatenate([pair.src, pad], 1), np.concatenate([pair.dst, pad], 1),
+                          (t.rotation, t.translation, float(t.scale))))
+        params = sweep_params().replace(estimate_scaling=False)
     src = np.stack([c[0] for c in cases]).astype(np.float32)
     dst = np.stack([c[1] for c in cases]).astype(np.float32)
-    return src, dst, [c[2] for c in cases]
+    keep = np.ones(src.shape[::2], np.int64)
+    if name.startswith("bucket"):
+        keep[:, n:] = -2
+    return src, dst, keep, [c[2] for c in cases], params
 
 
-def phase_pair_batch(device, card: str) -> list:
-    """Phase 14: register_batch in its two forms beside serial solves."""
+def phase_pair_batch(device, card: str) -> dict:
+    """Phase 14: register_batch in its three forms beside serial solves."""
     from psulvsb_tpu_torch import RegistrationSolution, psulvsb_solve, register_batch
-    from psulvsb_tpu_torch.solver.fused import psulvsb_register
+    from psulvsb_tpu_torch.parallel.pairs import _register_in_flight, pairs_per_chunk
+    from psulvsb_tpu_torch.solver.fused import pair_batch_route, plan_for, psulvsb_register
 
-    rows = []
+    t_phase = time.perf_counter()
+    rows, launches = [], {}
     for name, sizes in BATCH_SIZES.items():
-        params = path_case(name)[0] if name == "anchor" else unknown_scale_params()
         for b in sizes:
-            src_np, dst_np, truths = batch_cases(name, b)
+            src_np, dst_np, keep_np, truths, params = batch_cases(name, b)
             src = torch.as_tensor(src_np, device=device)
             dst = torch.as_tensor(dst_np, device=device)
-            keep = torch.ones((b, src.shape[2]), dtype=torch.int64, device=device)
+            keep = torch.as_tensor(keep_np, device=device)
+            c = src.shape[2]
             seeds = [300 + i for i in range(b)]
+            # The 8192 bucket's plans hold 6-7 GiB a pair: no in-flight plans there.
+            forms = [f for f in BATCH_FORMS if name != "bucket8192" or f != "in flight"]
+            if pair_batch_route(params, c) != "batched":
+                raise AssertionError(f"batch {name}: route {pair_batch_route(params, c)}")
+            p = pairs_per_chunk(c, b, device)
+            chunks = -(-b // p)
 
             def serial():
                 for i in range(b):
                     gen = torch.Generator(device=device).manual_seed(seeds[i])
                     psulvsb_solve(src[i], dst[i], keep[i], params, gen)
 
-            def batch(vectorized):
-                return register_batch(src, dst, keep, seeds, params, vectorized=vectorized)
+            def batch(form):
+                if form == "in flight":
+                    return _register_in_flight(src, dst, keep, seeds, params)
+                return register_batch(src, dst, keep, seeds, params,
+                                      vectorized=form == "batched")
 
-            forms = {"in order": batch(False), "in flight": batch(True)}  # plans built here
+            sols = {form: batch(form) for form in forms}  # plans built here
+            plan = plan_for(params, c, device, pairs=p)
             torch.cuda.synchronize()
-            # Staged inputs, draws, one launch and a copy a pair: nothing in
-            # either form may wait for the device before the readback.
+            # Staged inputs, draws, one launch a pair (a chunk) and copies: no
+            # form may wait for the device before the readback.
+            before = plan.graph_launches
+            reset_launches()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                forms = {"in order": batch(False), "in flight": batch(True)}
+                sols = {form: batch(form) for form in forms}
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-            print(f"[batch {name}] B={b}: both forms ran with no host synchronization before "
-                  f"the readback (torch.cuda.set_sync_debug_mode('error'))")
-            for form, sols in forms.items():
-                for i in range(b):
-                    one = RegistrationSolution(*(f[i] for f in sols))
+            if plan.graph_launches - before != chunks:
+                raise AssertionError(f"batch {name} B={b}: {plan.graph_launches - before} graph "
+                                     f"launches of the batched plan, not one a chunk ({chunks})")
+            reset_launches()
+            batch("batched")
+            launches[(name, b)] = read_launches()
+            print(f"[batch {name}] B={b}: every form ran with no host synchronization before the "
+                  f"readback (torch.cuda.set_sync_debug_mode('error')); batched: P = {p}, "
+                  f"{chunks} chunks, one graph launch each; kernel launches a batched call "
+                  f"{launches[(name, b)]}")
+            worst, gated = 0.0, 0
+            absolute = BATCH_GATES[name] == "absolute"
+            for i in range(b):
+                alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
+                passes_alone = score_solution(f"batch {name} alone pair {i}", alone, truths[i])[4]
+                gate = absolute or passes_alone
+                gated += gate
+                for form, got in sols.items():
+                    one = RegistrationSolution(*(f[i] for f in got))
                     valid, re, te, se, ok = score_solution(f"batch {name} {form} pair {i}", one,
                                                            truths[i])
-                    if not ok:
+                    diff = solution_difference(one, alone)
+                    same = (bool(one.valid) == bool(alone.valid)
+                            and int(one.final_inlier_count) == int(alone.final_inlier_count))
+                    if form == "batched":
+                        worst = max(worst, diff)
+                    if not same or diff > (BATCH_TOL if form == "batched" else 0.0):
+                        raise AssertionError(f"batch {name} B={b} {form}: pair {i} differs from "
+                                             f"its solve alone by {diff} (valid, counts equal: "
+                                             f"{same})")
+                    if gate and not ok:
                         raise AssertionError(f"batch {name} B={b} {form}: pair {i} failed its "
-                                             f"gate: valid={valid} RE={re} TE={te} scale {se}")
-            for i in (0, b - 1):
-                alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
-                for form, sols in forms.items():
-                    diff = solution_difference(
-                        RegistrationSolution(*(f[i] for f in sols)), alone)
-                    if diff != 0.0:
-                        raise AssertionError(f"batch {name} {form}: pair {i} differs from its "
-                                             f"solve alone by {diff}")
-            order = ((serial, "serial"), (lambda: batch(False), "in order"),
-                     (lambda: batch(True), "in flight"))
+                                             f"gate ({BATCH_GATES[name]}; alone: "
+                                             f"{passes_alone}): valid={valid} RE={re} TE={te} "
+                                             f"scale {se}")
+            rule = ("every pair of every form passed its pose gate" if absolute else
+                    f"{gated} of {b} pairs pass their pose gate alone, and each of them passed "
+                    f"it in every form")
+            print(f"[batch {name}] B={b}: every pair as its solve alone (in order and in flight "
+                  f"difference 0; batched valid and counts equal, R, t and scale within "
+                  f"{worst:.3g} <= {BATCH_TOL}); {rule}")
+            order = [(serial, "serial")] + [((lambda f=f: batch(f)), f) for f in forms]
             rates = {label: [] for _, label in order}
             for fn, label in order + order[::-1]:  # in turns, there and back
                 wall = timed_walls(lambda _: fn(), [0])[0]
                 rates[label].append(b / (wall * 1e-3))
             rows.append({
-                "batch": name, "B": b, "C": src.shape[2], "gated_pairs": b,
-                "pairs_per_s_serial_staged": rates["serial"],
-                "pairs_per_s_register_batch": rates["in order"],
-                "pairs_per_s_vectorized": rates["in flight"], "card": card,
+                "batch": name, "B": b, "C": c, "P": p, "gate": BATCH_GATES[name],
+                "gated_pairs": gated, "batched_vs_alone_max_diff": worst,
+                "plan_MiB": round(plan.nbytes / 2**20, 1),
+                "capture_s": round(plan.capture_s, 3),
+                "pairs_per_s": rates, "card": card,
             })
             print(json.dumps(rows[-1]))
-    return rows
+    phase_s = time.perf_counter() - t_phase
+    print(f"[batch] phase 14 in {phase_s:.1f} s; card: {card}")
+    return {"rows": rows, "launches": launches}
 
 
 def phase_pipeline(device, card: str) -> dict:
@@ -2529,7 +2721,7 @@ def main() -> int:
     phase_clique(device, card)
     phase_replay_vs_eager(device, card)
     fused = phase_fused_paths(device, card)
-    phase_pair_batch(device, card)
+    batch = phase_pair_batch(device, card)
     phase_pipeline(device, card)
     phase_classic(device, card)
     phase_exact_clique(device, card)
@@ -2567,6 +2759,22 @@ def main() -> int:
             "library_ms": None,
         }
 
+    def pair_row(name, source, replaces, case, axis):
+        """The same kernel's pair-axis launch (PAIR_AXIS_P pairs): `launches`
+        over one batched register_batch call of phase 14's `case` (the main
+        path of the batched form), figures from phase 3 or 5."""
+        ms, plain_ms, (bound, bound_by) = axis["times"][PAIR_AXIS_P]
+        launched = batch["launches"][case][name]
+        if launched <= 0:
+            raise AssertionError(f"{name} did not launch on the batched {case} path")
+        return {
+            "name": f"{name} (pair axis, P = {PAIR_AXIS_P})", "route": "cuda",
+            "source": f"psulvsb_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launched, "path": f"register_batch vectorized {case[0]} B={case[1]}",
+            "max_abs_err": axis.get("max_abs_err", axis.get("max_diff")), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        }
+
     print(card_line())
     print(json.dumps({"kernels": [
         row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235", "anchor",
@@ -2581,6 +2789,10 @@ def main() -> int:
             "psulvsb_tpu/ops/pallas_pairs.py:53", "gror",
             gror["launches"]["consistency_degree"], degree["max_diff"],
             degree["times"][ANCHOR_C]),
+        pair_row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235",
+                 ("anchor", 8), kern["pair_axis"]),
+        pair_row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",
+                 ("unknown", 8), pairs["pair_axis"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

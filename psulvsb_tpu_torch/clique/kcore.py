@@ -121,8 +121,10 @@ def greedy_clique(
     CUDA graph capture: `repeat(flag, body)` runs `body`, which returns the
     next flag, while the flag holds) the chunks run in a loop on the device
     while any candidate is left, as the JAX package's `lax.while_loop`, and
-    nothing is read on the host either; `steps_run`, a 0-d int64 tensor, then has
-    the steps that ran (chunks times `chunk`) added to it.
+    nothing is read on the host either; `steps_run`, an int64 tensor of the
+    graphs' batch shape, then has each graph's steps added to it: the chunks
+    that its own greedy needs, times `chunk` (a graph whose candidates ran
+    out early is frozen while another's run on).
 
     Returns ((..., N) bool clique mask, host reads)."""
     reads = 0
@@ -182,7 +184,8 @@ def greedy_clique(
 
         repeat(cand_now.any(), body)
         if steps_run is not None:
-            steps_run.add_(done)
+            picks = (top_all > -torch.inf).sum(-1)
+            steps_run.add_(torch.div(picks + chunk - 1, chunk, rounding_mode="floor") * chunk)
         best, picked = [top_all], [pick_all]
     elif max_steps is not None:
         for _ in range(max_steps):

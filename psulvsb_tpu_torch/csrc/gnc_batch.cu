@@ -60,6 +60,11 @@
 //   * Inputs are read through their strides (unit column stride), the mask
 //     as the bool tensor's bytes; outputs are the caller's (B, 3, 3) float32
 //     and (B, N) bool tensors.
+//   * A pair axis, the counterpart of jax.vmap over gnc_batch (pallas_call's
+//     batching rule adds a leading grid dimension): the B hypotheses of one
+//     launch are P pairs' hypotheses in pair order, and each reads its own
+//     pair's warm rotation and flag, so a batched solve of P pairs makes one
+//     launch where P solves alone make P. P = 1 is the single solve's call.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -77,10 +82,11 @@ struct Inputs {
   const float* dst;   // (B, 3, N) at strides (dst_b, dst_k, 1)
   const unsigned char* act;  // (B, N) bool bytes at stride (act_b, 1)
   const float* nb;    // (B,) noise bound at stride nb_s
-  const float* warm;  // (3, 3) at strides (warm_0, warm_1)
-  const unsigned char* use_warm;  // one bool byte on the device: take `warm` on iteration 0
-  long long src_b, src_k, dst_b, dst_k, act_b, nb_s, warm_0, warm_1;
+  const float* warm;  // (P, 3, 3) at strides (warm_p, warm_0, warm_1)
+  const unsigned char* use_warm;  // (P,) bool bytes on the device: take `warm` on iteration 0
+  long long src_b, src_k, dst_b, dst_k, act_b, nb_s, warm_p, warm_0, warm_1;
   int b, n, max_iterations;
+  int per_pair;  // hypotheses of one pair: hypothesis h belongs to pair h / per_pair
   float gnc_factor, cost_threshold;
   float* rot_out;           // (B, 3, 3) contiguous
   unsigned char* inl_out;   // (B, N) contiguous bool
@@ -273,9 +279,11 @@ __device__ __forceinline__ void gnc_hypothesis(const Inputs& in, int b, int t,
 
   if (in.max_iterations > 0) {
     // Iteration 0: the warm rotation or the solve, then mu from the max.
-    if (*in.use_warm != 0) {  // the same byte for every thread: a uniform branch
+    const int pair = b / in.per_pair;
+    if (in.use_warm[pair] != 0) {  // the same byte for every thread: a uniform branch
+      const float* warm = in.warm + pair * in.warm_p;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) r[k] = in.warm[(k / 3) * in.warm_0 + (k % 3) * in.warm_1];
+      for (int k = 0; k < 9; ++k) r[k] = warm[(k / 3) * in.warm_0 + (k % 3) * in.warm_1];
     } else {
       correlation();
       reduce<WARPS, kRed, false>(red, scratch, buf);
@@ -344,21 +352,27 @@ __global__ void __launch_bounds__(32 * WARPS) gnc_batch_kernel(const Inputs in) 
 // Launches the kernel on `stream` and returns cudaGetLastError() as an int
 // (0 on success). Pointers are device pointers: src/dst float32 (B, 3, N)
 // at element strides (*_b, *_k, 1), act the bytes of a (B, N) bool tensor
-// at (act_b, 1), nb float32 (B,) at nb_s, warm float32 (3, 3) at
-// (warm_0, warm_1), use_warm the byte of a 0-d bool tensor (read by the
-// kernel, so a captured launch follows the flag's value at each replay);
+// at (act_b, 1), nb float32 (B,) at nb_s, warm float32 (P, 3, 3) at
+// (warm_p, warm_0, warm_1), use_warm the P bytes of a bool tensor (read by
+// the kernel, so a captured launch follows the flags' values at each
+// replay); the B hypotheses are P pairs' per_pair each, in pair order, and
+// hypothesis h takes pair h / per_pair's warm rotation and flag (P = 1,
+// per_pair = B: one warm rotation for the batch);
 // rot_out a contiguous float32 (B, 3, 3), inl_out a
 // contiguous (B, N) bool tensor.
 extern "C" int gnc_batch_launch(const float* src, long long src_b, long long src_k,
                                 const float* dst, long long dst_b, long long dst_k,
                                 const unsigned char* act, long long act_b, const float* nb,
-                                long long nb_s, const float* warm, long long warm_0,
-                                long long warm_1, const unsigned char* use_warm, int b, int n,
+                                long long nb_s, const float* warm, long long warm_p,
+                                long long warm_0, long long warm_1,
+                                const unsigned char* use_warm, int per_pair, int b, int n,
                                 int max_iterations, float gnc_factor, float cost_threshold,
                                 float* rot_out, unsigned char* inl_out, void* stream) {
-  if (b <= 0 || n <= 0 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (b <= 0 || n <= 0 || n > kMaxN || per_pair <= 0 || b % per_pair != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Inputs in{src, dst, act, nb, warm, use_warm, src_b, src_k, dst_b, dst_k, act_b, nb_s,
-                  warm_0, warm_1, b, n, max_iterations, gnc_factor,
+                  warm_p, warm_0, warm_1, b, n, max_iterations, per_pair, gnc_factor,
                   cost_threshold, rot_out, inl_out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 32 * kSmallWarps) {

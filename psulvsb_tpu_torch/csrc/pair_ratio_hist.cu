@@ -24,6 +24,14 @@
 // every argmax, so the result is the two passes' bit for bit, with no
 // second launch and no host read.
 //
+// A pair axis, the counterpart of jax.vmap over exact_peak_bin (pallas_call's
+// batching rule adds a leading grid dimension): P cloud pairs, (P, 3, C)
+// each cloud, in one launch whose grid's second dimension is the pair. Each
+// pair has its own counts, block counter and peak, P rows of one buffer the
+// caller zeroed once, and its own last block derives its peak. The blocks of
+// one pair are a P-th of the grid a single pair gets (at least one), so
+// the launch keeps about four blocks per SM whatever P is.
+//
 // Numerics. Distances by pair_sweep.cuh's dist3 (direct differences, no
 // contraction into FMAs, IEEE square root) and an IEEE division, so every
 // ratio is bit for bit what the plain PyTorch version (ops/hist.py)
@@ -62,8 +70,20 @@ constexpr long long kLoLimit = 1LL << 30;  // |lo| beyond 2^30 windows nothing m
 struct Peak {
   unsigned int* done;             // block counter, zeroed by the caller; null: no peak
   int coarse_bins, coarse_stride;  // exact_peak_bin's num_bins and stride
-  long long* out;                 // peak fine bin, its count
+  long long* peak;                // peak fine bin
+  long long* count;               // its count
   unsigned char* certified;
+
+  // This pair's counter (in its row of counts, rows `row` 64-bit words
+  // apart), peak, count and certificate.
+  __device__ __forceinline__ Peak of_pair(int pair, long long row) const {
+    Peak p = *this;
+    p.done = reinterpret_cast<unsigned int*>(reinterpret_cast<long long*>(done) + pair * row);
+    p.peak = peak + pair;
+    p.count = count + pair;
+    p.certified = certified + pair;
+    return p;
+  }
 };
 
 // First maximum over the lanes of a warp: (value, index), lower index on ties.
@@ -128,8 +148,8 @@ __device__ void derive_peak(const unsigned long long* counts, int num_bins, cons
     outside = o > outside ? o : outside;
   }
   if (lane == 0) {
-    p.out[0] = lo + fpeak;
-    p.out[1] = static_cast<long long>(fbest);
+    *p.peak = lo + fpeak;
+    *p.count = static_cast<long long>(fbest);
     *p.certified = (outside < (fbest > 0 ? fbest : 1ull)) && cpeak < nc - 1;
   }
 }
@@ -139,12 +159,20 @@ __global__ void __launch_bounds__(kThreads)
     pair_ratio_hist_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                            const unsigned char* __restrict__ act, int c, float bins_per_unit,
                            const long long* __restrict__ lo_ptr, long long lo_imm, int stride,
-                           int num_bins, int tiles_per_side,
-                           unsigned long long* __restrict__ counts, const Peak peak) {
+                           int num_bins, int tiles_per_side, long long row,
+                           unsigned long long* __restrict__ counts, const Peak all_peaks) {
   constexpr int kSize = pair_sweep::Tile<J>::kSize;
   __shared__ __align__(8) unsigned int hist[kMaxBins];
   __shared__ pair_sweep::Tile<J> points;
   __shared__ bool is_last;
+
+  // This block's pair: its clouds, mask, counts and peak.
+  const int pair = blockIdx.y;
+  src += 3LL * c * pair;
+  dst += 3LL * c * pair;
+  if (act != nullptr) act += static_cast<long long>(c) * pair;
+  counts += row * pair;
+  const Peak peak = all_peaks.done == nullptr ? all_peaks : all_peaks.of_pair(pair, row);
 
   const int tid = threadIdx.x;
   for (int k = tid; k < num_bins; k += kThreads) hist[k] = 0u;
@@ -206,39 +234,42 @@ __global__ void __launch_bounds__(kThreads)
 template <int J>
 void launch(bool clamp, dim3 grid, cudaStream_t st, const float* src, const float* dst,
             const unsigned char* act, int c, float bins_per_unit, const long long* lo_ptr,
-            long long lo_imm, int stride, int num_bins, int tiles_per_side,
+            long long lo_imm, int stride, int num_bins, int tiles_per_side, long long row,
             unsigned long long* counts, const Peak& peak) {
   if (clamp) {
     pair_ratio_hist_kernel<J, true><<<grid, kThreads, 0, st>>>(
         src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride, num_bins, tiles_per_side,
-        counts, peak);
+        row, counts, peak);
   } else {
     pair_ratio_hist_kernel<J, false><<<grid, kThreads, 0, st>>>(
         src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride, num_bins, tiles_per_side,
-        counts, peak);
+        row, counts, peak);
   }
 }
 
 }  // namespace
 
-// Adds the histogram of the active pairs i < j to `counts` (num_bins
-// 64-bit integers the caller zeroed) on `stream`; returns
-// cudaGetLastError() as an int (0 on success). src and dst are (3, c)
-// contiguous float32, act c bytes of 0/1 or null (all active); the window
-// starts at *lo_ptr (int64 on the device) or, when lo_ptr is null, at
-// lo_imm, with stride >= 1. With done non-null (a zeroed uint32 on the
-// device), the window must be exact_peak_bin's full pass (lo 0, stride 1,
-// clamped, num_bins = (coarse_bins + 1) coarse_stride + 1), and the last
-// block writes the peak fine bin and its count to peak_out[0..1] and the
-// certificate to *certified.
+// Adds the histogram of the active pairs i < j of each of `pairs` cloud
+// pairs to its row of `counts` (rows of num_bins 64-bit integers, `row`
+// apart, that the caller zeroed) on `stream`; returns cudaGetLastError() as
+// an int (0 on success). src and dst are (pairs, 3, c) contiguous float32,
+// act (pairs, c) bytes of 0/1 or null (all active); the window starts at
+// *lo_ptr (int64 on the device) or, when lo_ptr is null, at lo_imm, with
+// stride >= 1, for every pair. With done non-null (a zeroed uint32 on the
+// device in each row's slot), the window must be exact_peak_bin's full pass
+// (lo 0, stride 1, clamped, num_bins = (coarse_bins + 1) coarse_stride + 1),
+// and each pair's last block writes its peak fine bin to peak_out[pair], its
+// count to count_out[pair] and its certificate to certified[pair].
 extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const unsigned char* act,
                                       int c, float bins_per_unit, const long long* lo_ptr,
                                       long long lo_imm, int stride, int num_bins,
-                                      int clamp_overflow, unsigned long long* counts,
-                                      unsigned int* done, int coarse_bins, int coarse_stride,
-                                      long long* peak_out, unsigned char* certified,
+                                      int clamp_overflow, int pairs, long long row,
+                                      unsigned long long* counts, unsigned int* done,
+                                      int coarse_bins, int coarse_stride, long long* peak_out,
+                                      long long* count_out, unsigned char* certified,
                                       void* stream) {
-  if (c < 0 || c > pair_sweep::kMaxC || num_bins < 1 || num_bins > kMaxBins || stride < 1) {
+  if (c < 0 || c > pair_sweep::kMaxC || num_bins < 1 || num_bins > kMaxBins || stride < 1 ||
+      pairs < 1 || pairs > 65535 || (pairs > 1 && row < num_bins)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (done != nullptr &&
@@ -246,24 +277,24 @@ extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const 
        (coarse_bins + 1) * coarse_stride + 1 != num_bins || !clamp_overflow || stride != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM);
-  const dim3 grid(p.grid);
+  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM, pairs);
+  const dim3 grid(p.grid, pairs);
   const int j = p.j, side = p.side;
-  const Peak peak{done, coarse_bins, coarse_stride, peak_out, certified};
+  const Peak peak{done, coarse_bins, coarse_stride, peak_out, count_out, certified};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool clamp = clamp_overflow != 0;
   switch (j) {
     case 4:
       launch<4>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
-                num_bins, side, counts, peak);
+                num_bins, side, row, counts, peak);
       break;
     case 2:
       launch<2>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
-                num_bins, side, counts, peak);
+                num_bins, side, row, counts, peak);
       break;
     default:
       launch<1>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
-                num_bins, side, counts, peak);
+                num_bins, side, row, counts, peak);
   }
   return static_cast<int>(cudaGetLastError());
 }

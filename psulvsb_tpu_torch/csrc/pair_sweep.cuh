@@ -58,12 +58,15 @@ struct Plan {
 
 // The largest tile that still gives blocks_per_sm tiles per SM; the grid is
 // one block a tile up to that many. One block even with no pair (C < 2 has
-// one or no tile), so that a kernel's epilogue always runs.
-inline Plan plan(int c, int blocks_per_sm) {
+// one or no tile), so that a kernel's epilogue always runs. With `clouds`
+// cloud pairs in one launch (a grid dimension of their own), each gets a
+// clouds-th of those blocks, and at least one.
+inline Plan plan(int c, int blocks_per_sm, int clouds = 1) {
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long min_tiles = static_cast<long long>(blocks_per_sm) * sms;
+  long long min_tiles = static_cast<long long>(blocks_per_sm) * sms / clouds;
+  if (min_tiles < 1) min_tiles = 1;
   int j = kMaxJ;
   while (j > 1) {
     const long long side = (c + 32LL * j - 1) / (32LL * j);

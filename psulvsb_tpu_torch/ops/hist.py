@@ -11,6 +11,13 @@ differences (s_j - s_i), the squares summed x, y, z; the kernels compute
 them bit for bit as the plain versions do, so counts are equal, and exact
 64-bit integers (the Pallas kernels accumulate in float32).
 
+`exact_peak_bin` also takes a pair axis, (P, 3, C) clouds and a (P, C)
+mask, for P pairs at once: one launch, one zero fill and a (peak, count,
+certified) for each pair. It is a PyTorch custom operator with a vmap rule
+that moves the vmapped axis into that pair axis, so `torch.func.vmap` over
+a solve (solver/fused.py's batched plan) makes one launch for all its
+pairs, as `jax.vmap` over the JAX package's front door does.
+
 Which version runs is decided by where the tensors lie: CPU tensors take
 the plain versions; CUDA tensors launch the kernels or raise. Each launch
 adds one to `KERNEL_LAUNCHES[name]`.
@@ -31,57 +38,64 @@ _FINE_CAP = float(1 << 30)  # fine bins past 2^30 fall outside every window
 _ROW_CHUNK = 1024  # rows per step of the plain versions' sweep
 # pair_ratio_hist_launch: src, dst, mask (null: all active), C,
 # bins_per_unit, lo pointer (null: lo_imm), lo_imm, stride, num_bins, clamp,
-# counts, block counter, coarse bins, coarse stride, peak out, certified
-# out, stream.
+# pairs, the words between two pairs' counts, counts, block counter, coarse
+# bins, coarse stride, peak out, count out, certified out, stream.
 _HIST_ARGTYPES = (
-    [c_void_p] * 3 + [c_int, c_float, c_void_p, c_longlong] + [c_int] * 3
-    + [c_void_p] * 2 + [c_int] * 2 + [c_void_p] * 3
+    [c_void_p] * 3 + [c_int, c_float, c_void_p, c_longlong] + [c_int] * 4 + [c_longlong]
+    + [c_void_p] * 2 + [c_int] * 2 + [c_void_p] * 4
 )
 # pair_beta_count_launch: src, dst, mask (null: all active), C, beta, count,
 # stream.
 _BETA_ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
 
 
-def _check_clouds(src: torch.Tensor, dst: torch.Tensor) -> None:
-    if src.dim() != 2 or src.shape[0] != 3 or tuple(dst.shape) != tuple(src.shape):
+def _check_clouds(src: torch.Tensor, dst: torch.Tensor, pairs: bool = False) -> None:
+    want = "(P, 3, C)" if pairs else "(3, C)"
+    if (src.dim() != 2 + pairs or src.shape[-2] != 3 or tuple(dst.shape) != tuple(src.shape)
+            or (pairs and src.shape[0] == 0)):
         raise ValueError(
-            f"src and dst must both be (3, C), got {tuple(src.shape)} and {tuple(dst.shape)}"
+            f"src and dst must both be {want}, got {tuple(src.shape)} and {tuple(dst.shape)}"
         )
     if dst.device != src.device:
         raise ValueError(f"dst is on {dst.device}, expected {src.device}")
 
 
-def _check(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor:
-    """Validate (3, C) inputs; return the (C,) bool active mask."""
-    _check_clouds(src, dst)
-    c = src.shape[1]
+def _check(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None,
+           pairs: bool = False) -> torch.Tensor:
+    """Validate (3, C) inputs, or (P, 3, C) with `pairs`; return the (C,)
+    or (P, C) bool active mask."""
+    _check_clouds(src, dst, pairs)
+    shape = src.shape[:-2] + src.shape[-1:]
     if active is None:
-        return torch.ones(c, dtype=torch.bool, device=src.device)
-    if tuple(active.shape) != (c,):
-        raise ValueError(f"active must be ({c},), got {tuple(active.shape)}")
+        return torch.ones(shape, dtype=torch.bool, device=src.device)
+    if active.shape != shape:
+        raise ValueError(f"active must be {tuple(shape)}, got {tuple(active.shape)}")
     if active.device != src.device:
         raise ValueError(f"active is on {active.device}, expected {src.device}")
     return active.to(torch.bool)
 
 
 def _pair_sweep(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor):
-    """Yield (v1, v2, valid) over row blocks of the pair grid: source and
-    destination distances of rows [r0, r1) against columns [r0, C), and the
-    mask of active pairs i < j. Distances are sqrt((dx dx + dy dy) + dz dz)
-    of direct differences, in float32."""
-    c = src.shape[1]
+    """Yield (v1, v2, valid) over row blocks of the pair grid of (..., 3, C)
+    clouds: source and destination distances of rows [r0, r1) against
+    columns [r0, C), and the mask of active pairs i < j, each (..., rows,
+    cols). Distances are sqrt((dx dx + dy dy) + dz dz) of direct
+    differences, in float32."""
+    c = src.shape[-1]
     s = src.to(torch.float32)
     d = dst.to(torch.float32)
     cols = torch.arange(c, device=src.device)
 
     def dist(p, r0, r1):
-        e = p[:, None, r0:] - p[:, r0:r1, None]  # (3, rows, cols): p_j - p_i
-        return torch.sqrt((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2])
+        e = p[..., None, r0:] - p[..., r0:r1, None]  # (..., 3, rows, cols): p_j - p_i
+        x, y, z = e.unbind(-3)
+        return torch.sqrt((x * x + y * y) + z * z)
 
     for r0 in range(0, c, _ROW_CHUNK):
         r1 = min(r0 + _ROW_CHUNK, c)
         rows = cols[r0:r1]
-        valid = (rows[:, None] < cols[None, r0:]) & active[r0:r1, None] & active[None, r0:]
+        valid = ((rows[:, None] < cols[None, r0:]) & active[..., r0:r1, None]
+                 & active[..., None, r0:])
         yield dist(s, r0, r1), dist(d, r0, r1), valid
 
 
@@ -114,18 +128,21 @@ def pair_ratio_histogram_reference(
     stride: int = 1,
     clamp_overflow: bool = True,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `pair_ratio_histogram`."""
-    active = _check(src, dst, active)
+    """Plain PyTorch version of `pair_ratio_histogram`; (P, 3, C) clouds and
+    a (P, C) mask give (P, num_bins) counts, a pair's row what its call
+    alone gives."""
+    active = _check(src, dst, active, pairs=src.dim() == 3)
     _check_window(num_bins, stride)
     lo = torch.as_tensor(lo_bin, device=src.device).to(torch.int64)
-    counts = torch.zeros(num_bins + 1, dtype=torch.int64, device=src.device)
+    lead = src.shape[:-2]
+    counts = torch.zeros(lead + (num_bins + 1,), dtype=torch.int64, device=src.device)
     for v1, v2, valid in _pair_sweep(src, dst, active):
         idx, inside = _bin_indices(v1, v2, bins_per_unit, lo, stride, num_bins)
         counted = valid if clamp_overflow else valid & inside
         # Pairs that do not count go to a spare bin past the window.
-        slot = torch.where(counted, idx, torch.full_like(idx, num_bins))
-        counts.scatter_add_(0, slot.reshape(-1), torch.ones_like(slot).reshape(-1))
-    return counts[:num_bins]
+        slot = torch.where(counted, idx, torch.full_like(idx, num_bins)).reshape(lead + (-1,))
+        counts.scatter_add_(-1, slot, torch.ones_like(slot))
+    return counts[..., :num_bins]
 
 
 def pair_beta_count_reference(
@@ -143,40 +160,43 @@ def pair_beta_count_reference(
     return total
 
 
-def _cuda_inputs(src, dst, active):
-    """Validate (3, C) inputs for a kernel; return the contiguous float32
-    clouds and the contiguous bool mask, whose bytes the kernel reads, or
-    None for it when every point is active (the kernel then gets a null
-    mask). No device operation when the inputs already are so."""
+def _cuda_inputs(src, dst, active, pairs: bool = False):
+    """Validate (3, C) inputs for a kernel, or (P, 3, C) with `pairs`; return
+    the contiguous float32 clouds and the contiguous bool mask, whose bytes
+    the kernel reads, or None for it when every point is active (the kernel
+    then gets a null mask). No device operation when the inputs already are
+    so."""
     f32 = torch.float32
     if active is None:
-        _check_clouds(src, dst)
+        _check_clouds(src, dst, pairs)
         a = None
     else:
-        a = _check(src, dst, active).contiguous()
+        a = _check(src, dst, active, pairs).contiguous()
     return src.to(f32).contiguous(), dst.to(f32).contiguous(), a
 
 
 def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow,
-                 counts, peak=None):
+                 counts, peak=None, pairs=1, row=0):
     """One launch of csrc/pair_ratio_hist.cu adding into `counts`; `peak`:
     device addresses and window of exact_peak_bin's full pass (block
-    counter, coarse bins, coarse stride, (peak, count) out, certified out),
-    or None."""
+    counter, coarse bins, coarse stride, peak out, count out, certified
+    out), or None. With `pairs` > 1 the clouds are (pairs, 3, C), the mask
+    (pairs, C), and each pair's counts and counter lie `row` words after the
+    previous pair's."""
     dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active)
+    s, d, a = _cuda_inputs(src, dst, active, src.dim() == 3)
     if isinstance(lo_bin, torch.Tensor):
         lo = lo_bin.to(device=dev, dtype=torch.int64)
         lo_ptr, lo_imm = lo.data_ptr(), 0
     else:
         lo_ptr, lo_imm = None, int(lo_bin)
-    done, coarse_bins, coarse_stride, out, cert = peak or (None, 0, 0, None, None)
+    done, coarse_bins, coarse_stride, out, count, cert = peak or (None, 0, 0, None, None, None)
     fn = launcher("pair_ratio_hist", _HIST_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
-            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[1],
+            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1],
             float(bins_per_unit), lo_ptr, lo_imm, stride, num_bins, int(bool(clamp_overflow)),
-            counts.data_ptr(), done, coarse_bins, coarse_stride, out, cert,
+            pairs, row, counts.data_ptr(), done, coarse_bins, coarse_stride, out, count, cert,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -254,21 +274,22 @@ def _check_peak_window(num_bins: int, stride: int) -> int:
 
 
 def _peak_rule(coarse, fine_from, num_bins, stride):
-    """exact_peak_bin's rule (pallas_hist.py:317-344) from the coarse counts
-    and fine_from(lo), the 3 stride fine counts from fine bin lo."""
-    cpeak = torch.argmax(coarse)
+    """exact_peak_bin's rule (pallas_hist.py:317-344) from the (..., num_bins)
+    coarse counts and fine_from(lo), the (..., 3 stride) fine counts from
+    fine bin lo."""
+    cpeak = torch.argmax(coarse, dim=-1)
     # Fine window: the coarse argmax bin ±1, aligned down to the stride.
     lo = torch.clamp(cpeak - 1, min=0) * stride
     fine = fine_from(lo)
-    fpeak = torch.argmax(fine)
-    peak_count = fine.index_select(0, fpeak.reshape(1))[0]
+    fpeak = torch.argmax(fine, dim=-1)
+    peak_count = fine.gather(-1, fpeak[..., None])[..., 0]
     # Certificate: every fine bin under coarse bin k counts at most
     # coarse[k]. The last coarse bin holds the whole clamped tail, so it
     # bounds no single fine bin: it is never "inside the window", and a
     # coarse argmax on it is never certified.
     ar = torch.arange(num_bins, device=coarse.device)
-    in_window = (torch.abs(ar - cpeak) <= 1) & (ar < num_bins - 1)
-    outside_max = torch.where(in_window, torch.zeros_like(coarse), coarse).max()
+    in_window = (torch.abs(ar - cpeak[..., None]) <= 1) & (ar < num_bins - 1)
+    outside_max = torch.where(in_window, torch.zeros_like(coarse), coarse).amax(-1)
     certified = (outside_max < torch.clamp(peak_count, min=1)) & (cpeak < num_bins - 1)
     return lo + fpeak, peak_count, certified
 
@@ -278,14 +299,18 @@ def peak_from_full_histogram(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """exact_peak_bin's (peak, count, certified) from one full-resolution
     histogram (lo 0, stride 1, tail clamped, (num_bins + 1) stride + 1
-    bins): coarse bin k < num_bins - 1 sums full bins [k stride, (k + 1)
-    stride), the last coarse bin sums the rest, and the fine window, which
-    ends at most at (num_bins + 1) stride, is read off the full bins. The
-    plain version of the derivation the kernel's last block makes."""
+    bins), or from (P, bins) histograms, one row a pair: coarse bin k <
+    num_bins - 1 sums full bins [k stride, (k + 1) stride), the last coarse
+    bin sums the rest, and the fine window, which ends at most at
+    (num_bins + 1) stride, is read off the full bins. The plain version of
+    the derivation the kernel's last block makes."""
     head = (num_bins - 1) * stride
-    coarse = torch.cat([full[:head].reshape(num_bins - 1, stride).sum(1), full[head:].sum()[None]])
+    lead = full.shape[:-1]
+    coarse = torch.cat([full[..., :head].reshape(lead + (num_bins - 1, stride)).sum(-1),
+                        full[..., head:].sum(-1)[..., None]], dim=-1)
     offsets = torch.arange(3 * stride, device=full.device)
-    return _peak_rule(coarse, lambda lo: full.index_select(0, lo + offsets), num_bins, stride)
+    return _peak_rule(coarse, lambda lo: full.gather(-1, lo[..., None] + offsets), num_bins,
+                      stride)
 
 
 def exact_peak_bin(
@@ -305,7 +330,35 @@ def exact_peak_bin(
     the coarse argmax is the clamp bin; the caller then falls back. All
     three are 0-d tensors on the input's device; nothing is read on the
     host. CPU tensors run the plain full pass and derivation; CUDA tensors
-    one kernel launch, whose last block derives the three (no fallback)."""
+    one kernel launch, whose last block derives the three (no fallback).
+
+    A pair axis: (P, 3, C) clouds and an optional (P, C) mask give the three
+    as (P,) tensors, each pair's what its call alone gives, from one launch
+    (`torch.func.vmap` over the (3, C) form comes here too, through the
+    operator's vmap rule)."""
+    _check_peak_window(num_bins, stride)
+    single = src.dim() == 2
+    if active is None:
+        _check_clouds(src, dst, pairs=not single)
+    else:
+        _check(src, dst, active, pairs=not single)
+    if single:
+        src, dst = src[None], dst[None]
+        active = None if active is None else active[None]
+    peak, count, certified = torch.ops.psulvsb_tpu_torch.exact_peak_bin(
+        src, dst, active, int(bins_per_unit), int(num_bins), int(stride))
+    if single:
+        return peak[0], count[0], certified[0]
+    return peak, count, certified
+
+
+@torch.library.custom_op("psulvsb_tpu_torch::exact_peak_bin", mutates_args=())
+def _exact_peak_bin_pairs(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None, bins_per_unit: int,
+    num_bins: int, stride: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`exact_peak_bin` over (P, 3, C) clouds: the plain full pass and
+    derivation on the CPU, one launch of the histogram kernel on a card."""
     full_bins = _check_peak_window(num_bins, stride)
     if not src.is_cuda:
         full = pair_ratio_histogram_reference(
@@ -313,17 +366,38 @@ def exact_peak_bin(
         )
         return peak_from_full_histogram(full, num_bins, stride)
     dev = src.device
-    # Full counts, then the block counter (a uint32 in an int64 slot), the
-    # peak and its count.
-    buf = torch.zeros(full_bins + 3, dtype=torch.int64, device=dev)
-    certified = torch.empty((), dtype=torch.bool, device=dev)
-    base = buf.data_ptr()
+    p = src.shape[0]
+    # A row a pair: its full counts, then its block counter (a uint32 in an
+    # int64 slot); one zero fill for every pair.
+    buf = torch.zeros((p, full_bins + 1), dtype=torch.int64, device=dev)
+    peak = torch.empty(p, dtype=torch.int64, device=dev)
+    count = torch.empty(p, dtype=torch.int64, device=dev)
+    certified = torch.empty(p, dtype=torch.bool, device=dev)
     _launch_hist(
         src, dst, active, bins_per_unit, full_bins, 0, 1, True, buf,
-        peak=(base + 8 * full_bins, num_bins, stride, base + 8 * (full_bins + 1),
-              certified.data_ptr()),
+        peak=(buf.data_ptr() + 8 * full_bins, num_bins, stride, peak.data_ptr(),
+              count.data_ptr(), certified.data_ptr()),
+        pairs=p, row=full_bins + 1,
     )
-    return buf[full_bins + 1], buf[full_bins + 2], certified
+    return peak, count, certified
+
+
+@_exact_peak_bin_pairs.register_vmap
+def _exact_peak_bin_vmap(info, in_dims, src, dst, active, bins_per_unit, num_bins, stride):
+    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
+    the pair axis, and one call serves every pair."""
+    n = info.batch_size
+    src, dst = (_join_pairs(t, d, n) for t, d in zip((src, dst), in_dims))
+    active = None if active is None else _join_pairs(active, in_dims[2], n)
+    out = _exact_peak_bin_pairs(src, dst, active, bins_per_unit, num_bins, stride)
+    return tuple(t.unflatten(0, (n, -1)) for t in out), (0, 0, 0)
+
+
+def _join_pairs(t: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:
+    """A vmapped (n, P, ...) argument (its vmapped axis at `dim`, or None:
+    the same for all n) as (n P, ...)."""
+    t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+    return t.flatten(0, 1)
 
 
 def exact_peak_bin_reference(

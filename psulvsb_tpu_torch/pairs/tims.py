@@ -82,7 +82,7 @@ def scale_ratio_histogram(
     (counts (num_bins,) int64, bin index per ratio (L,))."""
     idx, num_bins = ratio_bin_indices(ratios, max_scale, bins_per_unit, num_bins)
     counts = torch.zeros(num_bins, dtype=torch.int64, device=ratios.device)
-    counts.index_add_(0, idx, pair_active.to(torch.int64))
+    counts = counts.index_add(0, idx, pair_active.to(torch.int64))
     return counts, idx
 
 
@@ -96,7 +96,7 @@ def sort_peak_bin(
     histogram and its first argmax give the same (peak, count) without the
     sort and the scan. Returns (peak, count)."""
     counts = torch.zeros(num_bins, dtype=torch.int64, device=bin_idx.device)
-    counts.index_add_(0, bin_idx.to(torch.int64), active.to(torch.int64))
+    counts = counts.index_add(0, bin_idx.to(torch.int64), active.to(torch.int64))
     return torch.argmax(counts), counts.max()
 
 

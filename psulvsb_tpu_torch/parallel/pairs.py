@@ -10,9 +10,12 @@ and no pair talks to another, so the scaling axis is the pair batch:
   package): for each pair its inputs and draws are staged, the plan's graph
   launched once and the solution copied into the batch's row, with no host
   synchronization from the first pair to the return. `vectorized=True` is
-  the counterpart of its `vmap` on one card: the same on PAIRS_IN_FLIGHT
-  plan instances, each with a CUDA stream of its own, the pairs dealt to
-  them in turn, so that several solves share the card;
+  the counterpart of its `vmap`: the pairs in chunks of P, each chunk one
+  batched program (a plan with a pair axis, `ReplayPlan(pairs=P)`: one
+  graph launch a chunk, its kernels one launch for the P pairs), for the
+  settings `solver.fused.pair_batch_route` sends there; the others keep the
+  in-flight form, PAIRS_IN_FLIGHT single-pair plan instances, each with a
+  CUDA stream of its own, the pairs dealt to them in turn;
 - `register_batch_sharded`, several devices: the batch split evenly over
   them, and the totals summed as the JAX package's `psum` sums them.
 """
@@ -22,11 +25,37 @@ from __future__ import annotations
 import torch
 
 from psulvsb_tpu_torch.solver.config import SolverParams
-from psulvsb_tpu_torch.solver.fused import as_generator, plan_for, resolve_device, stage_inputs
+from psulvsb_tpu_torch.solver.fused import (
+    PLAN_BYTES_PER_C2,
+    as_generator,
+    pair_batch_route,
+    plan_for,
+    resolve_device,
+    stage_inputs,
+)
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 from psulvsb_tpu_torch.utils.precision import pin_float32
 
 PAIRS_IN_FLIGHT = 4  # plan instances (and streams) of the concurrent form
+MAX_CHUNK = 32  # most pairs of one batched program
+# The share of the card's memory one batched plan may take, by the estimate
+# solver.fused.PLAN_BYTES_PER_C2 (plan_for drops cached plans to make room
+# for it).
+PLAN_MEMORY_SHARE = 0.5
+
+
+def pairs_per_chunk(c: int, b: int, device: torch.device) -> int:
+    """P of the batched form: on a card the largest power of two up to
+    min(B, MAX_CHUNK) whose plan, PLAN_BYTES_PER_C2 C^2 bytes a pair, stays
+    within PLAN_MEMORY_SHARE of the card's memory (at least 1); on the CPU
+    the whole batch."""
+    if device.type != "cuda":
+        return b
+    budget = PLAN_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+    p = 1
+    while 2 * p <= min(b, MAX_CHUNK) and 2 * p * PLAN_BYTES_PER_C2 * c * c <= budget:
+        p *= 2
+    return p
 
 
 def make_pair_mesh(devices=None) -> list[torch.device]:
@@ -73,9 +102,32 @@ def register_batch(
     The inputs are staged on the device once for the batch and the results
     written into the batch's tensors there: on a card the host waits for
     nothing before it returns (a plan's first solve captures its graph,
-    which synchronizes). vectorized: deal the pairs to up to PAIRS_IN_FLIGHT
-    plan instances, each on its own stream. On the CPU the pairs simply run
-    in turn."""
+    which synchronizes). vectorized: where `pair_batch_route(params, C)` is
+    "batched", chunks of `pairs_per_chunk` pairs, each one launch of a
+    batched plan (a last, short chunk filled up with padding-only pairs,
+    which come back invalid and are dropped); otherwise the pairs dealt to
+    up to PAIRS_IN_FLIGHT plan instances, each on its own stream. On the CPU
+    the chunk is the whole batch, and the in-flight form runs in turn."""
+    if vectorized not in (False, True):
+        raise ValueError(f"vectorized is a bool, got {vectorized!r}")
+    form = "route" if vectorized else "in_order"
+    return _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, form,
+                     device, graphs)
+
+
+def _register_in_flight(src_batch, dst_batch, keep_batch, seeds_or_generators,
+                        params: SolverParams, device="cuda", graphs: bool = True):
+    """`register_batch`'s in-flight form for any setting, the batched
+    form's settings too: what `vectorized=True` ran before the batched form,
+    kept to compare the two."""
+    return _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params,
+                     "in_flight", device, graphs)
+
+
+def _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, form, device,
+              graphs):
+    """The pair batch in `form`: "in_order", "in_flight", "batched", or
+    "route" (what `pair_batch_route` says)."""
     device = resolve_device(device)
     pin_float32()
     params.check_port_supported()
@@ -88,7 +140,24 @@ def register_batch(
         raise ValueError(f"{b} pairs need {b} seeds or generators, got {len(seeds)}")
     gens = [as_generator(s, device) for s in seeds]
     out = _empty_solution(b, device)
-    if not vectorized:
+    if form == "route":
+        form = pair_batch_route(params, c)
+    if form == "batched":
+        p = pairs_per_chunk(c, b, device)
+        plan = plan_for(params, c, device, graphs, pairs=p)
+        for start in range(0, b, p):
+            n = min(p, b - start)
+            rows = slice(start, start + n)
+            s, d, k, g = src[rows], dst[rows], keep[rows], gens[rows]
+            if n < p:  # padding-only pairs: keep -2 everywhere
+                s = torch.cat([s, s.new_zeros((p - n,) + s.shape[1:])])
+                d = torch.cat([d, d.new_zeros((p - n,) + d.shape[1:])])
+                k = torch.cat([k, k.new_full((p - n, c), -2)])
+                g = g + [as_generator(0, device) for _ in range(p - n)]
+            plan.solve(s, d, k, g)
+            plan.solution(out, start, n)
+        return out
+    if form == "in_order":
         plans = [plan_for(params, c, device, graphs)]
     else:
         plans = [plan_for(params, c, device, graphs, instance=1 + k)

@@ -19,8 +19,7 @@ def scatter_or(num_points: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.
     batch = idx.shape[:-1]
     out = torch.zeros(batch + (num_points + 1,), dtype=torch.bool, device=idx.device)
     target = torch.where(mask, idx, torch.full_like(idx, num_points))
-    out.scatter_(-1, target, True)
-    return out[..., :num_points]
+    return out.scatter(-1, target, True)[..., :num_points]
 
 
 def solve_translation(

@@ -54,24 +54,47 @@ iteration run masked).
 As in the JAX module, no clock is read: the reference's wall-clock budget
 (registration.cc:1475) is a projection made when the plan is built, a cap of
 `fused_scan_rounds(params)` host rounds.
+
+A plan with `pairs=P` is `jax.vmap` of the solve over P pairs
+(parallel/pairs.py's `vectorized=True`): one program whose every per-pair
+buffer has a leading P, and each stage runs once for all P through
+`torch.func.vmap` (the GNC and histogram kernels take that axis through
+their operators' vmap rules: one launch for the P pairs). Every IF and
+WHILE above runs while ANY pair's flag holds, and the pairs whose own flag
+does not hold are frozen: a stage writes only the rows of the pairs inside
+every IF and loop around it (`torch.where` on the pair masks, JAX's select
+under vmap), so each pair gets what its solve alone gives. The two IFs of
+the last rate both run, each on its own pairs; the clique seed runs when
+some pair wants it, its greedy over every pair's graph at once with the
+others' emptied. `pair_batch_route` says which settings take this form.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 from collections import OrderedDict
 
 import torch
 
 from psulvsb_tpu_torch.clique import pmc
-from psulvsb_tpu_torch.clique.kcore import max_clique_size_for_edges
+from psulvsb_tpu_torch.clique.kcore import (
+    greedy_clique,
+    max_clique_size_for_edges,
+    triangle_scores,
+)
 from psulvsb_tpu_torch.gror.gror import _gror_core
 from psulvsb_tpu_torch.ops import gnc as _gnc_ops
 from psulvsb_tpu_torch.ops import hist as _hist_ops
 from psulvsb_tpu_torch.ops import pairs as _pairs_ops
 from psulvsb_tpu_torch.solver.basic import WarmState
-from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, InlierSelectionMode, SolverParams
+from psulvsb_tpu_torch.solver.config import (
+    RATE_SCHEDULE,
+    InlierSelectionMode,
+    RotationEstimationAlgorithm,
+    SolverParams,
+)
 from psulvsb_tpu_torch.solver.psulvsb import (
     DrawLayout,
     HostState,
@@ -82,9 +105,12 @@ from psulvsb_tpu_torch.solver.psulvsb import (
     _init_stage,
     _local_round,
     _sample_stage,
+    _seed_from_clique,
+    _seed_graph,
     _self_update_pairs,
     fused_scan_rounds,
     gumbel_of,
+    init_route,
     local_max_batches,
 )
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
@@ -106,7 +132,40 @@ _ROUND_WORD = ("flag.run", "flag.update", "flag.seed", "flag.refine", "carry.rat
 _STATS = ("stat.rounds", "stat.batches", "carry.seeded", "stat.greedy_steps")
 
 PLAN_CACHE_SIZE = 8  # plans kept, least recently used first out
+# Device bytes a plan of the dense init holds for each C^2 a pair: the (C, C)
+# temporaries of the init and of the clique seed, and the (hypothesis batch,
+# C, C) graphs of the b_rate == 1.0 round. Batched plans measured 87 to 93
+# bytes a C^2 a pair on the card at C = 1889 to 8192 (single-pair plans 55
+# to 121), rounded up.
+PLAN_BYTES_PER_C2 = 128
 _PLANS: "OrderedDict[tuple, ReplayPlan]" = OrderedDict()
+# Buffers a batched plan keeps once for all its pairs; every other buffer has
+# a leading pair axis. "ctl." buffers are the pair masks of the IFs and loops.
+_SHARED = frozenset({"l_rates", "b_rates", "launches", "loop.index"})
+_MAX_DEPTH = 6  # nesting of the solve's IFs and loops, the top level included
+
+
+def pair_batch_route(params: SolverParams, c: int) -> str:
+    """The form of `register_batch(..., vectorized=True)` for C
+    correspondences: "batched", one plan of the solve over a pair axis
+    (`ReplayPlan(pairs=P)`), or "in_flight", single-pair plans on streams of
+    their own. The batched form covers the dense init (`init_route` "dense",
+    with the histogram kernel's peak when the scale is estimated), the GNC
+    "power" rotation, the greedy clique (seeds, lazy or eager, and the
+    b_rate == 1.0 round) and the finalize with the translation rescue; GROR,
+    the other init routes, FGR, gnc_rot_method="eigh" and the exact clique
+    callback keep the in-flight form. Decided from the settings alone,
+    before anything is launched."""
+    exact_clique = (params.resolve_inlier_selection() == InlierSelectionMode.PMC_EXACT
+                    and params.exact_clique_callback)
+    batched = (
+        init_route(params, c) == "dense"
+        and not params.gror_init
+        and params.rotation_estimation_algorithm == RotationEstimationAlgorithm.GNC_TLS
+        and params.gnc_rot_method == "power"
+        and not exact_clique
+    )
+    return "batched" if batched else "in_flight"
 
 
 # -----------------------------------------------------------------------------
@@ -215,6 +274,12 @@ class _Eager:
             body(k)
             self.read(name)
 
+    def when_flag(self, flag: torch.Tensor, slot: int | None = None):
+        """An IF decided on the host from the flag's value, read now."""
+        self.reads += 1
+        if bool(flag):
+            yield
+
     def when(self, name: str, slot: int | None = None):
         if name == "flag.round_last":
             taken = self.known["carry.rate_idx"] == _LAST
@@ -245,6 +310,10 @@ class _Captured:
 
     def when(self, name: str, slot: int | None = None):
         with self.control.when(self.bufs[name], slot):
+            yield
+
+    def when_flag(self, flag: torch.Tensor, slot: int | None = None):
+        with self.control.when(flag, slot):
             yield
 
     def loop(self, name: str, count: int, body, slot: int | None = None) -> None:
@@ -281,7 +350,8 @@ def _warm_libraries(device: torch.device) -> None:
 
 
 class ReplayPlan:
-    """The buffers and the graph of one (params, C, device).
+    """The buffers and the graph of one (params, C, device), or of P pairs
+    at once with `pairs=P` (module docstring).
 
     `bufs` holds every tensor that outlives a stage at a fixed address: the
     inputs (`src`, `dst`, `keep`), the draws, the rate tables, the solve's
@@ -289,16 +359,25 @@ class ReplayPlan:
     ("carry.done", "flag.run"), the stats and the solution ("sol.rotation").
     A stage is a pure function of `bufs` that returns the entries it
     replaces, which `_apply` copies into place; the graph captures that.
+    With a pair axis the stage runs under `torch.func.vmap` and `_apply`
+    writes only the rows of the pairs that the IFs and loops around it let
+    through.
 
     One plan runs one solve at a time, on `stream` when it has one (the
     batch's concurrent form gives each instance its own)."""
 
     def __init__(self, params: SolverParams, c: int, device: torch.device, graphs: bool,
-                 stream=None):
+                 stream=None, pairs: int | None = None):
         self.params = params
         self.c = c
         self.device = device
         self.stream = stream
+        self.pairs = pairs
+        if pairs is not None and (pairs < 1 or pair_batch_route(params, c) != "batched"):
+            raise ValueError(
+                f"a plan of {pairs} pairs needs pairs >= 1 and settings of the batched form "
+                f"(pair_batch_route), got route {pair_batch_route(params, c)!r}"
+            )
         self.rounds = fused_scan_rounds(params)
         self.max_batches = local_max_batches(params)
         self.layout = DrawLayout(params, c, self.rounds)
@@ -325,9 +404,11 @@ class ReplayPlan:
         self.graph_nodes: int | None = None
         self.conditional_nodes = 0
         self.solves = 0
+        self.graph_launches = 0  # replays of the graph, every solve so far
         self._stats: dict = {}
         self._host_stats: dict = {}
         self._pending = False
+        self._masks: list[torch.Tensor] = []  # the pair masks of the IFs and loops open now
         with self._on_stream():
             self.bufs = self._fixed_buffers()
 
@@ -335,20 +416,25 @@ class ReplayPlan:
 
     def _fixed_buffers(self) -> dict:
         c, dev = self.c, self.device
+        lead = () if self.pairs is None else (self.pairs,)
         bufs = {
-            "src": torch.zeros((3, c), dtype=_F32, device=dev),
-            "dst": torch.zeros((3, c), dtype=_F32, device=dev),
-            "keep": torch.zeros(c, dtype=_I64, device=dev),
-            "draws": torch.zeros(self.layout.size, dtype=_I64, device=dev),
+            "src": torch.zeros(lead + (3, c), dtype=_F32, device=dev),
+            "dst": torch.zeros(lead + (3, c), dtype=_F32, device=dev),
+            "keep": torch.zeros(lead + (c,), dtype=_I64, device=dev),
+            "draws": torch.zeros(lead + (self.layout.size,), dtype=_I64, device=dev),
             "l_rates": torch.tensor([r[0] for r in RATE_SCHEDULE], dtype=_F32).to(dev),
             "b_rates": torch.tensor([r[1] for r in RATE_SCHEDULE], dtype=_F32).to(dev),
             "launches": torch.zeros(len(_launch_counts()), dtype=_I64, device=dev),
-            "carry.seeded": torch.zeros((), dtype=torch.bool, device=dev),
-            "flag.always": torch.ones((), dtype=torch.bool, device=dev),
+            "carry.seeded": torch.zeros(lead, dtype=torch.bool, device=dev),
+            "flag.always": torch.ones(lead, dtype=torch.bool, device=dev),
             "loop.index": torch.zeros((), dtype=_I64, device=dev),
         }
         for name in ("stat.rounds", "stat.batches", "stat.greedy_steps"):
-            bufs[name] = torch.zeros((), dtype=_I64, device=dev)
+            bufs[name] = torch.zeros(lead, dtype=_I64, device=dev)
+        if self.pairs is not None:
+            for d in range(_MAX_DEPTH):
+                bufs[f"ctl.mask{d}"] = torch.ones(lead, dtype=torch.bool, device=dev)
+                bufs[f"ctl.any{d}"] = torch.ones((), dtype=torch.bool, device=dev)
         return bufs
 
     @property
@@ -366,8 +452,11 @@ class ReplayPlan:
         """Copy a stage's results into their buffers (a first result makes
         its buffer): one multi-tensor copy for each pair of types, in place
         of a copy a buffer. A result that is itself a buffer written here is
-        copied out first, so the order of the copies does not matter."""
+        copied out first, so the order of the copies does not matter. With a
+        pair axis a buffer takes the new rows of the pairs in the innermost
+        mask and keeps the others (`torch.where`, JAX's select under vmap)."""
         bufs = self.bufs
+        mask = self._masks[-1] if self._masks else None
         written = {bufs[n].data_ptr() for n in out if n in bufs}
         groups: dict[tuple, tuple[list, list]] = {}
         for name, value in out.items():
@@ -375,7 +464,9 @@ class ReplayPlan:
             if dest is None:
                 bufs[name] = value.clone()
             elif dest is not value:
-                if value.data_ptr() in written:
+                if mask is not None:
+                    value = torch.where(mask.view((-1,) + (1,) * (dest.dim() - 1)), value, dest)
+                elif value.data_ptr() in written:
                     value = value.clone()
                 dests, values = groups.setdefault((dest.dtype, value.dtype), ([], []))
                 dests.append(dest)
@@ -383,9 +474,22 @@ class ReplayPlan:
         for dests, values in groups.values():
             torch._foreach_copy_(dests, values)
 
+    def _vmap(self, fn, b: dict, *per_pair):
+        """fn(b, *per_pair) for every pair: as it is on a single pair, or
+        once for all under torch.func.vmap over the pair axis (b's shared
+        buffers unmapped). An operation without a batching rule, which vmap
+        would run pair by pair, raises: the batched form is one program."""
+        if self.pairs is None:
+            return fn(b, *per_pair)
+        dims = {k: None if k in _SHARED or k.startswith("ctl.") else 0 for k in b}
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*performance drop.*")
+            return torch.func.vmap(fn, in_dims=(dims,) + (0,) * len(per_pair),
+                                   randomness="error")(b, *per_pair)
+
     # ---- the stages -----------------------------------------------------------
 
-    def _prologue(self, b: dict, ctl) -> dict:
+    def _prologue(self, b: dict) -> dict:
         p, c, dev = self.params, self.c, self.device
         src, dst, keep = b["src"], b["dst"], b["keep"]
         red_i, red_j, red_count, red_pool = _init_stage(
@@ -409,9 +513,6 @@ class ReplayPlan:
             warm = _select_warm(g.inliers.sum() >= 3, seed, warm)
         out = {"red_i": red_i, "red_j": red_j, "red_count": red_count, "red_pool": red_pool,
                "thr": thr}
-        if p.clique_eager:  # a successful seed wins over GROR's
-            sw, ok, _ = self._seed(b, red_i, red_j, red_pool, keep == 1, ctl)
-            warm = _select_warm(ok, sw, warm)
         _flatten("hs", HostState.initial(c, keep), out)
         _flatten("warm", warm, out)
         _flatten("best_sampled", warm, out)
@@ -423,15 +524,42 @@ class ReplayPlan:
         })
         return out
 
-    def _seed(self, b: dict, red_i, red_j, red_pool, active, ctl):
-        """The clique seed: its greedy runs on the device until no candidate
-        is left (graph) or a fixed C - 1 steps (plain version)."""
-        return _clique_seed_stage(
-            b["src"], b["dst"], red_i, red_j, red_pool, self.params, active, None,
-            scale_u=self.layout.seed_u(b["draws"]),
-            max_steps=None if ctl.repeat else max(self.c - 1, 0), sync_free=self.sync_free,
-            repeat=ctl.repeat, steps_run=b["stat.greedy_steps"],
-        )
+    def _seed(self, b: dict, active: str, ctl, prefixes: tuple[str, ...]) -> dict:
+        """The clique seed over the pool and the points whose `active`
+        buffer is 1: its greedy runs on the device until no candidate is left
+        (graph) or a fixed C - 1 steps (plain version). A seed that holds
+        enough members replaces the warm state, written under each of
+        `prefixes`. With a pair axis the greedy runs once over every pair's
+        graph, those of the pairs outside the current mask emptied."""
+        p = self.params
+        max_steps = None if ctl.repeat else max(self.c - 1, 0)
+
+        def seed_warm(bb, warm_seed, ok):
+            out = {}
+            for prefix in prefixes:
+                _flatten(prefix, _select_warm(ok, warm_seed, _load(WarmState, "warm", bb)), out)
+            return out
+
+        if self.pairs is None:
+            sw, ok, _ = _clique_seed_stage(
+                b["src"], b["dst"], b["red_i"], b["red_j"], b["red_pool"], p, b[active] == 1,
+                None, scale_u=self.layout.seed_u(b["draws"]), max_steps=max_steps,
+                sync_free=self.sync_free, repeat=ctl.repeat, steps_run=b["stat.greedy_steps"],
+            )
+            return seed_warm(b, sw, ok)
+        adj = self._vmap(lambda bb: _seed_graph(
+            bb["src"], bb["dst"], bb["red_i"], bb["red_j"], bb["red_pool"], p, bb[active] == 1), b)
+        wants = self._masks[-1][:, None].expand(adj.shape[:-1])
+        clique, _ = greedy_clique(adj, wants, order_scores=triangle_scores(adj),
+                                  max_steps=max_steps, repeat=ctl.repeat,
+                                  steps_run=b["stat.greedy_steps"])
+
+        def finish(bb, cl):
+            sw, ok = _seed_from_clique(bb["src"], bb["dst"], cl, p, None,
+                                       self.layout.seed_u(bb["draws"]), self.sync_free)
+            return seed_warm(bb, sw, ok)
+
+        return self._vmap(finish, b, clique)
 
     def _local_round(self, b: dict, b_rate, b_one: bool, repeat=None):
         # A hypothesis' graph at the b_rate == 1.0 round has at most basic_cap
@@ -504,11 +632,6 @@ class ReplayPlan:
         )
         return {"red_i": red_i, "red_j": red_j, "red_count": red_count, "red_pool": red_pool}
 
-    def _lazy_seed(self, b: dict, ctl) -> dict:
-        sw, ok, _ = self._seed(b, b["red_i"], b["red_j"], b["red_pool"],
-                               b["hs.keep_mask"] == 1, ctl)
-        return _flatten("warm", _select_warm(ok, sw, _load(WarmState, "warm", b)), {})
-
     def _solution(self, b: dict) -> dict:
         return {"sol.valid": b["hs.best_count"] > 0, "sol.scale": b["hs.best.scale"],
                 "sol.rotation": b["hs.best.rotation"],
@@ -522,39 +645,95 @@ class ReplayPlan:
         )
         return {"sol.rotation": rotation, "sol.translation": translation}
 
+    # ---- the control flow, one pair or a pair axis ---------------------------
+
+    def _when(self, ctl, name: str, slot: int | None = None):
+        """The body runs when the flag holds (an IF). With a pair axis: when
+        it holds for any pair inside the current mask, the body's mask those
+        pairs, taken as the IF is reached."""
+        if self.pairs is None:
+            yield from ctl.when(name, slot)
+            return
+        b, depth = self.bufs, len(self._masks)
+        mask, taken = b[f"ctl.mask{depth}"], b[f"ctl.any{depth}"]
+        torch.logical_and(b[name], self._masks[-1], out=mask)
+        torch.any(mask, dim=0, out=taken)
+        for _ in ctl.when_flag(taken, slot):
+            self._masks.append(mask)
+            try:
+                yield
+            finally:
+                self._masks.pop()
+
+    def _loop(self, ctl, name: str, count: int, body, slot: int | None = None) -> None:
+        """body(k), k = 0, 1, ... while the flag holds, at most `count` times
+        (a WHILE). With a pair axis: while it holds for any pair inside the
+        current mask, each run's mask those pairs, taken before it."""
+        if self.pairs is None:
+            ctl.loop(name, count, body, slot)
+            return
+        b, depth = self.bufs, len(self._masks)
+        outer = self._masks[-1]
+        mask, again = b[f"ctl.mask{depth}"], b[f"ctl.any{depth}"]
+        k = b["loop.index"]
+        k.zero_()
+
+        def refresh():
+            torch.logical_and(b[name], outer, out=mask)
+            torch.logical_and(mask.any(), k < count, out=again)
+            return again
+
+        def step():
+            body(k)
+            k.add_(1)
+            return refresh()
+
+        self._masks.append(mask)
+        try:
+            ctl.repeat(refresh(), step, slot)
+        finally:
+            self._masks.pop()
+
     # ---- the solve, described once for both controls -------------------------
 
     def _solve(self, ctl) -> None:
         """Mirrors `psulvsb_solve`'s loop; `ctl` decides each IF (module
         docstring)."""
         p, b = self.params, self.bufs
+        batched = self.pairs is not None
         for name in ("stat.rounds", "stat.batches", "stat.greedy_steps"):
             b[name].zero_()
-        for _ in ctl.when("flag.always", HEAVY):
-            self._apply(self._prologue(b, ctl))
+        self._masks = [b["flag.always"]] if batched else []
+        for _ in self._when(ctl, "flag.always", HEAVY):
+            self._apply(self._vmap(self._prologue, b))
+            if p.clique_eager:  # a successful seed wins over GROR's
+                self._apply(self._seed(b, "keep", ctl, ("warm", "best_sampled")))
         for r in range(self.rounds):
-            for _ in ctl.when("flag.run"):
-                self._apply(self._sample(b, r))
+            for _ in self._when(ctl, "flag.run"):
+                self._apply(self._vmap(lambda bb: self._sample(bb, r), b))
                 ctl.know("flag.batch", True)
                 # Only from round _LAST on can the rate be the last one.
                 branches = [(False, "flag.round_not_last"), (True, "flag.round_last")]
                 for b_one, flag in (branches if r >= _LAST else branches[:1]):
-                    for _ in (ctl.when(flag) if r >= _LAST else [None]):
-                        ctl.loop("flag.batch", self.max_batches,
-                                 lambda k, b_one=b_one: self._apply(
-                                     self._local(b, r, k, b_one, ctl.repeat)),
-                                 HEAVY if b_one else None)
-                        self._apply(self._host(b, r, b_one))
-                ctl.read(*_ROUND_WORD)
-                for _ in ctl.when("flag.update"):
-                    self._apply(self._self_update(b))
+                    for _ in (self._when(ctl, flag) if r >= _LAST else [None]):
+                        self._loop(ctl, "flag.batch", self.max_batches,
+                                   lambda k, b_one=b_one: self._apply(self._vmap(
+                                       lambda bb: self._local(
+                                           bb, r, k, b_one, None if batched else ctl.repeat),
+                                       b)),
+                                   HEAVY if b_one else None)
+                        self._apply(self._vmap(lambda bb, b_one=b_one: self._host(bb, r, b_one), b))
+                if not batched:
+                    ctl.read(*_ROUND_WORD)
+                for _ in self._when(ctl, "flag.update"):
+                    self._apply(self._vmap(self._self_update, b))
                 if p.clique_lazy:
-                    for _ in ctl.when("flag.seed", HEAVY):
-                        self._apply(self._lazy_seed(b, ctl))
-        self._apply(self._solution(b))
+                    for _ in self._when(ctl, "flag.seed", HEAVY):
+                        self._apply(self._seed(b, "hs.keep_mask", ctl, ("warm",)))
+        self._apply(self._vmap(self._solution, b))
         if p.enable_refinement:
-            for _ in ctl.when("flag.refine"):
-                self._apply(self._finalize(b))
+            for _ in self._when(ctl, "flag.refine"):
+                self._apply(self._vmap(self._finalize, b))
 
     def _capture(self) -> None:
         """Capture the whole solve into one graph. The plain version runs
@@ -601,29 +780,47 @@ class ReplayPlan:
 
     # ---- one solve ------------------------------------------------------------
 
+    def _run(self) -> None:
+        """The solve on the staged buffers: one graph launch, or the plain
+        version."""
+        if self.graphs:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            self.graph_launches += 1
+            self._host_stats = {"host_reads": 0, "graph_launches": 1,
+                                "exact_clique_searches": 0}
+        else:
+            # The batched plain version runs its loops while any pair's flag
+            # holds, read on the host once a body.
+            ctl = _Eager(self.bufs, host_loops=self.device.type == "cuda" or bool(self.pairs))
+            searches = pmc.EXACT_SEARCHES
+            self._solve(ctl)
+            self._host_stats = {"host_reads": ctl.reads, "graph_launches": 0,
+                                "exact_clique_searches": pmc.EXACT_SEARCHES - searches}
+        self.solves += 1
+        self._pending = True
+
     def solve(self, src: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
-              generator: torch.Generator) -> None:
+              generator) -> None:
         """Stage one pair and its draws into the plan's buffers and run the
-        solve: one graph launch, or the plain version."""
+        solve: one graph launch, or the plain version. With a pair axis:
+        (P, 3, C) clouds, a (P, C) keep mask and P generators, row p's
+        draws from generator p (each pair draws what its solve alone
+        draws)."""
         with self._on_stream():
             self.bufs["src"].copy_(src, non_blocking=True)
             self.bufs["dst"].copy_(dst, non_blocking=True)
             self.bufs["keep"].copy_(keep, non_blocking=True)
-            self.layout.fill(generator, self.device, out=self.bufs["draws"])
-            if self.graphs:
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                self._host_stats = {"host_reads": 0, "graph_launches": 1,
-                                    "exact_clique_searches": 0}
+            if self.pairs is None:
+                self.layout.fill(generator, self.device, out=self.bufs["draws"])
             else:
-                ctl = _Eager(self.bufs, host_loops=self.device.type == "cuda")
-                searches = pmc.EXACT_SEARCHES
-                self._solve(ctl)
-                self._host_stats = {"host_reads": ctl.reads, "graph_launches": 0,
-                                    "exact_clique_searches": pmc.EXACT_SEARCHES - searches}
-        self.solves += 1
-        self._pending = True
+                if len(generator) != self.pairs:
+                    raise ValueError(f"{self.pairs} pairs need {self.pairs} generators, "
+                                     f"got {len(generator)}")
+                for row, gen in zip(self.bufs["draws"], generator):
+                    self.layout.fill(gen, self.device, out=row)
+            self._run()
 
     def flush_launches(self) -> None:
         """Add the launches counted on the device to the kernels' counts."""
@@ -639,13 +836,15 @@ class ReplayPlan:
     def stats(self) -> dict:
         """The last solve's rounds, local batches, whether a clique seed ran,
         the steps its device-loop greedy took, host reads, graph launches and
-        native exact clique searches; {} before the first solve. Reading it
-        after a solve reads the device (and flushes the launch counts)."""
+        native exact clique searches; {} before the first solve. With a pair
+        axis the first four are lists, one entry a pair. Reading it after a
+        solve reads the device (and flushes the launch counts)."""
         if self._pending:
             with self._on_stream():
                 word = torch.stack([self.bufs[n].to(_I64) for n in _STATS]).tolist()
             rounds, batches, seeded, steps = word
-            self._stats = {"rounds": rounds, "local_batches": batches, "seeded": bool(seeded),
+            seeded = [bool(s) for s in seeded] if self.pairs else bool(seeded)
+            self._stats = {"rounds": rounds, "local_batches": batches, "seeded": seeded,
                            "seed_greedy_steps": steps, **self._host_stats}
             self._pending = False
             self.flush_launches()
@@ -656,19 +855,25 @@ class ReplayPlan:
         self._stats = dict(value)
         self._pending = False
 
-    def solution(self, out: RegistrationSolution | None = None, index: int | None = None):
+    def solution(self, out: RegistrationSolution | None = None, index: int | None = None,
+                 count: int | None = None):
         """The finished solve's solution: fresh tensors, or written into row
-        `index` of the batch solution `out`."""
+        `index` of the batch solution `out`. With a pair axis, the first
+        `count` pairs' (all by default) into rows index, index + 1, ..."""
         b = self.bufs
         with self._on_stream():
             fields = RegistrationSolution(
                 valid=b["sol.valid"], scale=b["sol.scale"], rotation=b["sol.rotation"],
                 translation=b["sol.translation"], final_inlier_count=b["sol.count"],
             )
+            if self.pairs is not None:
+                count = self.pairs if count is None else count
+                fields = RegistrationSolution(*(t[:count] for t in fields))
             if out is None:
                 return RegistrationSolution(*(t.clone() for t in fields))
+            rows = index if self.pairs is None else slice(index, index + count)
             for dest, value in zip(out, fields):
-                dest[index].copy_(value, non_blocking=True)
+                dest[rows].copy_(value, non_blocking=True)
         return out
 
     def release(self) -> None:
@@ -696,23 +901,43 @@ def resolve_device(device) -> torch.device:
 
 
 def plan_for(params: SolverParams, c: int, device, graphs: bool = True,
-             instance: int = 0) -> ReplayPlan:
+             instance: int = 0, pairs: int | None = None) -> ReplayPlan:
     """The cached plan of (params, C, device), built at first use; `graphs`
     holds on CUDA devices only. Instances beyond 0 are further plans of the
-    same key on streams of their own, for solves in flight at once."""
+    same key on streams of their own, for solves in flight at once. `pairs`:
+    the plan of P pairs at once (the batched form)."""
     device = resolve_device(device)
     graphs = bool(graphs) and device.type == "cuda"
-    key = (params, int(c), device, graphs, int(instance))
+    key = (params, int(c), device, graphs, int(instance), pairs)
     plan = _PLANS.get(key)
     if plan is None:
+        if device.type == "cuda" and init_route(params, c) == "dense":
+            _make_room(device, PLAN_BYTES_PER_C2 * c * c * (pairs or 1))
         stream = torch.cuda.Stream(device) if instance and device.type == "cuda" else None
-        plan = ReplayPlan(params, int(c), device, graphs, stream)
+        plan = ReplayPlan(params, int(c), device, graphs, stream, pairs)
         _PLANS[key] = plan
         while len(_PLANS) > PLAN_CACHE_SIZE:
             _PLANS.popitem(last=False)[1].release()
     else:
         _PLANS.move_to_end(key)
     return plan
+
+
+def _make_room(device: torch.device, nbytes: int) -> None:
+    """Drop the cached plans of `device`, least recently used first, until
+    the card has `nbytes` free for a new plan (or none is left): a plan of
+    the dense init holds C^2 bytes a pair, so the cache's count alone does
+    not bound its memory. Work still queued ends first; memory the allocator
+    caches and no tensor holds goes back before each look."""
+    torch.cuda.synchronize(device)
+    while True:
+        torch.cuda.empty_cache()
+        if torch.cuda.mem_get_info(device)[0] >= nbytes:
+            return
+        old = next((key for key in _PLANS if key[2] == device), None)
+        if old is None:
+            return
+        _PLANS.pop(old).release()
 
 
 def flush_launch_counts() -> None:

@@ -472,7 +472,7 @@ def _edge_graph(i: torch.Tensor, j: torch.Tensor, ok: torch.Tensor, c: int) -> t
     idx = torch.cat([i * c + j, j * c + i], dim=-1)
     target = torch.where(torch.cat([ok, ok], dim=-1), idx, sentinel)
     flat = torch.zeros(i.shape[:-1] + (sentinel + 1,), dtype=torch.bool, device=i.device)
-    flat.scatter_(-1, target, True)
+    flat = flat.scatter(-1, target, True)
     return flat[..., :sentinel].reshape(i.shape[:-1] + (c, c))
 
 
@@ -553,22 +553,36 @@ def _clique_seed_stage(
     Returns (seed WarmState, ok () bool — at least clique_seed_min_size
     members, host reads of the greedy). Where not ok the seed is the
     identity and must not be adopted."""
+    adj = _seed_graph(ori_src, ori_dst, red_i, red_j, red_pool, params, active)
+    clique, reads = greedy_clique(adj, order_scores=triangle_scores(adj), max_steps=max_steps,
+                                  repeat=repeat, steps_run=steps_run)
+    warm, ok = _seed_from_clique(ori_src, ori_dst, clique, params, generator, scale_u, sync_free,
+                                 repeat)
+    return warm, ok, reads
+
+
+def _seed_graph(ori_src, ori_dst, red_i, red_j, red_pool, params: SolverParams, active=None):
+    """The clique seed's (C, C) consistency graph (`_clique_seed_stage`)."""
+    c = ori_src.shape[1]
+    if active is not None and c <= params.dense_init_max_c:
+        return dense_consistency_adjacency(ori_src, ori_dst, red_i, red_j, red_pool, params, active)
+    slot_ok = torch.arange(red_i.shape[0], device=ori_src.device) < red_pool
+    return _edge_graph(red_i, red_j, slot_ok, c)
+
+
+def _seed_from_clique(ori_src, ori_dst, clique, params: SolverParams, generator=None,
+                      scale_u=None, sync_free: bool = False, repeat=None):
+    """The clique seed's warm state from its (C,) clique mask
+    (`_clique_seed_stage`): (seed WarmState, ok)."""
     c = ori_src.shape[1]
     dev = ori_src.device
     cap = params.clique_cap
-    if active is not None and c <= params.dense_init_max_c:
-        adj = dense_consistency_adjacency(ori_src, ori_dst, red_i, red_j, red_pool, params, active)
-    else:
-        slot_ok = torch.arange(red_i.shape[0], device=dev) < red_pool
-        adj = _edge_graph(red_i, red_j, slot_ok, c)
-    clique, reads = greedy_clique(adj, order_scores=triangle_scores(adj), max_steps=max_steps,
-                                  repeat=repeat, steps_run=steps_run)
     m = torch.clamp(clique.sum(), max=cap)
 
     # Compact the member indices to (cap,); members past the cap drop out.
     pos = torch.cumsum(clique.to(_I64), 0) - 1
     write = torch.where(clique & (pos < cap), pos, cap)
-    cq = torch.zeros(cap + 1, dtype=_I64, device=dev).scatter_(
+    cq = torch.zeros(cap + 1, dtype=_I64, device=dev).scatter(
         0, write, torch.arange(c, device=dev)
     )[:cap]
     ar = torch.arange(cap, device=dev)
@@ -584,7 +598,7 @@ def _clique_seed_stage(
         translation=torch.where(ok, res.translation, torch.zeros_like(res.translation)),
         first_time=device_flag(False, dev),
     )
-    return warm, ok, reads
+    return warm, ok
 
 
 # =============================================================================
@@ -1156,7 +1170,7 @@ def _self_update_pairs(
     def compact(mask, cap):
         pos = torch.cumsum(mask.to(_I64), 0) - 1
         write = torch.where(mask & (pos < cap), pos, cap)
-        lst = torch.full((cap + 1,), -1, dtype=_I64, device=dev).scatter_(0, write, points)
+        lst = torch.full((cap + 1,), -1, dtype=_I64, device=dev).scatter(0, write, points)
         return lst[:cap], torch.clamp(mask.sum(), max=cap)
 
     member = inl_kept | new_corr
@@ -1178,8 +1192,8 @@ def _self_update_pairs(
     dest = pool + torch.cumsum(vf.to(_I64), 0) - 1
     write = torch.where(vf & (dest < r_cap), dest, r_cap)
     pad = torch.zeros(1, dtype=red_i.dtype, device=dev)
-    red_i = torch.cat([red_i, pad]).scatter_(0, write, pif)[:r_cap]
-    red_j = torch.cat([red_j, pad]).scatter_(0, write, pjf)[:r_cap]
+    red_i = torch.cat([red_i, pad]).scatter(0, write, pif)[:r_cap]
+    red_j = torch.cat([red_j, pad]).scatter(0, write, pjf)[:r_cap]
     added = torch.minimum(vf.sum(), r_cap - pool)
     # red_count is the |reduced| count, clamped by reduced_cap (it may
     # exceed the materialized pool).

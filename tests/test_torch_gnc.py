@@ -336,3 +336,26 @@ def test_cuda_kernel_reads_the_flag_on_the_device(cuda_device, b, n):
         torch.cuda.synchronize()
         rr, ir = tops.gnc_batch_reference(*args, value, **LOOP)
         _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,h,n", [(8, 4, 256), (3, 8, 1024)])
+def test_cuda_pair_axis_equals_single_launches(cuda_device, p, h, n):
+    """P pairs of H hypotheses, each pair with its own warm rotation and
+    flag, in one launch: equal to P launches of one pair each and within
+    ROT_TOL of the plain version."""
+    rng = np.random.default_rng(p * 100 + n)
+    src, dst, act, rots = _problem(rng, p * h, n, masked=0.3)
+    t = [torch.as_tensor(x, device=cuda_device) for x in (src, dst, act)]
+    nb = torch.full((p * h,), 0.1, device=cuda_device)
+    warm = torch.as_tensor(rots[::h], device=cuda_device)
+    flags = torch.as_tensor(np.arange(p) % 2 == 0, device=cuda_device)
+    before = tops.KERNEL_LAUNCHES
+    rk, ik = tops.gnc_batch(*t, nb, warm, flags, **LOOP)
+    assert tops.KERNEL_LAUNCHES == before + 1
+    for q in range(p):
+        rows = slice(q * h, (q + 1) * h)
+        rq, iq = tops.gnc_batch(*(x[rows] for x in t), nb[rows], warm[q], flags[q], **LOOP)
+        assert torch.equal(rq, rk[rows]) and torch.equal(iq, ik[rows])
+    rr, ir = tops.gnc_batch_reference(*t, nb, warm, flags, **LOOP)
+    _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)

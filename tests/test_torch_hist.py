@@ -411,3 +411,20 @@ def test_cuda_histogram_equals_plain(cuda_device, c):
         assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
         assert k == [int(x) for x in hist.exact_peak_bin_reference(src, dst, a)]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c", [(8, 1889), (3, 5000)])
+def test_cuda_exact_peak_bin_pair_axis(cuda_device, p, c):
+    """One launch for P pairs: each pair's (peak, count, certified) that of
+    its own call and of the plain version with the pair axis."""
+    inputs = [tuple(torch.as_tensor(x, device=cuda_device) for x in _inputs(c, c + q))
+              for q in range(p)]
+    src, dst, act = (torch.stack(x) for x in zip(*inputs))
+    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    got = [x.tolist() for x in hist.exact_peak_bin(src, dst, act)]
+    assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+    alone = [[hist.exact_peak_bin(*x)[k].item() for x in inputs] for k in range(3)]
+    full = hist.pair_ratio_histogram_reference(src, dst, act, num_bins=(128 + 1) * 16 + 1)
+    plain = [x.tolist() for x in hist.peak_from_full_histogram(full, 128, 16)]
+    assert got == alone == plain

@@ -105,16 +105,22 @@ def batch_rates(device) -> dict:
     import numpy as np
 
     from psulvsb_tpu_torch import register_batch
+    from psulvsb_tpu_torch.parallel import pairs
 
     params = cs.path_case("anchor")[0]
-    src_np, dst_np, _ = cs.batch_cases("anchor", BATCH)
+    src_np, dst_np = cs.batch_cases("anchor", BATCH)[:2]
     src = torch.as_tensor(src_np, device=device)
     dst = torch.as_tensor(dst_np, device=device)
     keep = torch.ones((BATCH, src.shape[2]), dtype=torch.int64, device=device)
     seeds = [300 + i for i in range(BATCH)]
+    # The in-flight form: vectorized=True in a tree that has no batched form.
+    in_flight = getattr(pairs, "_register_in_flight", None) or (
+        lambda *args: register_batch(*args, vectorized=True))
 
     def batch(vectorized):
-        return register_batch(src, dst, keep, seeds, params, vectorized=vectorized)
+        if vectorized:
+            return in_flight(src, dst, keep, seeds, params)
+        return register_batch(src, dst, keep, seeds, params)
 
     batch(False)
     batch(True)

@@ -10,8 +10,8 @@ For each named path, two warm-up solves, then 5 solves through
 RobustRegistrationSolver under torch.profiler (CPU and CUDA activities);
 after the word `fused` the solves go through solver.fused.psulvsb_register
 (replayed CUDA graphs), after `batch` through one
-parallel.pairs.register_batch of the 5 pairs in order and one with pairs in
-flight (each profiled on its own). The profiler's window is idle for 20 ms
+parallel.pairs.register_batch of the 5 pairs in order, one with pairs in
+flight and one batched (each profiled on its own). The profiler's window is idle for 20 ms
 at both ends, and a window that lost device records (fewer launches of a
 port kernel than the path's solves made) is taken again.
 Printed per path: the card, the wall time of the profiled solves, the
@@ -87,11 +87,16 @@ def runner(mode, params, src, dst, device):
         ]
     if mode == "fused":
         return lambda seeds: [psulvsb_register(src, dst, keep, s, params) for s in seeds]
-    vectorized = mode == "batch in flight"
-    return lambda seeds: register_batch(
-        src.expand(len(seeds), 3, -1), dst.expand(len(seeds), 3, -1),
-        keep.expand(len(seeds), -1), seeds, params, vectorized=vectorized,
-    )
+    from psulvsb_tpu_torch.parallel.pairs import _register_in_flight
+
+    def batch(seeds):
+        args = (src.expand(len(seeds), 3, -1), dst.expand(len(seeds), 3, -1),
+                keep.expand(len(seeds), -1), seeds, params)
+        if mode == "batch in flight":
+            return _register_in_flight(*args)
+        return register_batch(*args, vectorized=mode == "batch batched")
+
+    return batch
 
 
 def profile_path(name, device, card, mode="staged"):
@@ -278,7 +283,7 @@ def main() -> int:
         elif name == "fused":
             modes = ["fused"]
         elif name == "batch":
-            modes = ["batch in order", "batch in flight"]
+            modes = ["batch in order", "batch in flight", "batch batched"]
         else:
             for mode in modes:
                 profile_path(name, device, card, mode)
