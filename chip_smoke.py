@@ -56,7 +56,10 @@ and prints no result line):
    where a call must run the kernel and the zeroing of its counts only.
    exact_peak_bin's pair axis at P = 1 and 8 unknown-scale pairs
    of C = 5000: one launch against the plain version with the pair axis
-   and P calls of one pair (difference 0), timed as phase 3's;
+   and P calls of one pair (difference 0), timed as phase 3's; the
+   windowed histogram's at P = 8, C = 1889 with a lo a pair through
+   torch.func.vmap, and the beta count's at P = 1 and 8 anchor-protocol
+   pairs of C = 12000, the same way;
 6. slice, unknown scale — the 3DMatch unknownScale protocol at C = 5000
    (noise 0.01, 85% mismatch outliers, dst stretched by a test scale drawn
    in [1, 5) from the seed) solved through RobustRegistrationSolver(
@@ -76,7 +79,8 @@ and prints no result line):
    must be equal. C = 0 raises; an all-inactive input gives zeros. Medians
    of 20 timed runs (CUDA events) at C = 1250, 1889 and 8192, and the
    device time a launch (profiler), where a call must run the kernel and
-   the zeroing of its degrees only;
+   the zeroing of its degrees only; its pair axis at P = 1 and 8
+   anchor-protocol pairs of C = 1889 as phase 5's;
 9. slice, artificial GROR preset — the anchor pair through
    RobustRegistrationSolver(SolverParams.preset_artificial_gror(caps
    (2048, 256, 4))) at its own defaults (clique "auto", PMC_EXACT on the
@@ -120,22 +124,34 @@ and prints no result line):
    host-issued operations a solve (torch.profiler); the launch counts,
    which the graph counts on the device as it runs, set to 0 before each
    path and read after it;
-14. the pair batch — parallel.pairs.register_batch at B = 8 and 32 on the
-   anchor protocol (a pair a seed), at B = 8 on the unknown-scale one and
-   at B = 8 at the sweep's 8192 bucket (known scale, clique "auto"), in
-   its three forms: in order, with pairs in flight
+14. the pair batch — parallel.pairs.register_batch at B = 8 on the
+   anchor protocol (a pair a seed), at B = 8 on the unknown-scale one, at
+   B = 8 at the sweep's 8192 bucket (known scale, clique "auto"), and at
+   B = 8 for every setting beyond the dense init's: the GROR preset at its
+   defaults (K 800) on the anchor protocol, the wide known-scale and
+   estimated-scale protocols at C = 12000 (exact_beta, exact_hist), FGR
+   and "eigh" on the anchor protocol, and at B = 4 the exact clique
+   callback on the hostile pair's protocol (the native search on one
+   thread), in its three forms: in order, with pairs in flight
    (parallel.pairs._register_in_flight; not at 8192, whose plans hold 6-7
    GiB each) and batched (vectorized=True: chunks of P pairs, each one
-   graph launch of a plan with a pair axis), each run once more under
+   graph launch of a plan with a pair axis; the exact clique's plans run
+   eagerly and launch no graph), each run once more under
    torch.cuda.set_sync_debug_mode("error") (no host synchronization before
-   the readback), the batched plan one graph launch a chunk: every pair
-   equal to its solve alone (in order and in flight difference 0; batched
-   valid and counts equal, R, t and scale within BATCH_TOL); on the anchor
-   and the unknown-scale protocol every pair of every form within the pose
-   gates, at the 8192 bucket every pair that passes them alone (the count
-   printed); the plan cache makes room for the 8192 bucket's plans by
-   itself; the kernels' launches of one batched call; pairs per second
-   beside B serial psulvsb_solve calls, in turns;
+   the readback; not the eager exact clique), the batched plan one graph
+   launch a chunk and each pair-axis kernel of the path (histogram, beta
+   count, degree) one launch a chunk: every pair equal to its solve alone
+   (in order and in flight difference 0; batched valid and counts equal, R,
+   t and scale within BATCH_TOL); on the anchor and the unknown-scale
+   protocol every pair of every form within the pose gates, elsewhere every
+   pair that passes them alone (the count printed); the plan cache makes
+   room for every plan by itself; the kernels' launches of one batched
+   call; pairs per second of each form in turns, beside B serial
+   psulvsb_solve calls for the anchor, unknown-scale and 8192 batches; the
+   plan's bytes and its estimate; device operations a pair in order and
+   batched for the settings beyond the dense init but FGR (torch.profiler,
+   after the walls, on the same plans run eagerly: BATCH_PROFILED); the
+   seconds of every phase on the line before the last;
 15. the pipeline — eval.pipeline.solve_with_prefilter on pair_seed1375
    padded to its 2048 bucket through psulvsb_register, the pre-filter off
    (KITTI gates) and on (the keep-mask counts are printed);
@@ -213,9 +229,9 @@ and prints no result line):
    decoupled, twice each: the seven output lines in the JAX CLI's order,
    valid 1, RE < 5 deg, TE < 0.3, scale error <= 0.1; gnc_batch launched on
    both PSULVSB runs, pair_ratio_hist on the unknown-scale one. Then
-   `python -m psulvsb_tpu_torch.cli` as a process on both pairs, warm (this
-   tree's built kernels) and cold (a copy of the package with nothing
-   built), under the same gates, with walls. Then the seven examples'
+   `python -m psulvsb_tpu_torch.cli` as a process on both pairs warm (this
+   tree's built kernels), and on the anchor cold (a copy of the package with
+   nothing built), under the same gates, with walls. Then the seven examples'
    main() on the card: psulvsb_demo at its defaults (recall >= 1/2 of 10
    trials, printed beside the JAX package's CPU recall), certify_demo (the
    estimate certified, the identity not), fpfh_icp_pipeline and
@@ -243,9 +259,9 @@ and prints no result line):
    equal). gnc_batch must have launched in the sweeps and the cap sweep;
 24. result — the card line, a JSON line of per-kernel figures (time,
    plain time, bound, launches on the fused path that runs it, in the
-   sweeps, on the CLI and in phase 23's tools; and for the GNC and
-   histogram kernels a second entry, their pair-axis launch at P = 8 with
-   its launches in one batched register_batch call of phase 14), and the
+   sweeps, on the CLI and in phase 23's tools; and for each kernel a
+   second entry, its pair-axis launch at P = 8 with its launches in one
+   batched register_batch call of phase 14), and the
    final JSON line {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a phase drives a solve path and
@@ -259,6 +275,8 @@ adds those in (a capture itself launches nothing and is not counted).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import statistics
@@ -1004,7 +1022,122 @@ def phase_pair_kernels(device) -> dict:
         print(f"[pairs] C={c} beta 0.1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
               f"20, CUDA events); device {dev_us:.2f} us a launch (profiler, mean of "
               f"{PROFILED_REPS}); bound {bound[0]:.6f} ms by {bound[1]}")
-    return {"max_diff": worst, "times": times, "pair_axis": pair_axis}
+    window_pair_axis(device)
+    return {"max_diff": worst, "times": times, "pair_axis": pair_axis,
+            "beta_pair_axis": beta_pair_axis(device)}
+
+
+def window_pair_axis(device, c=ANCHOR_C) -> None:
+    """The windowed histogram's pair axis (jax.vmap of pair_ratio_histogram):
+    PAIR_AXIS_P unknown-scale pairs in one launch, the fine window's lo a
+    pair on the device (`torch.func.vmap` over the front door), against the
+    plain version with the pair axis and P single calls: difference 0."""
+    from psulvsb_tpu_torch.ops import hist
+
+    p = PAIR_AXIS_P
+    inputs = [hist_inputs(c, 70 + q, device, 1.0 + 0.5 * q) for q in range(p)]
+    src, dst, act = (torch.stack(x) for x in zip(*inputs))
+    lo = torch.arange(16, 16 + 8 * p, 8, device=device)
+    kw = dict(num_bins=48, stride=1, clamp_overflow=False)
+    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    got = torch.func.vmap(lambda s, d, a, lo_q: hist.pair_ratio_histogram(
+        s, d, a, lo_bin=lo_q, **kw))(src, dst, act, lo)
+    if hist.KERNEL_LAUNCHES["pair_ratio_hist"] != before + 1:
+        raise AssertionError("the windowed histogram's pair axis must be one launch")
+    compare_counts(f"window pair axis P={p}", got,
+                   hist.pair_ratio_histogram_reference(src, dst, act, lo_bin=lo, **kw))
+    compare_counts(f"window pair axis P={p} against single calls", got, torch.stack(
+        [hist.pair_ratio_histogram(*x, lo_bin=lo[q], **kw) for q, x in enumerate(inputs)]))
+    print(f"[pairs] windowed histogram pair axis P={p}, C={c}, a lo a pair "
+          f"{lo.tolist()}: one launch, as the plain version and as {p} single calls "
+          f"(difference 0)")
+
+
+def beta_pair_axis(device, c=WIDE_C) -> dict:
+    """pair_beta_count's pair axis (jax.vmap of pair_beta_count): P pairs of
+    the anchor protocol at the wide path's C (about 20% of the points
+    inactive) in one launch and one zero fill, against the plain version
+    with the pair axis and against P calls of one pair each (difference 0),
+    timed at P = 1 and PAIR_AXIS_P beside the P calls, with the device time
+    a launch and the bound."""
+    from psulvsb_tpu_torch.ops import hist
+
+    beta = BETAS["artificial"]
+    out = {"max_diff": 0, "times": {}}
+    for p in (1, PAIR_AXIS_P):
+        inputs = [degree_inputs(c, 60 + q, device) for q in range(p)]
+        src, dst, act = (torch.stack(x) for x in zip(*inputs))
+
+        def apart():
+            return torch.stack([hist.pair_beta_count(s, d, beta, a) for s, d, a in inputs])
+
+        before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+        got = hist.pair_beta_count(src, dst, beta, act)
+        if hist.KERNEL_LAUNCHES["pair_beta_count"] != before + 1:
+            raise AssertionError("the beta count's pair axis must be one launch")
+        plain = hist.pair_beta_count_reference(src, dst, beta, act)
+        diff = max(compare_counts(f"beta pair axis P={p}", got, plain),
+                   compare_counts(f"beta pair axis P={p} against single calls", got, apart()))
+        out["max_diff"] = max(out["max_diff"], diff)
+        ms = median_ms(lambda: hist.pair_beta_count(src, dst, beta, act))
+        plain_ms = median_ms(lambda: hist.pair_beta_count_reference(src, dst, beta, act))
+        apart_ms = median_ms(apart)
+        dev_us = kernel_device_us(lambda: hist.pair_beta_count(src, dst, beta, act),
+                                  "pair_beta_count", others=1, min_recorded=PROFILED_REPS - 1)
+        n = act.sum(1).tolist()
+        bound = bound_ms(p * (c * 25 + 8),
+                         sum(k * (k - 1) // 2 for k in n) * OPS_PER_PAIR["pair_beta_count"])
+        out["times"][p] = (ms, plain_ms, bound)
+        print(f"[pairs] beta count pair axis P={p}, C={c}, beta {beta}: counts {got.tolist()} "
+              f"as the plain version and as {p} single calls (difference 0); one launch "
+              f"{ms:.4f} ms, {p} single calls {apart_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(medians of 20, CUDA events); device {dev_us:.2f} us a launch (profiler); bound "
+              f"{bound[0]:.6f} ms by {bound[1]}")
+    return out
+
+
+def degree_pair_axis(device, c=ANCHOR_C) -> dict:
+    """consistency_degree's pair axis (jax.vmap of consistency_degree): P
+    pairs of the anchor protocol at the GROR path's C (about 20% of the
+    points inactive) in one launch and one zero fill, against the plain
+    version with the pair axis and against P calls of one pair each
+    (difference 0), timed at P = 1 and PAIR_AXIS_P beside the P calls, with
+    the device time a launch and the bound."""
+    from psulvsb_tpu_torch.ops import pairs
+
+    tau = GROR_TAUS[0]
+    out = {"max_diff": 0, "times": {}}
+    for p in (1, PAIR_AXIS_P):
+        inputs = [degree_inputs(c, 80 + q, device) for q in range(p)]
+        src, dst, act = (torch.stack(x) for x in zip(*inputs))
+
+        def apart():
+            return torch.stack([pairs.consistency_degree(s, d, tau, a) for s, d, a in inputs])
+
+        before = pairs.KERNEL_LAUNCHES
+        got = pairs.consistency_degree(src, dst, tau, act)
+        if pairs.KERNEL_LAUNCHES != before + 1:
+            raise AssertionError("the degree kernel's pair axis must be one launch")
+        plain = pairs.consistency_degree_reference(src, dst, tau, act)
+        diff = max(compare_counts(f"degree pair axis P={p}", got, plain),
+                   compare_counts(f"degree pair axis P={p} against single calls", got, apart()))
+        out["max_diff"] = max(out["max_diff"], diff)
+        ms = median_ms(lambda: pairs.consistency_degree(src, dst, tau, act))
+        plain_ms = median_ms(lambda: pairs.consistency_degree_reference(src, dst, tau, act))
+        apart_ms = median_ms(apart)
+        dev_us = kernel_device_us(lambda: pairs.consistency_degree(src, dst, tau, act),
+                                  "consistency_degree", others=1,
+                                  min_recorded=PROFILED_REPS - 1)
+        n = act.sum(1).tolist()
+        bound = bound_ms(p * (c * 25 + 4 * c),
+                         sum(k * (k - 1) // 2 for k in n) * OPS_PER_PAIR["consistency_degree"])
+        out["times"][p] = (ms, plain_ms, bound)
+        print(f"[degree] pair axis P={p}, C={c}, tau {tau}: degrees as the plain version and "
+              f"as {p} single calls (difference 0); one launch {ms:.4f} ms, {p} single calls "
+              f"{apart_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20, CUDA events); "
+              f"device {dev_us:.2f} us a launch (profiler); bound {bound[0]:.6f} ms by "
+              f"{bound[1]}")
+    return out
 
 
 def peak_pair_axis(device, c=UNKNOWN_C) -> dict:
@@ -1132,7 +1265,7 @@ def phase_degree_kernel(device) -> dict:
         print(f"[degree] C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, "
               f"CUDA events); device {dev_us:.2f} us a launch (profiler, mean of "
               f"{PROFILED_REPS}); bound {bound[0]:.6f} ms by {bound[1]}")
-    return {"max_diff": worst, "times": times}
+    return {"max_diff": worst, "times": times, "pair_axis": degree_pair_axis(device)}
 
 
 def phase_gror_slice(device, card: str) -> dict:
@@ -1231,13 +1364,32 @@ def phase_clique(device, card: str) -> dict:
 
 FUSED_PATHS = ("anchor", "unknown", "wide", "gror", "frontend", "eager_seed", "lazy_seed",
                "hostile")
-BATCH_SIZES = {"anchor": (8, 32), "unknown": (8,), "bucket8192": (8,)}
+BATCH_SIZES = {"anchor": (8,), "unknown": (8,), "bucket8192": (8,), "gror": (8,),
+               "wide_beta": (8,), "wide_hist": (8,), "fgr": (8,), "eigh": (8,),
+               "exact_clique": (4,)}
+# The batches timed beside B serial psulvsb_solve calls; the others compare
+# the three forms of register_batch alone.
+BATCH_SERIAL = ("anchor", "unknown", "bucket8192")
 BATCH_TOL = 1e-4  # a batched pair against its solve alone: float32 sums in another order
 BATCH_FORMS = ("in order", "in flight", "batched")
 # How phase 14 gates a batch's poses: "absolute", every pair of every form
 # within LIMITS; "as alone", every pair of every form that passes LIMITS
-# alone (the 8192 bucket's 85% mismatch outliers fail some pairs alone).
-BATCH_GATES = {"anchor": "absolute", "unknown": "absolute", "bucket8192": "as alone"}
+# alone (the 8192 bucket's 85% mismatch outliers fail some pairs alone, and
+# so may the other settings' protocols).
+BATCH_GATES = {"anchor": "absolute", "unknown": "absolute"}
+# The kernel whose pair axis a batch's chunk launches once (phase 14).
+BATCH_PAIR_KERNELS = {"unknown": "pair_ratio_hist", "gror": "consistency_degree",
+                      "wide_beta": "pair_beta_count", "wide_hist": "pair_ratio_hist"}
+# The batches whose device operations a pair phase 14 counts, in order and
+# batched, after the walls: the settings beyond the dense init's. They are
+# counted on the same plans run eagerly (graphs=False), kernel by kernel from
+# the host: torch.profiler records the bodies of a graph's conditional nodes
+# only for a graph instantiated after its first session, then fewer and fewer
+# records a session, and then the card faults (an illegal memory access;
+# tools/profiler_graph_repro.py shows it on two nested WHILE nodes of three
+# elementwise kernels). FGR is left out: its eager form takes seconds a pair
+# and its profile does not end within five minutes.
+BATCH_PROFILED = ("gror", "wide_beta", "wide_hist", "eigh", "exact_clique")
 PAIR_AXIS_P = 8  # pairs of the kernels' pair-axis launches (phases 3 and 5)
 PAIR_GNC_TOL = 7.2e-07  # the pair-axis GNC launch against its plain version and single launches
 PIPELINE_BUCKET = 2048
@@ -1347,20 +1499,24 @@ def timed_walls(fn, seeds) -> list[float]:
     return walls
 
 
-def profiled_operations(fn, reps: int = 3) -> tuple[float, float]:
+def profiled_operations(fn, reps: int = 3, host: bool = True) -> tuple[float, float]:
     """(device operations, host-issued operations) a call of fn over `reps`
     calls under torch.profiler: kernels, copies and fills that ran on the
     card, and the host's launch, graph-launch, copy and fill calls. A window
-    that lost its device records is taken again."""
+    that lost its device records is taken again. host=False records the
+    card's activity alone (no operator records on the host, which make an
+    eager solve's window slow to record and to read); the second number then
+    counts the runtime calls that activity records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     issued = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
               "cuLaunchKernel")
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
     for _ in range(PROFILER_ATTEMPTS):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             time.sleep(PROFILER_MARGIN_S)
             for _ in range(reps):
                 fn()
@@ -1479,10 +1635,37 @@ def batch_cases(name, b):
     bucket C (3500, 5000, 6500 for 4096, 6144, 8192) padded to C with keep
     -2, through the sweep's preset (clique "auto"). "lazy8192": the lazy
     seed's path of phase 13 (the sweep's preset with scale estimated, C =
-    8192, 95% mismatch outliers), a pair a data seed from 21 on."""
+    8192, 95% mismatch outliers), a pair a data seed from 21 on. "gror":
+    the anchor protocol through the GROR preset at its defaults (K 800).
+    "wide_beta", "wide_hist": the anchor and unknown-scale protocols at C =
+    12000, which "auto" routes to exact_beta and exact_hist. "fgr", "eigh":
+    the anchor protocol through preset_anchor with FGR or the "eigh" GNC.
+    "exact_clique": the hostile pair's protocol (99% displaced outliers, a
+    pair a data seed from 5 on) through the bench anchor's program with the
+    exact clique callback."""
+    from psulvsb_tpu_torch import RotationEstimationAlgorithm, SolverParams
+
+    anchors = [anchor_case(data_seed=200 + i, cloud_seed=200 + i) for i in range(b)]
     if name == "anchor":
-        cases = [anchor_case(data_seed=200 + i, cloud_seed=200 + i) for i in range(b)]
-        params = path_case("anchor")[0]
+        cases, params = anchors, path_case("anchor")[0]
+    elif name == "gror":
+        cases, params = anchors, path_case("gror")[0]
+    elif name == "fgr":
+        cases = anchors
+        params = SolverParams.preset_anchor(
+            rotation_estimation_algorithm=RotationEstimationAlgorithm.FGR)
+    elif name == "eigh":
+        cases, params = anchors, SolverParams.preset_anchor(gnc_rot_method="eigh")
+    elif name == "wide_beta":
+        cases = [anchor_case(WIDE_C, data_seed=200 + i, cloud_seed=200 + i) for i in range(b)]
+        params = path_case("wide")[0]
+    elif name == "wide_hist":
+        cases = [unknown_scale_case(WIDE_C, 200 + i) for i in range(b)]
+        params = unknown_scale_params()
+    elif name == "exact_clique":
+        cases = [anchor_case(rate=HOSTILE_RATE, data_seed=HOSTILE_DATA_SEED + i)
+                 for i in range(b)]
+        params = SolverParams.preset_artificial(**CAPS).replace(exact_clique_callback=True)
     elif name == "unknown":
         cases = [unknown_scale_case(UNKNOWN_C, 200 + i) for i in range(b)]
         params = unknown_scale_params()
@@ -1512,11 +1695,26 @@ def batch_cases(name, b):
     return src, dst, keep, [c[2] for c in cases], params
 
 
+@contextlib.contextmanager
+def one_thread_search():
+    """The native exact clique search on one thread: with 12 it returns any
+    of several largest cliques, and a batched pair is held to its solve
+    alone."""
+    from psulvsb_tpu_torch.clique import pmc
+
+    saved = pmc.exact_max_clique
+    pmc.exact_max_clique = functools.partial(saved, n_threads=1)
+    try:
+        yield
+    finally:
+        pmc.exact_max_clique = saved
+
+
 def phase_pair_batch(device, card: str) -> dict:
-    """Phase 14: register_batch in its three forms beside serial solves."""
-    from psulvsb_tpu_torch import RegistrationSolution, psulvsb_solve, register_batch
+    """Phase 14: register_batch in its three forms (beside serial solves for
+    BATCH_SERIAL)."""
+    from psulvsb_tpu_torch import psulvsb_solve, register_batch
     from psulvsb_tpu_torch.parallel.pairs import _register_in_flight, pairs_per_chunk
-    from psulvsb_tpu_torch.solver.fused import pair_batch_route, plan_for, psulvsb_register
 
     t_phase = time.perf_counter()
     rows, launches = [], {}
@@ -1530,92 +1728,127 @@ def phase_pair_batch(device, card: str) -> dict:
             seeds = [300 + i for i in range(b)]
             # The 8192 bucket's plans hold 6-7 GiB a pair: no in-flight plans there.
             forms = [f for f in BATCH_FORMS if name != "bucket8192" or f != "in flight"]
-            if pair_batch_route(params, c) != "batched":
-                raise AssertionError(f"batch {name}: route {pair_batch_route(params, c)}")
-            p = pairs_per_chunk(c, b, device)
-            chunks = -(-b // p)
+            p = pairs_per_chunk(c, b, device, params)
 
             def serial():
                 for i in range(b):
                     gen = torch.Generator(device=device).manual_seed(seeds[i])
                     psulvsb_solve(src[i], dst[i], keep[i], params, gen)
 
-            def batch(form):
+            def batch(form, graphs=True):
                 if form == "in flight":
-                    return _register_in_flight(src, dst, keep, seeds, params)
+                    return _register_in_flight(src, dst, keep, seeds, params, graphs=graphs)
                 return register_batch(src, dst, keep, seeds, params,
-                                      vectorized=form == "batched")
+                                      vectorized=form == "batched", graphs=graphs)
 
-            sols = {form: batch(form) for form in forms}  # plans built here
-            plan = plan_for(params, c, device, pairs=p)
-            torch.cuda.synchronize()
-            # Staged inputs, draws, one launch a pair (a chunk) and copies: no
-            # form may wait for the device before the readback.
-            before = plan.graph_launches
-            reset_launches()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                sols = {form: batch(form) for form in forms}
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            if plan.graph_launches - before != chunks:
-                raise AssertionError(f"batch {name} B={b}: {plan.graph_launches - before} graph "
-                                     f"launches of the batched plan, not one a chunk ({chunks})")
-            reset_launches()
-            batch("batched")
-            launches[(name, b)] = read_launches()
-            print(f"[batch {name}] B={b}: every form ran with no host synchronization before the "
-                  f"readback (torch.cuda.set_sync_debug_mode('error')); batched: P = {p}, "
-                  f"{chunks} chunks, one graph launch each; kernel launches a batched call "
-                  f"{launches[(name, b)]}")
-            worst, gated = 0.0, 0
-            absolute = BATCH_GATES[name] == "absolute"
-            for i in range(b):
-                alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
-                passes_alone = score_solution(f"batch {name} alone pair {i}", alone, truths[i])[4]
-                gate = absolute or passes_alone
-                gated += gate
-                for form, got in sols.items():
-                    one = RegistrationSolution(*(f[i] for f in got))
-                    valid, re, te, se, ok = score_solution(f"batch {name} {form} pair {i}", one,
-                                                           truths[i])
-                    diff = solution_difference(one, alone)
-                    same = (bool(one.valid) == bool(alone.valid)
-                            and int(one.final_inlier_count) == int(alone.final_inlier_count))
-                    if form == "batched":
-                        worst = max(worst, diff)
-                    if not same or diff > (BATCH_TOL if form == "batched" else 0.0):
-                        raise AssertionError(f"batch {name} B={b} {form}: pair {i} differs from "
-                                             f"its solve alone by {diff} (valid, counts equal: "
-                                             f"{same})")
-                    if gate and not ok:
-                        raise AssertionError(f"batch {name} B={b} {form}: pair {i} failed its "
-                                             f"gate ({BATCH_GATES[name]}; alone: "
-                                             f"{passes_alone}): valid={valid} RE={re} TE={te} "
-                                             f"scale {se}")
-            rule = ("every pair of every form passed its pose gate" if absolute else
-                    f"{gated} of {b} pairs pass their pose gate alone, and each of them passed "
-                    f"it in every form")
-            print(f"[batch {name}] B={b}: every pair as its solve alone (in order and in flight "
-                  f"difference 0; batched valid and counts equal, R, t and scale within "
-                  f"{worst:.3g} <= {BATCH_TOL}); {rule}")
-            order = [(serial, "serial")] + [((lambda f=f: batch(f)), f) for f in forms]
-            rates = {label: [] for _, label in order}
-            for fn, label in order + order[::-1]:  # in turns, there and back
-                wall = timed_walls(lambda _: fn(), [0])[0]
-                rates[label].append(b / (wall * 1e-3))
-            rows.append({
-                "batch": name, "B": b, "C": c, "P": p, "gate": BATCH_GATES[name],
-                "gated_pairs": gated, "batched_vs_alone_max_diff": worst,
-                "plan_MiB": round(plan.nbytes / 2**20, 1),
-                "capture_s": round(plan.capture_s, 3),
-                "pairs_per_s": rates, "card": card,
-            })
-            print(json.dumps(rows[-1]))
+            search = one_thread_search() if name == "exact_clique" else contextlib.nullcontext()
+            with search:
+                row = batch_case_checks(name, b, p, forms, batch, truths, (src, dst, keep),
+                                        seeds, params, launches)
+                order = [((lambda f=f: batch(f)), f) for f in forms]
+                if name in BATCH_SERIAL:
+                    order = [(serial, "serial")] + order
+                rates = {label: [] for _, label in order}
+                for fn, label in order + order[::-1]:  # in turns, there and back
+                    wall = timed_walls(lambda _: fn(), [0])[0]
+                    rates[label].append(b / (wall * 1e-3))
+                row["pairs_per_s"] = rates
+                if name in BATCH_PROFILED:  # after the walls, on the eager plans
+                    row["device_ops_a_pair_eager"] = {
+                        form: profiled_operations(lambda f=form: batch(f, graphs=False),
+                                                  reps=1, host=False)[0] / b
+                        for form in ("in order", "batched")}
+            row["card"] = card
+            rows.append(row)
+            print(json.dumps(row))
     phase_s = time.perf_counter() - t_phase
     print(f"[batch] phase 14 in {phase_s:.1f} s; card: {card}")
     return {"rows": rows, "launches": launches}
+
+
+def batch_case_checks(name, b, p, forms, batch, truths, inputs, seeds, params,
+                      launches) -> dict:
+    """Phase 14's checks of one batch of P-pair chunks: plans built, then
+    (graph plans) no host synchronization before the readback in any form
+    and one graph launch a chunk of the batched plan, or (the exact clique's
+    eager plan) no graph launch; the batched call's kernel launches (a
+    pair-axis kernel once a chunk, `launches[(name, b)]`); every pair of
+    every form as its solve alone and its pose gate. Returns the batch's
+    row, without its walls."""
+    from psulvsb_tpu_torch import RegistrationSolution
+    from psulvsb_tpu_torch.solver.fused import plan_bytes, plan_for, psulvsb_register
+
+    src, dst, keep = inputs
+    c = src.shape[2]
+    chunks = -(-b // p)
+    sols = {form: batch(form) for form in forms}  # plans built here
+    plan = plan_for(params, c, src.device, pairs=p)
+    torch.cuda.synchronize()
+    before = plan.graph_launches
+    if plan.graphs:
+        # Staged inputs, draws, one launch a pair (a chunk) and copies: no
+        # form may wait for the device before the readback.
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sols = {form: batch(form) for form in forms}
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        how = "every form ran with no host synchronization before the readback"
+    else:
+        sols = {form: batch(form) for form in forms}
+        how = "every form ran its plans eagerly (the exact search is on the host)"
+    launched = plan.graph_launches - before
+    if launched != (chunks if plan.graphs else 0):
+        raise AssertionError(f"batch {name} B={b}: {launched} graph launches of the batched "
+                             f"plan, not {'one a chunk' if plan.graphs else 'none'} ({chunks})")
+    reset_launches()
+    batch("batched")
+    launches[(name, b)] = got = read_launches()
+    kernel = BATCH_PAIR_KERNELS.get(name)
+    if kernel is not None and got[kernel] != chunks:
+        raise AssertionError(f"batch {name} B={b}: {got[kernel]} {kernel} launches a batched "
+                             f"call, not one a chunk ({chunks})")
+    print(f"[batch {name}] B={b}: {how}; batched: P = {p}, {chunks} chunks, "
+          f"{launched // chunks if plan.graphs else 0} graph launch each; kernel launches a "
+          f"batched call {got}")
+    worst, gated = 0.0, 0
+    absolute = BATCH_GATES.get(name, "as alone") == "absolute"
+    for i in range(b):
+        alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
+        passes_alone = score_solution(f"batch {name} alone pair {i}", alone, truths[i])[4]
+        gate = absolute or passes_alone
+        gated += gate
+        for form, got in sols.items():
+            one = RegistrationSolution(*(f[i] for f in got))
+            valid, re, te, se, ok = score_solution(f"batch {name} {form} pair {i}", one,
+                                                   truths[i])
+            diff = solution_difference(one, alone)
+            same = (bool(one.valid) == bool(alone.valid)
+                    and int(one.final_inlier_count) == int(alone.final_inlier_count))
+            if form == "batched":
+                worst = max(worst, diff)
+            if not same or diff > (BATCH_TOL if form == "batched" else 0.0):
+                raise AssertionError(f"batch {name} B={b} {form}: pair {i} differs from its "
+                                     f"solve alone by {diff} (valid, counts equal: {same})")
+            if gate and not ok:
+                raise AssertionError(f"batch {name} B={b} {form}: pair {i} failed its gate "
+                                     f"({'absolute' if absolute else 'as alone'}; alone: "
+                                     f"{passes_alone}): valid={valid} RE={re} TE={te} "
+                                     f"scale {se}")
+    rule = ("every pair of every form passed its pose gate" if absolute else
+            f"{gated} of {b} pairs pass their pose gate alone, and each of them passed it in "
+            f"every form")
+    print(f"[batch {name}] B={b}: every pair as its solve alone (in order and in flight "
+          f"difference 0; batched valid and counts equal, R, t and scale within {worst:.3g} <= "
+          f"{BATCH_TOL}); {rule}")
+    return {"batch": name, "B": b, "C": c, "P": p,
+            "gate": "absolute" if absolute else "as alone", "gated_pairs": gated,
+            "batched_vs_alone_max_diff": worst, "graph_launches_a_chunk": launched / chunks,
+            "kernel_launches_a_call": launches[(name, b)],
+            "plan_MiB": round(plan.nbytes / 2**20, 1),
+            "plan_estimate_MiB": round(plan_bytes(params, c, p) / 2**20, 1),
+            "capture_s": round(plan.capture_s, 3)}
 
 
 def phase_pipeline(device, card: str) -> dict:
@@ -2428,19 +2661,20 @@ def phase_entry_points(device, card: str, sweep_data: str) -> dict:
                 raise AssertionError("the CLI's unknown-scale solves never launched "
                                      "pair_ratio_hist")
         # 2. The CLI as a process: warm (the kernels this process built), and
-        #    cold from a copy of the package with nothing built.
+        #    on the anchor cold, from a copy of the package with nothing built.
         for tag in ("anchor", "unknown"):
             argv = cli_argv(cases[tag], tag)
             text, warm = run_cli_process(argv, repo)
             row = {"warm": dict(check_cli_output(f"{tag} process", text, cases[tag][2]),
                                 wall_s=warm)}
-            cold_tree = os.path.join(root, f"cold_{tag}")
-            shutil.copytree(os.path.join(repo, "psulvsb_tpu_torch"),
-                            os.path.join(cold_tree, "psulvsb_tpu_torch"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            text, cold = run_cli_process(argv, cold_tree)
-            row["cold"] = dict(check_cli_output(f"{tag} cold process", text, cases[tag][2]),
-                               wall_s=cold)
+            if tag == "anchor":
+                cold_tree = os.path.join(root, f"cold_{tag}")
+                shutil.copytree(os.path.join(repo, "psulvsb_tpu_torch"),
+                                os.path.join(cold_tree, "psulvsb_tpu_torch"),
+                                ignore=shutil.ignore_patterns("__pycache__"))
+                text, cold = run_cli_process(argv, cold_tree)
+                row["cold"] = dict(check_cli_output(f"{tag} cold process", text,
+                                                    cases[tag][2]), wall_s=cold)
             out["cli"][tag]["process"] = row
             print(f"[cli] {tag} as a process: {json.dumps(row)}; card: {card}")
 
@@ -2708,31 +2942,39 @@ def main() -> int:
     from psulvsb_tpu_torch.utils.precision import pin_float32
 
     pin_float32()
+    t_start = time.perf_counter()
     build_all()
+    phase_s = {}
 
-    kern = phase_kernel_vs_plain(device)
-    sl = phase_slice(device, card)
-    pairs = phase_pair_kernels(device)
-    unknown = phase_unknown_scale(device, card)
-    wide = phase_wide(device)
-    degree = phase_degree_kernel(device)
-    gror = phase_gror_slice(device, card)
-    phase_frontend(device, card)
-    phase_clique(device, card)
-    phase_replay_vs_eager(device, card)
-    fused = phase_fused_paths(device, card)
-    batch = phase_pair_batch(device, card)
-    phase_pipeline(device, card)
-    phase_classic(device, card)
-    phase_exact_clique(device, card)
-    phase_rotation_variants(device, card)
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    kern = timed_phase("phase_kernel_vs_plain", phase_kernel_vs_plain, device)
+    sl = timed_phase("phase_slice", phase_slice, device, card)
+    pairs = timed_phase("phase_pair_kernels", phase_pair_kernels, device)
+    unknown = timed_phase("phase_unknown_scale", phase_unknown_scale, device, card)
+    wide = timed_phase("phase_wide", phase_wide, device)
+    degree = timed_phase("phase_degree_kernel", phase_degree_kernel, device)
+    gror = timed_phase("phase_gror_slice", phase_gror_slice, device, card)
+    timed_phase("phase_frontend", phase_frontend, device, card)
+    timed_phase("phase_clique", phase_clique, device, card)
+    timed_phase("phase_replay_vs_eager", phase_replay_vs_eager, device, card)
+    fused = timed_phase("phase_fused_paths", phase_fused_paths, device, card)
+    batch = timed_phase("phase_pair_batch", phase_pair_batch, device, card)
+    timed_phase("phase_pipeline", phase_pipeline, device, card)
+    timed_phase("phase_classic", phase_classic, device, card)
+    timed_phase("phase_exact_clique", phase_exact_clique, device, card)
+    timed_phase("phase_rotation_variants", phase_rotation_variants, device, card)
     with tempfile.TemporaryDirectory(prefix="psulvsb_scene_") as scene_root:
-        sweeps = phase_sweep(device, card, scene_root)
-        phase_certifier(device, card)
-        frontend = phase_frontend_sweep(device, card)
+        sweeps = timed_phase("phase_sweep", phase_sweep, device, card, scene_root)
+        timed_phase("phase_certifier", phase_certifier, device, card)
+        frontend = timed_phase("phase_frontend_sweep", phase_frontend_sweep, device, card)
         sweeps["frontend"] = {"launches": frontend["launches"]}
-        entry = phase_entry_points(device, card, scene_root)
-    tools = phase_reference_tools(device, card)
+        entry = timed_phase("phase_entry_points", phase_entry_points, device, card, scene_root)
+    tools = timed_phase("phase_reference_tools", phase_reference_tools, device, card)
 
     def row(name, source, replaces, path, staged, err, timed):
         """`launches`: over the fused path's N_TIMED_SOLVES solves, replayed
@@ -2793,7 +3035,13 @@ def main() -> int:
                  ("anchor", 8), kern["pair_axis"]),
         pair_row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",
                  ("unknown", 8), pairs["pair_axis"]),
+        pair_row("pair_beta_count", "pair_beta_count.cu", "psulvsb_tpu/ops/pallas_hist.py:241",
+                 ("wide_beta", 8), pairs["beta_pair_axis"]),
+        pair_row("consistency_degree", "consistency_degree.cu",
+                 "psulvsb_tpu/ops/pallas_pairs.py:53", ("gror", 8), degree["pair_axis"]),
     ]}))
+    print(json.dumps({"phase_s": phase_s, "total_s": round(time.perf_counter() - t_start, 1),
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

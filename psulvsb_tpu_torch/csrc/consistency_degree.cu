@@ -45,6 +45,15 @@
 // reach, took 3.4, 5.8 and 43.0 us at C = 1250, 1889 and 8192; the solve
 // paths' mask is all ones unless the caller filtered correspondences out
 // beforehand.
+//
+// A pair axis, the counterpart of jax.vmap over consistency_degree
+// (pallas_call's batching rule adds a leading grid dimension): P cloud
+// pairs, (P, 3, C) each cloud and (P, C) masks, in one launch whose grid's
+// second dimension is the pair, as in pair_ratio_hist.cu. Each pair has its
+// own clouds, mask and row of degrees, and one zero fill covers all P rows.
+// The blocks of one pair are a P-th of the grid a single pair gets (at
+// least one), so the launch keeps about kBlocksPerSM blocks an SM whatever P
+// is.
 
 #include "pair_sweep.cuh"
 
@@ -65,6 +74,13 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kSize = pair_sweep::Tile<J>::kSize;
   __shared__ pair_sweep::Tile<J> tile;
   __shared__ unsigned int count[2 * kSize];  // by staged slot: rows, then columns
+
+  // This block's pair: its clouds, mask and degrees.
+  const int pair = blockIdx.y;
+  src += 3LL * c * pair;
+  dst += 3LL * c * pair;
+  if (act != nullptr) act += static_cast<long long>(c) * pair;
+  deg += static_cast<long long>(c) * pair;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -113,27 +129,31 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Writes the (c,) int32 degrees into `deg` on `stream`; returns the CUDA
-// error as an int (0 on success). src and dst are (3, c) contiguous float32
-// and act c bytes of 0/1 or null (all active), all device pointers;
-// 1 <= c <= 2^20.
+// Writes the (pairs, c) int32 degrees into `deg` on `stream`; returns the
+// CUDA error as an int (0 on success). src and dst are (pairs, 3, c)
+// contiguous float32 and act (pairs, c) bytes of 0/1 or null (all active),
+// all device pointers; 1 <= c <= 2^20, 1 <= pairs <= 65535.
 extern "C" int consistency_degree_launch(const float* src, const float* dst,
-                                         const unsigned char* act, int c, float tau, int* deg,
-                                         void* stream) {
-  if (c < 1 || c > pair_sweep::kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+                                         const unsigned char* act, int c, int pairs, float tau,
+                                         int* deg, void* stream) {
+  if (c < 1 || c > pair_sweep::kMaxC || pairs < 1 || pairs > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t zeroed = cudaMemsetAsync(deg, 0, sizeof(int) * static_cast<size_t>(c), st);
+  const cudaError_t zeroed =
+      cudaMemsetAsync(deg, 0, sizeof(int) * static_cast<size_t>(c) * pairs, st);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM);
+  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM, pairs);
+  const dim3 grid(p.grid, pairs);
   switch (p.j) {
     case 4:
-      consistency_degree_kernel<4><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
+      consistency_degree_kernel<4><<<grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
       break;
     case 2:
-      consistency_degree_kernel<2><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
+      consistency_degree_kernel<2><<<grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
       break;
     default:
-      consistency_degree_kernel<1><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
+      consistency_degree_kernel<1><<<grid, kThreads, 0, st>>>(src, dst, act, c, tau, p.side, deg);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,6 +49,13 @@
 // kernel slower, 74.8 -> 81.2 us at C = 12000 and 134.0 -> 180.5 us at
 // C = 16384 with 80% of the points active (on the active points alone
 // 55.0 and 99.5 us; tools/kernel_phases.py, H100 at 700 W).
+//
+// A pair axis, the counterpart of jax.vmap over pair_beta_count
+// (pallas_call's batching rule adds a leading grid dimension): P cloud
+// pairs, (P, 3, C) each cloud and (P, C) masks, in one launch whose grid's
+// second dimension is the pair, as in pair_ratio_hist.cu. Each pair has its
+// own clouds, mask and count, P counts the caller zeroed once; the blocks of
+// one pair are a P-th of the grid a single pair gets (at least one).
 
 #include "pair_sweep.cuh"
 
@@ -81,6 +88,13 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kSize = pair_sweep::Tile<J>::kSize;
   __shared__ pair_sweep::Tile<J> tile;
   __shared__ unsigned int warp_sums[kWarps];
+
+  // This block's pair: its clouds, mask and count.
+  const int pair = blockIdx.y;
+  src += 3LL * c * pair;
+  dst += 3LL * c * pair;
+  if (act != nullptr) act += static_cast<long long>(c) * pair;
+  count += pair;
 
   const int tid = threadIdx.x;
   unsigned int n = 0u;
@@ -135,26 +149,31 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Adds the number of active pairs i < j with | |s_j - s_i| - |d_j - d_i| |
-// <= beta to `count` (one 64-bit integer the caller zeroed) on `stream`;
-// returns cudaGetLastError() as an int (0 on success). src and dst are
-// (3, c) contiguous float32 and act c bytes of 0/1 or null (all active),
-// all device pointers; 0 <= c <= 2^20.
+// Adds, for each of `pairs` cloud pairs, the number of its active pairs
+// i < j with | |s_j - s_i| - |d_j - d_i| | <= beta to count[pair] (64-bit
+// integers the caller zeroed) on `stream`; returns cudaGetLastError() as an
+// int (0 on success). src and dst are (pairs, 3, c) contiguous float32 and
+// act (pairs, c) bytes of 0/1 or null (all active), all device pointers;
+// 0 <= c <= 2^20, 1 <= pairs <= 65535.
 extern "C" int pair_beta_count_launch(const float* src, const float* dst, const unsigned char* act,
-                                      int c, float beta, unsigned long long* count, void* stream) {
-  if (c < 0 || c > pair_sweep::kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+                                      int c, int pairs, float beta, unsigned long long* count,
+                                      void* stream) {
+  if (c < 0 || c > pair_sweep::kMaxC || pairs < 1 || pairs > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (c < 2) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM);
+  const pair_sweep::Plan p = pair_sweep::plan(c, kBlocksPerSM, pairs);
+  const dim3 grid(p.grid, pairs);
   switch (p.j) {
     case 4:
-      pair_beta_count_kernel<4><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, beta, p.side, count);
+      pair_beta_count_kernel<4><<<grid, kThreads, 0, st>>>(src, dst, act, c, beta, p.side, count);
       break;
     case 2:
-      pair_beta_count_kernel<2><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, beta, p.side, count);
+      pair_beta_count_kernel<2><<<grid, kThreads, 0, st>>>(src, dst, act, c, beta, p.side, count);
       break;
     default:
-      pair_beta_count_kernel<1><<<p.grid, kThreads, 0, st>>>(src, dst, act, c, beta, p.side, count);
+      pair_beta_count_kernel<1><<<grid, kThreads, 0, st>>>(src, dst, act, c, beta, p.side, count);
   }
   return static_cast<int>(cudaGetLastError());
 }

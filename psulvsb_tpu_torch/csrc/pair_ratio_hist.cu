@@ -24,11 +24,13 @@
 // every argmax, so the result is the two passes' bit for bit, with no
 // second launch and no host read.
 //
-// A pair axis, the counterpart of jax.vmap over exact_peak_bin (pallas_call's
-// batching rule adds a leading grid dimension): P cloud pairs, (P, 3, C)
-// each cloud, in one launch whose grid's second dimension is the pair. Each
-// pair has its own counts, block counter and peak, P rows of one buffer the
-// caller zeroed once, and its own last block derives its peak. The blocks of
+// A pair axis, the counterpart of jax.vmap over pair_ratio_histogram and
+// exact_peak_bin (pallas_call's batching rule adds a leading grid
+// dimension): P cloud pairs, (P, 3, C) each cloud, in one launch whose
+// grid's second dimension is the pair. Each pair has its own counts, block
+// counter and peak, P rows of one buffer the caller zeroed once, and its own
+// last block derives its peak; a window's lo is one for all the pairs or
+// one a pair (a vmapped lo), read by each pair's blocks. The blocks of
 // one pair are a P-th of the grid a single pair gets (at least one), so
 // the launch keeps about four blocks per SM whatever P is.
 //
@@ -158,8 +160,8 @@ template <int J, bool kClamp>
 __global__ void __launch_bounds__(kThreads)
     pair_ratio_hist_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                            const unsigned char* __restrict__ act, int c, float bins_per_unit,
-                           const long long* __restrict__ lo_ptr, long long lo_imm, int stride,
-                           int num_bins, int tiles_per_side, long long row,
+                           const long long* __restrict__ lo_ptr, long long lo_imm, int lo_step,
+                           int stride, int num_bins, int tiles_per_side, long long row,
                            unsigned long long* __restrict__ counts, const Peak all_peaks) {
   constexpr int kSize = pair_sweep::Tile<J>::kSize;
   __shared__ __align__(8) unsigned int hist[kMaxBins];
@@ -176,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x;
   for (int k = tid; k < num_bins; k += kThreads) hist[k] = 0u;
-  long long lo64 = lo_ptr != nullptr ? *lo_ptr : lo_imm;
+  long long lo64 = lo_ptr != nullptr ? lo_ptr[static_cast<long long>(pair) * lo_step] : lo_imm;
   lo64 = lo64 < -(kLoLimit - 1) ? -(kLoLimit - 1) : (lo64 > kLoLimit + 1 ? kLoLimit + 1 : lo64);
   const int lo = static_cast<int>(lo64);  // fine - lo stays inside int32
   __syncthreads();
@@ -234,16 +236,16 @@ __global__ void __launch_bounds__(kThreads)
 template <int J>
 void launch(bool clamp, dim3 grid, cudaStream_t st, const float* src, const float* dst,
             const unsigned char* act, int c, float bins_per_unit, const long long* lo_ptr,
-            long long lo_imm, int stride, int num_bins, int tiles_per_side, long long row,
-            unsigned long long* counts, const Peak& peak) {
+            long long lo_imm, int lo_step, int stride, int num_bins, int tiles_per_side,
+            long long row, unsigned long long* counts, const Peak& peak) {
   if (clamp) {
     pair_ratio_hist_kernel<J, true><<<grid, kThreads, 0, st>>>(
-        src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride, num_bins, tiles_per_side,
-        row, counts, peak);
+        src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, lo_step, stride, num_bins,
+        tiles_per_side, row, counts, peak);
   } else {
     pair_ratio_hist_kernel<J, false><<<grid, kThreads, 0, st>>>(
-        src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride, num_bins, tiles_per_side,
-        row, counts, peak);
+        src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, lo_step, stride, num_bins,
+        tiles_per_side, row, counts, peak);
   }
 }
 
@@ -254,15 +256,16 @@ void launch(bool clamp, dim3 grid, cudaStream_t st, const float* src, const floa
 // apart, that the caller zeroed) on `stream`; returns cudaGetLastError() as
 // an int (0 on success). src and dst are (pairs, 3, c) contiguous float32,
 // act (pairs, c) bytes of 0/1 or null (all active); the window starts at
-// *lo_ptr (int64 on the device) or, when lo_ptr is null, at lo_imm, with
-// stride >= 1, for every pair. With done non-null (a zeroed uint32 on the
-// device in each row's slot), the window must be exact_peak_bin's full pass
-// (lo 0, stride 1, clamped, num_bins = (coarse_bins + 1) coarse_stride + 1),
-// and each pair's last block writes its peak fine bin to peak_out[pair], its
-// count to count_out[pair] and its certificate to certified[pair].
+// lo_ptr[pair * lo_step] (int64 on the device: lo_step 0 shares one lo, 1
+// reads a lo a pair) or, when lo_ptr is null, at lo_imm, with stride >= 1.
+// With done non-null (a zeroed uint32 on the device in each row's slot), the
+// window must be exact_peak_bin's full pass (lo 0, stride 1, clamped,
+// num_bins = (coarse_bins + 1) coarse_stride + 1), and each pair's last block
+// writes its peak fine bin to peak_out[pair], its count to count_out[pair]
+// and its certificate to certified[pair].
 extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const unsigned char* act,
                                       int c, float bins_per_unit, const long long* lo_ptr,
-                                      long long lo_imm, int stride, int num_bins,
+                                      long long lo_imm, int lo_step, int stride, int num_bins,
                                       int clamp_overflow, int pairs, long long row,
                                       unsigned long long* counts, unsigned int* done,
                                       int coarse_bins, int coarse_stride, long long* peak_out,
@@ -285,16 +288,16 @@ extern "C" int pair_ratio_hist_launch(const float* src, const float* dst, const 
   const bool clamp = clamp_overflow != 0;
   switch (j) {
     case 4:
-      launch<4>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
-                num_bins, side, row, counts, peak);
+      launch<4>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, lo_step,
+                stride, num_bins, side, row, counts, peak);
       break;
     case 2:
-      launch<2>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
-                num_bins, side, row, counts, peak);
+      launch<2>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, lo_step,
+                stride, num_bins, side, row, counts, peak);
       break;
     default:
-      launch<1>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, stride,
-                num_bins, side, row, counts, peak);
+      launch<1>(clamp, grid, st, src, dst, act, c, bins_per_unit, lo_ptr, lo_imm, lo_step,
+                stride, num_bins, side, row, counts, peak);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,12 +11,13 @@ differences (s_j - s_i), the squares summed x, y, z; the kernels compute
 them bit for bit as the plain versions do, so counts are equal, and exact
 64-bit integers (the Pallas kernels accumulate in float32).
 
-`exact_peak_bin` also takes a pair axis, (P, 3, C) clouds and a (P, C)
-mask, for P pairs at once: one launch, one zero fill and a (peak, count,
-certified) for each pair. It is a PyTorch custom operator with a vmap rule
-that moves the vmapped axis into that pair axis, so `torch.func.vmap` over
-a solve (solver/fused.py's batched plan) makes one launch for all its
-pairs, as `jax.vmap` over the JAX package's front door does.
+Each front door also takes a pair axis, (P, 3, C) clouds and a (P, C)
+mask, for P pairs at once: one launch, one zero fill and each pair's result
+(its window's counts, its count, or its (peak, count, certified)). Each is
+a PyTorch custom operator with a vmap rule that moves the vmapped axis into
+that pair axis, so `torch.func.vmap` over a solve (solver/fused.py's
+batched plan) makes one launch for all its pairs, as `jax.vmap` over the
+JAX package's front doors does.
 
 Which version runs is decided by where the tensors lie: CPU tensors take
 the plain versions; CUDA tensors launch the kernels or raise. Each launch
@@ -37,16 +38,17 @@ KERNEL_LAUNCHES = {"pair_ratio_hist": 0, "pair_beta_count": 0}
 _FINE_CAP = float(1 << 30)  # fine bins past 2^30 fall outside every window
 _ROW_CHUNK = 1024  # rows per step of the plain versions' sweep
 # pair_ratio_hist_launch: src, dst, mask (null: all active), C,
-# bins_per_unit, lo pointer (null: lo_imm), lo_imm, stride, num_bins, clamp,
-# pairs, the words between two pairs' counts, counts, block counter, coarse
-# bins, coarse stride, peak out, count out, certified out, stream.
+# bins_per_unit, lo pointer (null: lo_imm), lo_imm, lo step (0: one lo for
+# every pair, 1: a lo a pair), stride, num_bins, clamp, pairs, the words
+# between two pairs' counts, counts, block counter, coarse bins, coarse
+# stride, peak out, count out, certified out, stream.
 _HIST_ARGTYPES = (
-    [c_void_p] * 3 + [c_int, c_float, c_void_p, c_longlong] + [c_int] * 4 + [c_longlong]
+    [c_void_p] * 3 + [c_int, c_float, c_void_p, c_longlong] + [c_int] * 5 + [c_longlong]
     + [c_void_p] * 2 + [c_int] * 2 + [c_void_p] * 4
 )
-# pair_beta_count_launch: src, dst, mask (null: all active), C, beta, count,
-# stream.
-_BETA_ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
+# pair_beta_count_launch: src, dst, mask (null: all active), C, pairs, beta,
+# counts, stream.
+_BETA_ARGTYPES = [c_void_p] * 3 + [c_int, c_int, c_float, c_void_p, c_void_p]
 
 
 def _check_clouds(src: torch.Tensor, dst: torch.Tensor, pairs: bool = False) -> None:
@@ -130,10 +132,11 @@ def pair_ratio_histogram_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of `pair_ratio_histogram`; (P, 3, C) clouds and
     a (P, C) mask give (P, num_bins) counts, a pair's row what its call
-    alone gives."""
+    alone gives (`lo_bin` one for all, or a (P,) tensor, a lo a pair)."""
     active = _check(src, dst, active, pairs=src.dim() == 3)
     _check_window(num_bins, stride)
     lo = torch.as_tensor(lo_bin, device=src.device).to(torch.int64)
+    lo = lo.reshape(lo.shape + (1, 1))  # against (..., rows, cols)
     lead = src.shape[:-2]
     counts = torch.zeros(lead + (num_bins + 1,), dtype=torch.int64, device=src.device)
     for v1, v2, valid in _pair_sweep(src, dst, active):
@@ -151,12 +154,13 @@ def pair_beta_count_reference(
     beta: float,
     active: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `pair_beta_count`."""
-    active = _check(src, dst, active)
+    """Plain PyTorch version of `pair_beta_count`; (P, 3, C) clouds give (P,)
+    counts."""
+    active = _check(src, dst, active, pairs=src.dim() == 3)
     beta32 = torch.full((), beta, dtype=torch.float32, device=src.device)
-    total = torch.zeros((), dtype=torch.int64, device=src.device)
+    total = torch.zeros(src.shape[:-2], dtype=torch.int64, device=src.device)
     for v1, v2, valid in _pair_sweep(src, dst, active):
-        total = total + ((torch.abs(v1 - v2) <= beta32) & valid).sum()
+        total = total + ((torch.abs(v1 - v2) <= beta32) & valid).sum((-2, -1))
     return total
 
 
@@ -175,6 +179,14 @@ def _cuda_inputs(src, dst, active, pairs: bool = False):
     return src.to(f32).contiguous(), dst.to(f32).contiguous(), a
 
 
+def _check_lo(lo: torch.Tensor, pairs: int) -> None:
+    """A window's lo on the device is one for all pairs (0-d) or one a pair
+    ((pairs,)); any other shape raises, on the CPU as on a card."""
+    if lo.dim() != 0 and tuple(lo.shape) != (pairs,):
+        raise ValueError(f"lo_bin is a 0-d tensor or one a pair, ({pairs},), "
+                         f"got shape {tuple(lo.shape)}")
+
+
 def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow,
                  counts, peak=None, pairs=1, row=0):
     """One launch of csrc/pair_ratio_hist.cu adding into `counts`; `peak`:
@@ -182,12 +194,14 @@ def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clam
     counter, coarse bins, coarse stride, peak out, count out, certified
     out), or None. With `pairs` > 1 the clouds are (pairs, 3, C), the mask
     (pairs, C), and each pair's counts and counter lie `row` words after the
-    previous pair's."""
+    previous pair's; a (pairs,) `lo_bin` tensor gives each pair its lo."""
     dev = src.device
     s, d, a = _cuda_inputs(src, dst, active, src.dim() == 3)
+    lo_step = 0
     if isinstance(lo_bin, torch.Tensor):
-        lo = lo_bin.to(device=dev, dtype=torch.int64)
-        lo_ptr, lo_imm = lo.data_ptr(), 0
+        _check_lo(lo_bin, pairs)
+        lo = lo_bin.to(device=dev, dtype=torch.int64).contiguous()
+        lo_ptr, lo_imm, lo_step = lo.data_ptr(), 0, int(lo.dim() == 1)
     else:
         lo_ptr, lo_imm = None, int(lo_bin)
     done, coarse_bins, coarse_stride, out, count, cert = peak or (None, 0, 0, None, None, None)
@@ -195,7 +209,8 @@ def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clam
     with torch.cuda.device(dev):
         err = fn(
             s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1],
-            float(bins_per_unit), lo_ptr, lo_imm, stride, num_bins, int(bool(clamp_overflow)),
+            float(bins_per_unit), lo_ptr, lo_imm, lo_step, stride, num_bins,
+            int(bool(clamp_overflow)),
             pairs, row, counts.data_ptr(), done, coarse_bins, coarse_stride, out, count, cert,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -221,15 +236,61 @@ def pair_ratio_histogram(
     (coarse pass); False drops them (fine pass). `lo_bin` may be a 0-d
     tensor on the device, read there without a host sync. Returns counts
     (num_bins,) int64. CPU tensors run the plain version; CUDA tensors the
-    kernel (no fallback)."""
+    kernel (no fallback).
+
+    A pair axis: (P, 3, C) clouds and an optional (P, C) mask give
+    (P, num_bins) counts from one launch, with one lo for all or a (P,)
+    `lo_bin`, a lo a pair (`torch.func.vmap` over the (3, C) form comes
+    here too, through the operator's vmap rule)."""
+    _check_window(num_bins, stride)
+    src, dst, active, single = _as_pairs(src, dst, active)
+    lo = lo_bin if isinstance(lo_bin, torch.Tensor) else None
+    counts = torch.ops.psulvsb_tpu_torch.pair_ratio_histogram(
+        src, dst, active, float(bins_per_unit), int(num_bins), lo,
+        0 if lo is not None else int(lo_bin), int(stride), bool(clamp_overflow))
+    return counts[0] if single else counts
+
+
+@torch.library.custom_op("psulvsb_tpu_torch::pair_ratio_histogram", mutates_args=())
+def _pair_ratio_histogram_pairs(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None, bins_per_unit: float,
+    num_bins: int, lo: torch.Tensor | None, lo_imm: int, stride: int, clamp_overflow: bool,
+) -> torch.Tensor:
+    """`pair_ratio_histogram` over (P, 3, C) clouds, the window from `lo`
+    (() or (P,), on the device) or else `lo_imm`: the plain version on the
+    CPU, one launch of the kernel for the P pairs on a card."""
+    lo_bin = lo_imm if lo is None else lo
+    if lo is not None:
+        _check_lo(lo, src.shape[0])
     if not src.is_cuda:
         return pair_ratio_histogram_reference(
             src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow
         )
-    _check_window(num_bins, stride)
-    counts = torch.zeros(num_bins, dtype=torch.int64, device=src.device)
-    _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow, counts)
+    p = src.shape[0]
+    counts = torch.zeros((p, num_bins), dtype=torch.int64, device=src.device)
+    _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clamp_overflow,
+                 counts, pairs=p, row=num_bins)
     return counts
+
+
+@_pair_ratio_histogram_pairs.register_vmap
+def _pair_ratio_histogram_vmap(info, in_dims, src, dst, active, bins_per_unit, num_bins, lo,
+                               lo_imm, stride, clamp_overflow):
+    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
+    the pair axis, and one launch serves every pair; a vmapped lo becomes a
+    lo a pair, which the kernel reads per pair."""
+    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
+    if lo is not None:
+        if in_dims[5] is None:
+            if lo.dim() == 1:  # a lo a pair, the same for every vmapped call
+                lo = _join_pairs(lo, None, n)
+        elif lo.dim() == 1:  # a lo for each vmapped call, shared by its pairs
+            lo = lo[:, None].expand(n, src.shape[0] // n).flatten()
+        else:
+            lo = _join_pairs(lo, in_dims[5], n)
+    counts = _pair_ratio_histogram_pairs(src, dst, active, bins_per_unit, num_bins, lo, lo_imm,
+                                         stride, clamp_overflow)
+    return counts.unflatten(0, (n, -1)), 0
 
 
 def pair_beta_count(
@@ -242,23 +303,47 @@ def pair_beta_count(
     | |s_j - s_i| - |d_j - d_i| | <= beta (the known-scale reduced-set test,
     registration.cc:753-767), beta rounded to float32. Returns () int64.
     CPU tensors run the plain version; CUDA tensors the kernel (no
-    fallback)."""
+    fallback).
+
+    A pair axis: (P, 3, C) clouds and an optional (P, C) mask give (P,)
+    counts from one launch and one zero fill (`torch.func.vmap` over the
+    (3, C) form comes here too, through the operator's vmap rule)."""
+    src, dst, active, single = _as_pairs(src, dst, active)
+    count = torch.ops.psulvsb_tpu_torch.pair_beta_count(src, dst, active, float(beta))
+    return count[0] if single else count
+
+
+@torch.library.custom_op("psulvsb_tpu_torch::pair_beta_count", mutates_args=())
+def _pair_beta_count_pairs(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None, beta: float,
+) -> torch.Tensor:
+    """`pair_beta_count` over (P, 3, C) clouds: the plain version on the CPU,
+    one launch of the kernel for the P pairs on a card."""
     if not src.is_cuda:
         return pair_beta_count_reference(src, dst, beta, active)
     dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    s, d, a = _cuda_inputs(src, dst, active, pairs=True)
+    p = s.shape[0]
+    counts = torch.zeros(p, dtype=torch.int64, device=dev)
     fn = launcher("pair_beta_count", _BETA_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[1],
-            float(beta), count.data_ptr(), stream,
+            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1], p,
+            float(beta), counts.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"pair_beta_count kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES["pair_beta_count"] += 1
-    return count[0]
+    return counts
+
+
+@_pair_beta_count_pairs.register_vmap
+def _pair_beta_count_vmap(info, in_dims, src, dst, active, beta):
+    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
+    the pair axis, and one launch serves every pair."""
+    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
+    return _pair_beta_count_pairs(src, dst, active, beta).unflatten(0, (n, -1)), 0
 
 
 def _check_peak_window(num_bins: int, stride: int) -> int:
@@ -337,14 +422,7 @@ def exact_peak_bin(
     (`torch.func.vmap` over the (3, C) form comes here too, through the
     operator's vmap rule)."""
     _check_peak_window(num_bins, stride)
-    single = src.dim() == 2
-    if active is None:
-        _check_clouds(src, dst, pairs=not single)
-    else:
-        _check(src, dst, active, pairs=not single)
-    if single:
-        src, dst = src[None], dst[None]
-        active = None if active is None else active[None]
+    src, dst, active, single = _as_pairs(src, dst, active)
     peak, count, certified = torch.ops.psulvsb_tpu_torch.exact_peak_bin(
         src, dst, active, int(bins_per_unit), int(num_bins), int(stride))
     if single:
@@ -386,11 +464,34 @@ def _exact_peak_bin_pairs(
 def _exact_peak_bin_vmap(info, in_dims, src, dst, active, bins_per_unit, num_bins, stride):
     """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
     the pair axis, and one call serves every pair."""
+    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
+    out = _exact_peak_bin_pairs(src, dst, active, bins_per_unit, num_bins, stride)
+    return tuple(t.unflatten(0, (n, -1)) for t in out), (0, 0, 0)
+
+
+def _as_pairs(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None):
+    """Validated (3, C) or (P, 3, C) clouds and an optional mask as the
+    pair-axis form the operators take: (src, dst, active, single), single
+    when a (3, C) pair became a pair axis of one."""
+    single = src.dim() == 2
+    if active is None:
+        _check_clouds(src, dst, pairs=not single)
+    else:
+        _check(src, dst, active, pairs=not single)
+    if single:
+        src, dst = src[None], dst[None]
+        active = None if active is None else active[None]
+    return src, dst, active, single
+
+
+def _join_clouds(info, in_dims, src, dst, active):
+    """A pair-axis operator's first three vmapped arguments (clouds and an
+    optional mask) with the vmapped axis joined to the pair axis: (n, src,
+    dst, active), n the vmapped size."""
     n = info.batch_size
     src, dst = (_join_pairs(t, d, n) for t, d in zip((src, dst), in_dims))
     active = None if active is None else _join_pairs(active, in_dims[2], n)
-    out = _exact_peak_bin_pairs(src, dst, active, bins_per_unit, num_bins, stride)
-    return tuple(t.unflatten(0, (n, -1)) for t in out), (0, 0, 0)
+    return n, src, dst, active
 
 
 def _join_pairs(t: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:

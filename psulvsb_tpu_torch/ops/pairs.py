@@ -9,6 +9,13 @@ differences, the squares summed x, y, z; the kernel computes them bit for
 bit as the plain version does, so the degrees are equal (the Pallas kernel
 takes |a|^2 + |b|^2 - 2ab, which can move a pair at the window's edge).
 
+A pair axis, as `ops.hist.exact_peak_bin` has one: (P, 3, C) clouds and a
+(P, C) mask give (P, C) degrees, each pair's what its call alone gives, from
+one launch. The front door calls a PyTorch custom operator whose vmap rule
+moves the vmapped axis into that pair axis, so `torch.func.vmap` over GROR
+(solver/fused.py's batched plan) makes one launch for all its pairs, as
+`jax.vmap` over the JAX package's front door does.
+
 Which version runs is decided by where the tensors lie: CPU tensors take
 the plain version; CUDA tensors launch the kernel or raise. Each launch
 adds one to `KERNEL_LAUNCHES`.
@@ -21,17 +28,17 @@ from ctypes import c_float, c_int, c_void_p
 import torch
 
 from psulvsb_tpu_torch.ops._build import launcher
-from psulvsb_tpu_torch.ops.hist import _check, _cuda_inputs
+from psulvsb_tpu_torch.ops.hist import _as_pairs, _check, _cuda_inputs, _join_clouds
 
 KERNEL_LAUNCHES = 0
-# consistency_degree_launch: src, dst, mask (null: all active), C, tau,
-# degrees, stream.
-_ARGTYPES = [c_void_p] * 3 + [c_int, c_float, c_void_p, c_void_p]
+# consistency_degree_launch: src, dst, mask (null: all active), C, pairs,
+# tau, degrees, stream.
+_ARGTYPES = [c_void_p] * 3 + [c_int, c_int, c_float, c_void_p, c_void_p]
 _ROW_CHUNK = 512  # rows per step of the plain version's sweep
 
 
 def _check_nonempty(src: torch.Tensor) -> None:
-    if src.dim() == 2 and src.shape[1] == 0:
+    if src.dim() in (2, 3) and src.shape[-1] == 0:
         raise ValueError("consistency_degree needs C >= 1 correspondences, got C = 0")
 
 
@@ -41,26 +48,27 @@ def consistency_degree_reference(
     tau: float,
     active: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `consistency_degree`."""
+    """Plain PyTorch version of `consistency_degree`, (3, C) or (P, 3, C)."""
     _check_nonempty(src)
-    active = _check(src, dst, active)
-    c = src.shape[1]
+    active = _check(src, dst, active, pairs=src.dim() == 3)
+    c = src.shape[-1]
     s = src.to(torch.float32)
     d = dst.to(torch.float32)
     tau32 = torch.full((), tau, dtype=torch.float32, device=src.device)
     cols = torch.arange(c, device=src.device)
 
     def dist(p, r0, r1):
-        e = p[:, r0:r1, None] - p[:, None, :]  # (3, rows, C): p_i - p_j
-        return torch.sqrt((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2])
+        e = p[..., r0:r1, None] - p[..., None, :]  # (..., 3, rows, C): p_i - p_j
+        x, y, z = e.unbind(-3)
+        return torch.sqrt((x * x + y * y) + z * z)
 
     out = []
     for r0 in range(0, c, _ROW_CHUNK):
         r1 = min(r0 + _ROW_CHUNK, c)
         ok = torch.abs(dist(s, r0, r1) - dist(d, r0, r1)) < tau32
-        ok = ok & active[None, :] & (cols[r0:r1, None] != cols[None, :])
-        out.append(torch.where(active[r0:r1], ok.sum(1), 0))
-    return torch.cat(out).to(torch.int32)
+        ok = ok & active[..., None, :] & (cols[r0:r1, None] != cols[None, :])
+        out.append(torch.where(active[..., r0:r1], ok.sum(-1), 0))
+    return torch.cat(out, dim=-1).to(torch.int32)
 
 
 def consistency_degree(
@@ -73,23 +81,46 @@ def consistency_degree(
     (strict), tau rounded to float32; inactive rows give 0. src/dst (3, C),
     1 <= C <= 2^20. Returns (C,) int32. CPU tensors run the plain version;
     CUDA tensors the kernel (no fallback): one allocation and one call,
-    which zeroes the degrees on the stream and launches the kernel."""
+    which zeroes the degrees on the stream and launches the kernel.
+
+    A pair axis: (P, 3, C) clouds and an optional (P, C) mask give (P, C)
+    degrees from one launch (`torch.func.vmap` over the (3, C) form comes
+    here too, through the operator's vmap rule)."""
+    _check_nonempty(src)
+    src, dst, active, single = _as_pairs(src, dst, active)
+    deg = torch.ops.psulvsb_tpu_torch.consistency_degree(src, dst, active, float(tau))
+    return deg[0] if single else deg
+
+
+@torch.library.custom_op("psulvsb_tpu_torch::consistency_degree", mutates_args=())
+def _consistency_degree_pairs(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None, tau: float,
+) -> torch.Tensor:
+    """`consistency_degree` over (P, 3, C) clouds: the plain version on the
+    CPU, one launch of the kernel for the P pairs on a card."""
     global KERNEL_LAUNCHES
     if not src.is_cuda:
         return consistency_degree_reference(src, dst, tau, active)
-    _check_nonempty(src)
     dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active)
-    c = s.shape[1]
-    deg = torch.empty(c, dtype=torch.int32, device=dev)
+    s, d, a = _cuda_inputs(src, dst, active, pairs=True)
+    p, _, c = s.shape
+    deg = torch.empty((p, c), dtype=torch.int32, device=dev)
     fn = launcher("consistency_degree", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), c, float(tau),
+            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), c, p, float(tau),
             deg.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"consistency_degree kernel launch failed with CUDA error {err}")
     KERNEL_LAUNCHES += 1
     return deg
+
+
+@_consistency_degree_pairs.register_vmap
+def _consistency_degree_vmap(info, in_dims, src, dst, active, tau):
+    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
+    the pair axis, and one launch serves every pair."""
+    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
+    return _consistency_degree_pairs(src, dst, active, tau).unflatten(0, (n, -1)), 0

@@ -10,12 +10,12 @@ and no pair talks to another, so the scaling axis is the pair batch:
   package): for each pair its inputs and draws are staged, the plan's graph
   launched once and the solution copied into the batch's row, with no host
   synchronization from the first pair to the return. `vectorized=True` is
-  the counterpart of its `vmap`: the pairs in chunks of P, each chunk one
-  batched program (a plan with a pair axis, `ReplayPlan(pairs=P)`: one
-  graph launch a chunk, its kernels one launch for the P pairs), for the
-  settings `solver.fused.pair_batch_route` sends there; the others keep the
-  in-flight form, PAIRS_IN_FLIGHT single-pair plan instances, each with a
-  CUDA stream of its own, the pairs dealt to them in turn;
+  the counterpart of its `vmap`, for every setting: the pairs in chunks of
+  P, each chunk one batched program (a plan with a pair axis,
+  `ReplayPlan(pairs=P)`: one graph launch a chunk, its kernels one launch
+  for the P pairs). `_register_in_flight` keeps a third form to compare
+  with: PAIRS_IN_FLIGHT single-pair plan instances, each with a CUDA stream
+  of its own, the pairs dealt to them in turn;
 - `register_batch_sharded`, several devices: the batch split evenly over
   them, and the totals summed as the JAX package's `psum` sums them.
 """
@@ -26,9 +26,8 @@ import torch
 
 from psulvsb_tpu_torch.solver.config import SolverParams
 from psulvsb_tpu_torch.solver.fused import (
-    PLAN_BYTES_PER_C2,
     as_generator,
-    pair_batch_route,
+    plan_bytes,
     plan_for,
     resolve_device,
     stage_inputs,
@@ -39,21 +38,20 @@ from psulvsb_tpu_torch.utils.precision import pin_float32
 PAIRS_IN_FLIGHT = 4  # plan instances (and streams) of the concurrent form
 MAX_CHUNK = 32  # most pairs of one batched program
 # The share of the card's memory one batched plan may take, by the estimate
-# solver.fused.PLAN_BYTES_PER_C2 (plan_for drops cached plans to make room
-# for it).
+# solver.fused.plan_bytes (plan_for drops cached plans to make room for it).
 PLAN_MEMORY_SHARE = 0.5
 
 
-def pairs_per_chunk(c: int, b: int, device: torch.device) -> int:
+def pairs_per_chunk(c: int, b: int, device: torch.device, params: SolverParams) -> int:
     """P of the batched form: on a card the largest power of two up to
-    min(B, MAX_CHUNK) whose plan, PLAN_BYTES_PER_C2 C^2 bytes a pair, stays
-    within PLAN_MEMORY_SHARE of the card's memory (at least 1); on the CPU
-    the whole batch."""
+    min(B, MAX_CHUNK) whose plan, by `plan_bytes` of its route, stays within
+    PLAN_MEMORY_SHARE of the card's memory (at least 1); on the CPU the
+    whole batch."""
     if device.type != "cuda":
         return b
     budget = PLAN_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
     p = 1
-    while 2 * p <= min(b, MAX_CHUNK) and 2 * p * PLAN_BYTES_PER_C2 * c * c <= budget:
+    while 2 * p <= min(b, MAX_CHUNK) and plan_bytes(params, c, 2 * p) <= budget:
         p *= 2
     return p
 
@@ -102,32 +100,31 @@ def register_batch(
     The inputs are staged on the device once for the batch and the results
     written into the batch's tensors there: on a card the host waits for
     nothing before it returns (a plan's first solve captures its graph,
-    which synchronizes). vectorized: where `pair_batch_route(params, C)` is
-    "batched", chunks of `pairs_per_chunk` pairs, each one launch of a
-    batched plan (a last, short chunk filled up with padding-only pairs,
-    which come back invalid and are dropped); otherwise the pairs dealt to
-    up to PAIRS_IN_FLIGHT plan instances, each on its own stream. On the CPU
-    the chunk is the whole batch, and the in-flight form runs in turn."""
+    which synchronizes). vectorized: chunks of `pairs_per_chunk` pairs, each
+    one launch of a batched plan (a last, short chunk filled up with
+    padding-only pairs, which come back invalid and are dropped), for every
+    setting, as JAX's vmap takes any; a plan of the exact clique callback
+    runs its batched solve eagerly, as its single-pair plan does. On the CPU
+    the chunk is the whole batch."""
     if vectorized not in (False, True):
         raise ValueError(f"vectorized is a bool, got {vectorized!r}")
-    form = "route" if vectorized else "in_order"
+    form = "batched" if vectorized else "in_order"
     return _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, form,
                      device, graphs)
 
 
 def _register_in_flight(src_batch, dst_batch, keep_batch, seeds_or_generators,
                         params: SolverParams, device="cuda", graphs: bool = True):
-    """`register_batch`'s in-flight form for any setting, the batched
-    form's settings too: what `vectorized=True` ran before the batched form,
-    kept to compare the two."""
+    """The pair batch in a third form, kept to compare the two others with:
+    up to PAIRS_IN_FLIGHT single-pair plan instances, each on its own
+    stream, the pairs dealt to them in turn (on the CPU in turn)."""
     return _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params,
                      "in_flight", device, graphs)
 
 
 def _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, form, device,
               graphs):
-    """The pair batch in `form`: "in_order", "in_flight", "batched", or
-    "route" (what `pair_batch_route` says)."""
+    """The pair batch in `form`: "in_order", "in_flight" or "batched"."""
     device = resolve_device(device)
     pin_float32()
     params.check_port_supported()
@@ -140,10 +137,8 @@ def _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, for
         raise ValueError(f"{b} pairs need {b} seeds or generators, got {len(seeds)}")
     gens = [as_generator(s, device) for s in seeds]
     out = _empty_solution(b, device)
-    if form == "route":
-        form = pair_batch_route(params, c)
     if form == "batched":
-        p = pairs_per_chunk(c, b, device)
+        p = pairs_per_chunk(c, b, device, params)
         plan = plan_for(params, c, device, graphs, pairs=p)
         for start in range(0, b, p):
             n = min(p, b - start)

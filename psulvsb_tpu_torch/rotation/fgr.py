@@ -107,14 +107,20 @@ LOOP_CHUNK = 4  # masked iterations a loop body runs
 
 def masked_loop(iteration, state: tuple, count: int, repeat, chunk: int = LOOP_CHUNK) -> tuple:
     """Up to `count` runs of `iteration(state, in_range) -> state` whose
-    last entry is the (B,) done mask, in chunks of `chunk` inside
-    `repeat(flag, body)` while a problem is not done. `in_range`, a 0-d bool
-    on the device, is false for the runs of the last chunk past `count`,
-    which must then change nothing. Returns the final state, in buffers
-    that the loop's body updates in place."""
-    state = tuple(t.clone() for t in state)
+    last entry is the (B,) done mask: the first run, then chunks of `chunk`
+    inside `repeat(flag, body)` while a problem is not done. `in_range`, a
+    0-d bool on the device, is false for the runs past `count`, which must
+    then change nothing. Returns the final state, in buffers that the loop's
+    body updates in place. The buffers are copies of the first run's
+    values, each selected on a false test of that run's done mask: under
+    `torch.func.vmap` (solver/fused.py's batched plan) every buffer then
+    carries the vmapped axis that the body's values carry, as an update in
+    place needs."""
     dev = state[-1].device
-    run = torch.zeros((), dtype=torch.int64, device=dev)
+    state = iteration(state, torch.full((), count > 0, dtype=torch.bool, device=dev))
+    off = torch.zeros_like(state[-1]).any()
+    state = tuple(torch.where(off, t, t) for t in state)
+    run = torch.ones((), dtype=torch.int64, device=dev)
 
     def body():
         new = state

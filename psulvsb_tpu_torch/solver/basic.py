@@ -80,9 +80,10 @@ def rotation_batch(
 
     `sync_free`: nothing is read on the host (inside a CUDA graph); the plain
     loops then run every iteration masked and take the Jacobi form of the
-    eigenvector, since torch.linalg.eigh cannot be captured into a CUDA graph;
-    with `repeat` too, those masked iterations run in a loop on the device
-    while a problem is left (`rotation.fgr.masked_loop`).
+    eigenvector, since torch.linalg.eigh cannot be captured into a CUDA graph.
+    `repeat`: the masked iterations run in a loop while a problem is left,
+    decided by `repeat` (`rotation.fgr.masked_loop`: on the device in a
+    graph, on the host in the batched plan's plain version).
 
     Returns (rotations (B, 3, 3), inliers (B, N) bool)."""
     global PLAIN_ROUTE_CALLS
@@ -91,8 +92,8 @@ def rotation_batch(
         gnc_factor=params.inner_rotation_gnc_factor,
         cost_threshold=params.inner_rotation_cost_threshold,
     )
-    plain = dict(rot_method="jacobi" if sync_free else "eigh", early_exit=not sync_free,
-                 repeat=repeat if sync_free else None)
+    plain = dict(rot_method="jacobi" if sync_free else "eigh",
+                 early_exit=not sync_free and repeat is None, repeat=repeat)
     if params.rotation_estimation_algorithm != RotationEstimationAlgorithm.GNC_TLS:
         rots, l_pq, _, _ = fgr_batched(
             src_tims_b, dst_tims_b, active_b, noise_bound_b, **loop, **plain

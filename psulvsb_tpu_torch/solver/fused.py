@@ -56,9 +56,9 @@ As in the JAX module, no clock is read: the reference's wall-clock budget
 `fused_scan_rounds(params)` host rounds.
 
 A plan with `pairs=P` is `jax.vmap` of the solve over P pairs
-(parallel/pairs.py's `vectorized=True`): one program whose every per-pair
-buffer has a leading P, and each stage runs once for all P through
-`torch.func.vmap` (the GNC and histogram kernels take that axis through
+(parallel/pairs.py's `vectorized=True`), for every setting: one program
+whose every per-pair buffer has a leading P, and each stage runs once for
+all P through `torch.func.vmap` (the four kernels take that axis through
 their operators' vmap rules: one launch for the P pairs). Every IF and
 WHILE above runs while ANY pair's flag holds, and the pairs whose own flag
 does not hold are frozen: a stage writes only the rows of the pairs inside
@@ -66,7 +66,10 @@ every IF and loop around it (`torch.where` on the pair masks, JAX's select
 under vmap), so each pair gets what its solve alone gives. The two IFs of
 the last rate both run, each on its own pairs; the clique seed runs when
 some pair wants it, its greedy over every pair's graph at once with the
-others' emptied. `pair_batch_route` says which settings take this form.
+others' emptied. A loop inside a vmapped stage (the FGR and "eigh" rotation
+loops) runs while any pair inside the current mask has a problem left
+(`_any_pair_live`), each pair's problems frozen once done; the exact clique
+round's host search runs once for each graph of the pairs inside it.
 """
 
 from __future__ import annotations
@@ -92,7 +95,6 @@ from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.config import (
     RATE_SCHEDULE,
     InlierSelectionMode,
-    RotationEstimationAlgorithm,
     SolverParams,
 )
 from psulvsb_tpu_torch.solver.psulvsb import (
@@ -132,12 +134,18 @@ _ROUND_WORD = ("flag.run", "flag.update", "flag.seed", "flag.refine", "carry.rat
 _STATS = ("stat.rounds", "stat.batches", "carry.seeded", "stat.greedy_steps")
 
 PLAN_CACHE_SIZE = 8  # plans kept, least recently used first out
-# Device bytes a plan of the dense init holds for each C^2 a pair: the (C, C)
-# temporaries of the init and of the clique seed, and the (hypothesis batch,
-# C, C) graphs of the b_rate == 1.0 round. Batched plans measured 87 to 93
-# bytes a C^2 a pair on the card at C = 1889 to 8192 (single-pair plans 55
-# to 121), rounded up.
+# Device bytes a plan holds a pair (`plan_bytes`). Where a (C, C) body exists
+# (the dense or gather-based init, a clique seed, the b_rate == 1.0 clique
+# round), for each C^2: the (C, C) temporaries of the init and of the clique
+# seed, and the (hypothesis batch, C, C) graphs of the clique round; batched
+# plans measured 87 to 93 bytes a C^2 a pair on the card at C = 1889 to 8192
+# (single-pair plans 55 to 121), rounded up.
 PLAN_BYTES_PER_C2 = 128
+# Every plan, for each byte of its draws' buffer: the buffer and the init's
+# temporaries of the same sizes (the fill's pairs, window tests and sort).
+# The batched exact_beta and exact_hist plans at C = 12000 measured 4.61 and
+# 4.62 on the card at P = 8, rounded up.
+PLAN_BYTES_PER_DRAW_BYTE = 5
 _PLANS: "OrderedDict[tuple, ReplayPlan]" = OrderedDict()
 # Buffers a batched plan keeps once for all its pairs; every other buffer has
 # a leading pair axis. "ctl." buffers are the pair masks of the IFs and loops.
@@ -145,27 +153,39 @@ _SHARED = frozenset({"l_rates", "b_rates", "launches", "loop.index"})
 _MAX_DEPTH = 6  # nesting of the solve's IFs and loops, the top level included
 
 
-def pair_batch_route(params: SolverParams, c: int) -> str:
-    """The form of `register_batch(..., vectorized=True)` for C
-    correspondences: "batched", one plan of the solve over a pair axis
-    (`ReplayPlan(pairs=P)`), or "in_flight", single-pair plans on streams of
-    their own. The batched form covers the dense init (`init_route` "dense",
-    with the histogram kernel's peak when the scale is estimated), the GNC
-    "power" rotation, the greedy clique (seeds, lazy or eager, and the
-    b_rate == 1.0 round) and the finalize with the translation rescue; GROR,
-    the other init routes, FGR, gnc_rot_method="eigh" and the exact clique
-    callback keep the in-flight form. Decided from the settings alone,
-    before anything is launched."""
-    exact_clique = (params.resolve_inlier_selection() == InlierSelectionMode.PMC_EXACT
-                    and params.exact_clique_callback)
-    batched = (
-        init_route(params, c) == "dense"
-        and not params.gror_init
-        and params.rotation_estimation_algorithm == RotationEstimationAlgorithm.GNC_TLS
-        and params.gnc_rot_method == "power"
-        and not exact_clique
-    )
-    return "batched" if batched else "in_flight"
+def plan_bytes(params: SolverParams, c: int, pairs: int | None = None) -> int:
+    """Estimated device bytes of the plan of (params, C) with `pairs` pairs
+    (one when None), from what its route holds: the draws' buffer and the
+    init's temporaries beside it, and a (C, C) body where one exists."""
+    layout = DrawLayout(params, c, fused_scan_rounds(params))
+    per_pair = PLAN_BYTES_PER_DRAW_BYTE * 8 * layout.size
+    clique = (params.clique_eager or params.clique_lazy
+              or params.resolve_inlier_selection() != InlierSelectionMode.NONE)
+    if init_route(params, c) in ("dense", "exact") or clique:
+        per_pair += PLAN_BYTES_PER_C2 * c * c
+    return per_pair * (pairs or 1)
+
+
+@torch.library.custom_op("psulvsb_tpu_torch::any_pair_live", mutates_args=())
+def _any_pair_live(flag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Whether any pair holds both its flag and its mask bit, (P,) each: a
+    loop's flag under the batched plan's vmap, where each pair's flag is
+    one value of a vmapped stage (`_pair_repeat`). A 0-d flag is every
+    pair's."""
+    if flag.dim() == 0:
+        return flag & mask.any()
+    return (flag.reshape(mask.shape[0], -1).any(1) & mask).any()
+
+
+@_any_pair_live.register_vmap
+def _any_pair_live_vmap(info, in_dims, flag, mask):
+    """The vmapped axis is the pair axis: the result is ONE flag for every
+    pair, not a flag a pair (out_dims None), as `lax.while_loop` under
+    `jax.vmap` tests any() of the batched predicate."""
+    n = info.batch_size
+    flag = flag.movedim(in_dims[0], 0) if in_dims[0] is not None else flag.expand(n, *flag.shape)
+    mask = mask.movedim(in_dims[1], 0) if in_dims[1] is not None else mask
+    return _any_pair_live(flag, mask), None
 
 
 # -----------------------------------------------------------------------------
@@ -373,11 +393,8 @@ class ReplayPlan:
         self.device = device
         self.stream = stream
         self.pairs = pairs
-        if pairs is not None and (pairs < 1 or pair_batch_route(params, c) != "batched"):
-            raise ValueError(
-                f"a plan of {pairs} pairs needs pairs >= 1 and settings of the batched form "
-                f"(pair_batch_route), got route {pair_batch_route(params, c)!r}"
-            )
+        if pairs is not None and pairs < 1:
+            raise ValueError(f"a plan with a pair axis needs pairs >= 1, got {pairs}")
         self.rounds = fused_scan_rounds(params)
         self.max_batches = local_max_batches(params)
         self.layout = DrawLayout(params, c, self.rounds)
@@ -554,14 +571,16 @@ class ReplayPlan:
                                   max_steps=max_steps, repeat=ctl.repeat,
                                   steps_run=b["stat.greedy_steps"])
 
+        repeat = self._pair_repeat(ctl)
+
         def finish(bb, cl):
             sw, ok = _seed_from_clique(bb["src"], bb["dst"], cl, p, None,
-                                       self.layout.seed_u(bb["draws"]), self.sync_free)
+                                       self.layout.seed_u(bb["draws"]), self.sync_free, repeat)
             return seed_warm(bb, sw, ok)
 
         return self._vmap(finish, b, clique)
 
-    def _local_round(self, b: dict, b_rate, b_one: bool, repeat=None):
+    def _local_round(self, b: dict, b_rate, b_one: bool, repeat=None, live=None):
         # A hypothesis' graph at the b_rate == 1.0 round has at most basic_cap
         # edges, which bounds its clique, so a fixed step count is exact.
         bcap = min(self.params.basic_cap, b["s_i"].shape[0])
@@ -569,7 +588,7 @@ class ReplayPlan:
             b["src"], b["dst"], b["s_i"], b["s_j"], b["s_ok"], b["s_count"], b["s_pts"],
             b_rate, b_one, b["hs.host_r"], _load(WarmState, "warm", b), b["thr"],
             self.params, clique_max_steps=max_clique_size_for_edges(bcap), track_extras=False,
-            sync_free=self.sync_free, repeat=repeat,
+            sync_free=self.sync_free, repeat=repeat, clique_live=live,
         )
 
     def _sample(self, b: dict, r: int) -> dict:
@@ -586,9 +605,9 @@ class ReplayPlan:
                     "flag.round_not_last": ~last, "stat.rounds": b["stat.rounds"] + 1})
         return out
 
-    def _local(self, b: dict, r: int, k, b_one: bool, repeat=None) -> dict:
+    def _local(self, b: dict, r: int, k, b_one: bool, repeat=None, live=None) -> dict:
         b_rate = 1.0 if b_one else pick(b["b_rates"], b["carry.rate_idx"])
-        start, step = self._local_round(b, b_rate, b_one, repeat)
+        start, step = self._local_round(b, b_rate, b_one, repeat, live)
         state = _load(LocalState, "local", b, iterations=0, host_syncs=0, extras=start.extras)
         draws = b["draws"]
         state = step(state, gumbel_of(self.layout.uniform(draws, "u_local", r, k)),
@@ -645,7 +664,33 @@ class ReplayPlan:
         )
         return {"sol.rotation": rotation, "sol.translation": translation}
 
+    def _local_batch(self, ctl, b: dict, r: int, k, b_one: bool) -> dict:
+        """One local batch. With a pair axis its rotation loops test any pair
+        inside the loop's mask (`_pair_repeat`), and the exact clique round
+        searches the graphs of those pairs alone (each pair's flag `live`)."""
+        if self.pairs is None:
+            return self._local(b, r, k, b_one, ctl.repeat)
+        repeat = self._pair_repeat(ctl)
+        if self.exact_clique and b_one:
+            return self._vmap(lambda bb, live: self._local(bb, r, k, b_one, repeat, live), b,
+                              self._masks[-1])
+        return self._vmap(lambda bb: self._local(bb, r, k, b_one, repeat), b)
+
     # ---- the control flow, one pair or a pair axis ---------------------------
+
+    def _pair_repeat(self, ctl):
+        """`ctl.repeat` for a loop inside a vmapped stage: the loop's flag, a
+        value a pair there, becomes one flag, whether any pair inside the
+        current mask holds it (`lax.while_loop` under `jax.vmap`). A pair
+        that no longer holds it changes nothing as the loop goes on (each
+        loop freezes its own finished problems), and the rows of pairs
+        outside the mask are dropped by `_apply`."""
+        mask = self._masks[-1]
+
+        def repeat(flag, body, slot=None):
+            ctl.repeat(_any_pair_live(flag, mask), lambda: _any_pair_live(body(), mask), slot)
+
+        return repeat
 
     def _when(self, ctl, name: str, slot: int | None = None):
         """The body runs when the flag holds (an IF). With a pair axis: when
@@ -717,10 +762,8 @@ class ReplayPlan:
                 for b_one, flag in (branches if r >= _LAST else branches[:1]):
                     for _ in (self._when(ctl, flag) if r >= _LAST else [None]):
                         self._loop(ctl, "flag.batch", self.max_batches,
-                                   lambda k, b_one=b_one: self._apply(self._vmap(
-                                       lambda bb: self._local(
-                                           bb, r, k, b_one, None if batched else ctl.repeat),
-                                       b)),
+                                   lambda k, b_one=b_one: self._apply(
+                                       self._local_batch(ctl, b, r, k, b_one)),
                                    HEAVY if b_one else None)
                         self._apply(self._vmap(lambda bb, b_one=b_one: self._host(bb, r, b_one), b))
                 if not batched:
@@ -911,8 +954,8 @@ def plan_for(params: SolverParams, c: int, device, graphs: bool = True,
     key = (params, int(c), device, graphs, int(instance), pairs)
     plan = _PLANS.get(key)
     if plan is None:
-        if device.type == "cuda" and init_route(params, c) == "dense":
-            _make_room(device, PLAN_BYTES_PER_C2 * c * c * (pairs or 1))
+        if device.type == "cuda":
+            _make_room(device, plan_bytes(params, c, pairs))
         stream = torch.cuda.Stream(device) if instance and device.type == "cuda" else None
         plan = ReplayPlan(params, int(c), device, graphs, stream, pairs)
         _PLANS[key] = plan
@@ -925,10 +968,10 @@ def plan_for(params: SolverParams, c: int, device, graphs: bool = True,
 
 def _make_room(device: torch.device, nbytes: int) -> None:
     """Drop the cached plans of `device`, least recently used first, until
-    the card has `nbytes` free for a new plan (or none is left): a plan of
-    the dense init holds C^2 bytes a pair, so the cache's count alone does
-    not bound its memory. Work still queued ends first; memory the allocator
-    caches and no tensor holds goes back before each look."""
+    the card has `nbytes` free for a new plan (or none is left): a plan
+    holds up to C^2 bytes a pair (`plan_bytes`), so the cache's count alone
+    does not bound its memory. Work still queued ends first; memory the
+    allocator caches and no tensor holds goes back before each look."""
     torch.cuda.synchronize(device)
     while True:
         torch.cuda.empty_cache()

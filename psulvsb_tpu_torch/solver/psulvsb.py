@@ -700,17 +700,52 @@ def _similar(sol_scale, sol_rot, sol_trans, warm: WarmState, params: SolverParam
     )
 
 
-def exact_clique_points(adj: torch.Tensor, active: torch.Tensor, time_limit_s: float) -> torch.Tensor:
+def exact_clique_points(adj: torch.Tensor, active: torch.Tensor, time_limit_s: float,
+                        live: torch.Tensor | None = None) -> torch.Tensor:
     """The exact maximum clique of each (C, C) graph of a (B, C, C) batch
     among its active points (B, C), by the native branch and bound on the
     host (`clique.pmc.exact_max_clique`): one copy of the masked graphs to
     the host, B searches under `time_limit_s` each, one copy of the (B, C)
     member masks back. The JAX package reaches the same search through
     `jax.pure_callback`. Without the library (no toolchain) this raises: the
-    solver's exact round has no heuristic stand-in."""
-    graphs = (adj & active[..., None, :] & active[..., :, None]).cpu().numpy()
-    masks = [pmc.exact_max_clique_mask(g, None, time_limit_s) for g in graphs]
-    return torch.as_tensor(np.stack(masks), device=adj.device)
+    solver's exact round has no heuristic stand-in.
+
+    `live`: an optional (B,) bool, the graphs to search; the others give no
+    members and are not copied. Under `torch.func.vmap` (the batched plan)
+    the searches of every vmapped graph run in one call, one after another,
+    as `pure_callback(..., vmap_method="sequential")` runs them."""
+    return torch.ops.psulvsb_tpu_torch.exact_clique_points(adj, active, live, float(time_limit_s))
+
+
+@torch.library.custom_op("psulvsb_tpu_torch::exact_clique_points", mutates_args=())
+def _exact_clique_points(adj: torch.Tensor, active: torch.Tensor, live: torch.Tensor | None,
+                         time_limit_s: float) -> torch.Tensor:
+    """`exact_clique_points` over graphs (..., C, C) with any leading dims."""
+    c = adj.shape[-1]
+    lead = adj.shape[:-2]
+    graphs = (adj & active[..., None, :] & active[..., :, None]).reshape(-1, c, c)
+    out = np.zeros((graphs.shape[0], c), bool)
+    rows = np.arange(graphs.shape[0])
+    if live is not None:
+        rows = np.flatnonzero(live.expand(lead).reshape(-1).cpu().numpy())
+        graphs = graphs.index_select(0, torch.as_tensor(rows, device=adj.device))
+    for row, g in zip(rows, graphs.cpu().numpy()):
+        out[row] = pmc.exact_max_clique_mask(g, None, time_limit_s)
+    return torch.as_tensor(out, device=adj.device).reshape(lead + (c,))
+
+
+@_exact_clique_points.register_vmap
+def _exact_clique_points_vmap(info, in_dims, adj, active, live, time_limit_s):
+    """The vmapped graphs are more graphs of the batch: one copy, their
+    searches in turn."""
+    n = info.batch_size
+
+    def lead(t, d):
+        return t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+
+    out = _exact_clique_points(lead(adj, in_dims[0]), lead(active, in_dims[1]),
+                               None if live is None else lead(live, in_dims[2]), time_limit_s)
+    return out, 0
 
 
 def local_max_batches(params: SolverParams) -> int:
@@ -739,6 +774,7 @@ def _local_round(
     track_extras: bool = True,
     sync_free: bool = False,
     repeat=None,
+    clique_live: torch.Tensor | None = None,
 ):
     """One host round's local RANSAC loop (registration.cc:903-1398) as its
     starting `LocalState` and a function `step(state, g, u) -> LocalState`
@@ -755,7 +791,9 @@ def _local_round(
     it wants to stop early. The one step that always goes to the host is the
     b_rate == 1.0 round under `exact_clique_callback` with PMC_EXACT: its
     graphs are copied to the host, searched there and the members copied
-    back (`exact_clique_points`). Without `track_extras` the winning hypothesis' stage masks
+    back (`exact_clique_points`), for the hypotheses of a live pair only when
+    `clique_live` (a () bool: the batched plan's pair mask) is given.
+    Without `track_extras` the winning hypothesis' stage masks
     (`state.extras`, behind the inlier getters) are not carried along."""
     dev = ori_src.device
     cap = s_i.shape[0]
@@ -794,7 +832,8 @@ def _local_round(
         adj = _edge_graph(b_i, b_j, sc_inl, c)
         act = sampled_pt_mask.expand(b_i.shape[0], c)
         if exact_clique:
-            return exact_clique_points(adj, act, params.max_clique_time_limit), 1
+            live = None if clique_live is None else clique_live.expand(b_i.shape[0])
+            return exact_clique_points(adj, act, params.max_clique_time_limit, live), 1
         return greedy_clique(
             adj, act, order_scores=triangle_scores(adj, act), max_steps=clique_max_steps
         )

@@ -1,25 +1,32 @@
 """The batched form of the pair batch (`register_batch(..., vectorized=True)`,
-`solver.fused.ReplayPlan(pairs=P)`) and the pair axis of its two kernels'
-front doors, on the CPU.
+`solver.fused.ReplayPlan(pairs=P)`) and the pair axis of its kernels' front
+doors, on the CPU.
 
-The batched plan is `jax.vmap` of the one-dispatch solve over P pairs: every
-stage runs once for all pairs under `torch.func.vmap`, every IF and loop
-while any pair's flag holds, and the pairs whose flag does not hold are
+The batched plan is `jax.vmap` of the one-dispatch solve over P pairs, for
+every setting: every stage runs once for all pairs under `torch.func.vmap`,
+every IF and loop while any pair's flag holds (the FGR and "eigh" rotation
+loops inside a stage too), and the pairs whose flag does not hold are
 frozen. On the CPU it runs eagerly (its plain version) and each pair must
 equal its `psulvsb_register` alone with the same seed: valid and inlier
 counts equal, the same rounds, local batches and lazy seed, and scale,
 rotation and translation within TOL = 1e-5 (the batched products and
 reductions run over other shapes than one pair's, so float32 sums may take
-another order). The kernels' front doors with a pair axis are held against
-`jax.vmap` of the JAX front doors (the Pallas kernels in interpret mode):
-`gnc_batch` within test_torch_gnc's ROT_TOL = 1e-4 and MASK_AGREE = 0.99,
-`exact_peak_bin` equal. The whole batch is held against JAX's
-`register_batch(vectorized=True)` as test_torch_fused holds
-`psulvsb_register`: recall, and the RE/TE quantiles. The CUDA cases skip
-here (`python -m pytest tests/test_torch_batched.py -m cuda --noconftest`
-on a card).
+another order). The settings: the dense init (known and estimated scale,
+the lazy and eager clique seeds, padding), GROR, the `exact_beta`,
+`exact_hist` and `sampled` inits (the large-C routes, asked for at a small
+C with a cut fill budget), FGR, gnc_rot_method="eigh" and the exact clique
+callback (its b_rate == 1.0 round reached by stagnating every round, the
+native search on one thread). The kernels' front doors with a pair axis are
+held against `jax.vmap` of the JAX front doors (the Pallas kernels in
+interpret mode): `gnc_batch` within test_torch_gnc's ROT_TOL = 1e-4 and
+MASK_AGREE = 0.99, `exact_peak_bin` equal. The whole batch is held against
+JAX's `register_batch(vectorized=True)` as test_torch_fused holds
+`psulvsb_register`: recall, and the RE/TE quantiles, on the dense init and on
+GROR and `exact_beta`. The CUDA cases skip here (`python -m pytest
+tests/test_torch_batched.py -m cuda --noconftest` on a card).
 """
 
+import functools
 import types
 
 import numpy as np
@@ -31,15 +38,22 @@ from psulvsb_tpu_torch.convert import params_from_jax
 from psulvsb_tpu_torch.core.linalg import _quat_to_rot
 from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+from psulvsb_tpu_torch.clique import pmc
 from psulvsb_tpu_torch.ops import gnc, hist
 from psulvsb_tpu_torch.solver import fused
 from psulvsb_tpu_torch.solver.config import InlierSelectionMode, RotationEstimationAlgorithm
+from psulvsb_tpu_torch.solver.psulvsb import init_route
 
 TOL = 1e-5
 ROT_TOL = 1e-4
 MASK_AGREE = 0.99
 CAPS = dict(sampled_cap=256, basic_cap=64, hypothesis_batch=4)
 LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
+# The large-C inits at C = 200: a cut fill budget and peak sample.
+SMALL_FILL = dict(init_reject_budget=1 << 14, init_peak_sample=1 << 13)
+# Every round stagnates, so round 4 of 5 is the b_rate == 1.0 clique round.
+STAGNATE = dict(local_max_iter=1, stagnation_min_pro_local=1.0, local_confidence=1.0,
+                host_confidence=1.0, rotation_similar=-1.0)
 
 
 @pytest.fixture(scope="module")
@@ -79,11 +93,35 @@ def _batch(name):
     if name == "eager_seed":
         pairs = [_pair(0.9, 200, s) for s in (1, 2, 3)]
         return SolverParams.preset_artificial(clique_init="eager", **CAPS), pairs, [0, 1, 2], None
-    assert name == "padding_pair"
-    pairs = [_pair(0.5, 200, s) for s in (7, 8, 9)]
-    keep = np.ones((3, 200), np.int64)
-    keep[1] = -2
-    return SolverParams.preset_artificial(**CAPS), pairs, [4, 5, 6], keep
+    if name == "padding_pair":
+        pairs = [_pair(0.5, 200, s) for s in (7, 8, 9)]
+        keep = np.ones((3, 200), np.int64)
+        keep[1] = -2
+        return SolverParams.preset_artificial(**CAPS), pairs, [4, 5, 6], keep
+    known = [_pair(0.9, 200, s) for s in (1, 2, 3)]
+    if name == "gror":
+        return (SolverParams.preset_artificial_gror(gror_k_optimal=150, **CAPS), known,
+                [0, 1, 2], None)
+    if name in ("exact_beta", "sampled"):
+        return (SolverParams.preset_anchor(init_mode=name, **SMALL_FILL, **CAPS), known,
+                [0, 1, 2], None)
+    if name == "exact_hist":
+        pairs = [_pair(0.7, 200, s, outlier_mode="mismatch", test_scale=1.0 + 1.5 * s)
+                 for s in range(3)]
+        return (SolverParams.preset_3dmatch(estimate_scaling=True, init_mode="exact_hist",
+                                            **SMALL_FILL, **CAPS), pairs, [0, 1, 2], None)
+    if name == "fgr":
+        return (SolverParams.preset_anchor(
+            rotation_estimation_algorithm=RotationEstimationAlgorithm.FGR, **CAPS),
+            [_pair(0.5, 200, s) for s in (1, 2, 3)], [0, 1, 2], None)
+    if name == "eigh":
+        return SolverParams.preset_anchor(gnc_rot_method="eigh", **CAPS), known, [0, 1, 2], None
+    if name == "wide_known":  # the card's wide path: "auto" takes exact_beta past 8192
+        pairs = [_pair(0.9, 12000, s) for s in (1, 2, 3)]
+        return SolverParams.preset_anchor(), pairs, [0, 1, 2], None
+    assert name == "exact_clique"
+    return (SolverParams.preset_artificial(exact_clique_callback=True, **STAGNATE, **CAPS),
+            known, [0, 1, 2], None)
 
 
 def _stack(pairs, keep):
@@ -94,13 +132,18 @@ def _stack(pairs, keep):
     return src, dst, torch.as_tensor(keep)
 
 
-@pytest.mark.parametrize("name", ["round1_and_lazy_seed", "estimated_scale", "eager_seed",
-                                  "padding_pair"])
-def test_batched_plan_equals_each_pair_alone(name):
+DENSE_BATCHES = ["round1_and_lazy_seed", "estimated_scale", "eager_seed", "padding_pair"]
+SETTING_BATCHES = ["gror", "exact_beta", "exact_hist", "sampled", "fgr", "eigh", "exact_clique"]
+
+
+@pytest.mark.parametrize("name", DENSE_BATCHES + SETTING_BATCHES)
+def test_batched_plan_equals_each_pair_alone(name, monkeypatch):
     params, pairs, seeds, keep = _batch(name)
+    if name == "exact_clique":  # one answer of the native search: one thread
+        monkeypatch.setattr(pmc, "exact_max_clique",
+                            functools.partial(pmc.exact_max_clique, n_threads=1))
     src, dst, keep = _stack(pairs, keep)
     b, _, c = src.shape
-    assert fused.pair_batch_route(params, c) == "batched"
     plan = fused.plan_for(params, c, "cpu", pairs=b)
     plan.solve(src, dst, keep, [torch.Generator().manual_seed(s) for s in seeds])
     sols, stats = plan.solution(), plan.stats
@@ -122,6 +165,9 @@ def test_batched_plan_equals_each_pair_alone(name):
     if name == "padding_pair":
         assert not bool(sols.valid[1]) and int(sols.final_inlier_count[1]) == 0
         assert bool(sols.valid[0]) and bool(sols.valid[2])
+    if name == "exact_clique":  # the round ran: 4 hypotheses a pair, 3 pairs, 2 rounds
+        assert stats["exact_clique_searches"] == sum(s["exact_clique_searches"]
+                                                     for s in alone_stats) > 0
 
 
 def test_register_batch_pads_a_short_chunk_and_drops_the_padding(monkeypatch):
@@ -228,7 +274,6 @@ def test_batched_recall_and_quantiles_match_jax_vmap(jref):
     jparams = jref.SolverParams.preset_artificial(sampled_cap=512, basic_cap=128,
                                                   hypothesis_batch=4)
     params = params_from_jax(jparams)
-    assert fused.pair_batch_route(params, C) == "batched"
     pairs = [make_synthetic_pair(np.random.default_rng(60 + k), synthetic_cloud(C, seed=80 + k),
                                  0.05, 0.9) for k in range(N_PAIRS)]
     src = np.stack([np.asarray(p.src, np.float32) for p in pairs])
@@ -256,69 +301,143 @@ def test_batched_recall_and_quantiles_match_jax_vmap(jref):
             assert port_q <= 2.0 * jax_q + floor, (col, q, port_q, jax_q)
 
 
+JAX_SETTINGS = {
+    # GROR at its preset (K capped by C) and the known-scale exact count of
+    # the large-C init, asked for at C = 200 with a cut fill budget.
+    "gror": lambda cfg: cfg.SolverParams.preset_artificial_gror(
+        sampled_cap=512, basic_cap=128, hypothesis_batch=4),
+    "exact_beta": lambda cfg: cfg.SolverParams.preset_artificial(
+        init_mode="exact_beta", init_reject_budget=1 << 16, sampled_cap=512, basic_cap=128,
+        hypothesis_batch=4, clique_init="off", inlier_selection_mode=cfg.InlierSelectionMode.NONE),
+}
+N_SETTING_PAIRS = 4
+C_SETTING = 200
+
+
+@pytest.mark.parametrize("name", list(JAX_SETTINGS))
+def test_batched_settings_match_jax_vmap(jref, name):
+    """Four pairs (C = 200, 90% displaced outliers) of GROR and of the
+    `exact_beta` init through JAX's `register_batch(vectorized=True)` and
+    the port's batched form, at the bounds of
+    test_batched_recall_and_quantiles_match_jax_vmap: recall within one
+    pair, the RE/TE quantiles at most twice JAX's plus the floor."""
+    jax, jnp = jref.jax, jref.jnp
+    from psulvsb_tpu.solver import config as jconfig
+
+    jparams = JAX_SETTINGS[name](jconfig)
+    params = params_from_jax(jparams)
+    b, c = N_SETTING_PAIRS, C_SETTING
+    pairs = [make_synthetic_pair(np.random.default_rng(90 + k), synthetic_cloud(c, seed=95 + k),
+                                 0.05, 0.9) for k in range(b)]
+    src = np.stack([np.asarray(p.src, np.float32) for p in pairs])
+    dst = np.stack([np.asarray(p.dst, np.float32) for p in pairs])
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(b))
+    sol_j = jref.register_batch(jnp.asarray(src), jnp.asarray(dst), jnp.ones((b, c), jnp.int32),
+                                keys, jparams, vectorized=True)
+    sol_t = register_batch(src, dst, np.ones((b, c), np.int64), list(range(b)), params,
+                           vectorized=True, device="cpu")
+    errs = {"jax": [], "port": []}
+    for label, sol in (("jax", sol_j), ("port", sol_t)):
+        for k, pair in enumerate(pairs):
+            rot = np.asarray(sol.rotation[k], np.float64)
+            re = angular_error_deg_np(pair.transform.rotation, rot)
+            te = float(np.linalg.norm(np.asarray(sol.translation[k], np.float64)
+                                      - pair.transform.translation))
+            errs[label].append((bool(sol.valid[k]), re, te))
+    ok = {label: [v and re < 5.0 and te < 0.3 for v, re, te in e] for label, e in errs.items()}
+    assert sum(ok["port"]) >= sum(ok["jax"]) - 1, errs
+    for col, floor in ((1, 0.5), (2, 0.01)):
+        for q in (0.5, 0.9):
+            port_q = np.quantile([e[col] for e in errs["port"]], q)
+            jax_q = np.quantile([e[col] for e in errs["jax"]], q)
+            assert port_q <= 2.0 * jax_q + floor, (col, q, port_q, jax_q)
+
+
 CAPS_3DMATCH = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)
 ROUTES = {
-    # The slice: bench.py's anchor and artificial presets, the 3DMatch sweep's
-    # buckets with the lazy and eager seeds, at known and estimated scale,
-    # the translation rescue.
-    "anchor": (SolverParams.preset_anchor(), 1889, "batched"),
-    "artificial_lazy": (SolverParams.preset_artificial(**CAPS_3DMATCH), 1889, "batched"),
-    "3dmatch_4096": (SolverParams.preset_3dmatch(**CAPS_3DMATCH), 4096, "batched"),
+    # Every setting builds its batched plan: bench.py's anchor and artificial
+    # presets, the 3DMatch sweep's buckets with the lazy and eager seeds, at
+    # known and estimated scale, the translation rescue, GROR, the large-C
+    # inits, FGR, "eigh" and the exact clique callback. The third entry is
+    # the init route, the fourth whether the plan holds a (C, C) body.
+    "anchor": (SolverParams.preset_anchor(), 1889, "dense", True),
+    "artificial_lazy": (SolverParams.preset_artificial(**CAPS_3DMATCH), 1889, "dense", True),
+    "3dmatch_4096": (SolverParams.preset_3dmatch(**CAPS_3DMATCH), 4096, "dense", True),
     "3dmatch_6144_eager": (SolverParams.preset_3dmatch(clique_init="eager", **CAPS_3DMATCH),
-                           6144, "batched"),
+                           6144, "dense", True),
     "3dmatch_8192_estimated": (SolverParams.preset_3dmatch(estimate_scaling=True,
-                                                           **CAPS_3DMATCH), 8192, "batched"),
+                                                           **CAPS_3DMATCH), 8192, "dense", True),
     "unknown_5000": (SolverParams.preset_3dmatch(
         estimate_scaling=True, clique_init="off", inlier_selection_mode=InlierSelectionMode.NONE,
-        **CAPS_3DMATCH), 5000, "batched"),
-    "rescue": (SolverParams.preset_artificial(translation_rescue=True), 1889, "batched"),
-    # Outside it: the in-flight form.
-    "gror": (SolverParams.preset_artificial_gror(**CAPS_3DMATCH), 1889, "in_flight"),
-    "beyond_dense_known": (SolverParams.preset_anchor(), 12000, "in_flight"),
+        **CAPS_3DMATCH), 5000, "dense", True),
+    "rescue": (SolverParams.preset_artificial(translation_rescue=True), 1889, "dense", True),
+    "gror": (SolverParams.preset_artificial_gror(**CAPS_3DMATCH), 1889, "dense", True),
+    "beyond_dense_known": (SolverParams.preset_anchor(), 12000, "exact_beta", False),
     "beyond_dense_estimated": (SolverParams.preset_3dmatch(estimate_scaling=True), 12000,
-                               "in_flight"),
+                               "exact_hist", True),
     "exact_hist": (SolverParams.preset_3dmatch(estimate_scaling=True, init_mode="exact_hist"),
-                   1889, "in_flight"),
-    "exact_beta": (SolverParams.preset_anchor(init_mode="exact_beta"), 1889, "in_flight"),
-    "sampled": (SolverParams.preset_anchor(init_mode="sampled"), 1889, "in_flight"),
+                   1889, "exact_hist", True),
+    "exact_beta": (SolverParams.preset_anchor(init_mode="exact_beta"), 1889, "exact_beta",
+                   False),
+    "sampled": (SolverParams.preset_anchor(init_mode="sampled"), 1889, "sampled", False),
     "fgr": (SolverParams.preset_anchor(
-        rotation_estimation_algorithm=RotationEstimationAlgorithm.FGR), 1889, "in_flight"),
-    "eigh": (SolverParams.preset_anchor(gnc_rot_method="eigh"), 1889, "in_flight"),
-    "exact_clique": (SolverParams.preset_artificial(exact_clique_callback=True), 1889,
-                     "in_flight"),
+        rotation_estimation_algorithm=RotationEstimationAlgorithm.FGR), 1889, "dense", True),
+    "eigh": (SolverParams.preset_anchor(gnc_rot_method="eigh"), 1889, "dense", True),
+    "exact_clique": (SolverParams.preset_artificial(exact_clique_callback=True), 1889, "dense",
+                     True),
 }
 
 
 @pytest.mark.parametrize("name", list(ROUTES))
 def test_route_of_each_setting(name):
-    params, c, form = ROUTES[name]
-    assert fused.pair_batch_route(params, c) == form
-    if form == "in_flight":
-        with pytest.raises(ValueError, match="batched form"):
-            fused.ReplayPlan(params, c, torch.device("cpu"), graphs=False, pairs=2)
+    """Every setting builds its batched plan (`ReplayPlan(pairs=2)` on the
+    CPU): every per-pair buffer has the pair axis, the draws' layout takes
+    the setting's init route, and `plan_bytes` counts a (C, C) body where
+    the route holds one, twice over for two pairs."""
+    params, c, route, square = ROUTES[name]
+    plan = fused.ReplayPlan(params, c, torch.device("cpu"), graphs=False, pairs=2)
+    assert plan.pairs == 2 and not plan.graphs
+    assert init_route(params, c) == plan.layout.route == route
+    assert plan.bufs["src"].shape == (2, 3, c) and plan.bufs["keep"].shape == (2, c)
+    assert plan.bufs["draws"].shape == (2, plan.layout.size)
+    assert plan.exact_clique == (name == "exact_clique")
+    one = fused.plan_bytes(params, c)
+    assert fused.plan_bytes(params, c, 2) == 2 * one
+    assert (one >= fused.PLAN_BYTES_PER_C2 * c * c) == square
+    with pytest.raises(ValueError, match="pairs >= 1"):
+        fused.ReplayPlan(params, c, torch.device("cpu"), graphs=False, pairs=0)
 
 
 def test_in_flight_settings_keep_their_form_in_register_batch():
-    """A setting outside the batched form (GROR) takes the in-flight form
-    under vectorized=True: each pair exactly its solve alone."""
+    """GROR, which the in-flight form once took under vectorized=True, runs
+    the batched plan (each pair within TOL of its solve alone); the
+    in-flight form, kept to compare with (`_register_in_flight`), gives each
+    pair exactly its solve alone. `vectorized` is a bool."""
+    from psulvsb_tpu_torch.parallel.pairs import _register_in_flight
+
     params = SolverParams.preset_artificial_gror(gror_k_optimal=150, **CAPS)
     pairs = [_pair(0.9, 200, s) for s in (1, 2)]
     src, dst, keep = _stack(pairs, None)
     sols = register_batch(src, dst, keep, [0, 1], params, vectorized=True, device="cpu")
+    assert fused.plan_for(params, 200, "cpu", pairs=2).solves >= 1
+    flight = _register_in_flight(src, dst, keep, [0, 1], params, device="cpu")
     for i in range(2):
         alone = psulvsb_register(src[i], dst[i], keep[i], i, params, device="cpu")
-        assert all(torch.equal(got[i], want) for got, want in zip(sols, alone))
+        assert all(torch.equal(got[i], want) for got, want in zip(flight, alone))
+        assert int(sols.final_inlier_count[i]) == int(alone.final_inlier_count)
+        assert torch.allclose(sols.rotation[i], alone.rotation, rtol=0.0, atol=TOL)
     for bad in ("vmap", "in_flight"):
         with pytest.raises(ValueError, match="vectorized"):
             register_batch(src, dst, keep, [0, 1], params, vectorized=bad, device="cpu")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["round1_and_lazy_seed", "estimated_scale", "eager_seed",
-                                  "padding_pair"])
+@pytest.mark.parametrize("name", DENSE_BATCHES + ["gror", "wide_known"])
 def test_cuda_batched_graph_equals_each_pair_alone(name):
     """On the card: one graph launch for the batch, each pair within 1e-4
-    of its solve alone, valid and counts equal."""
+    of its solve alone, valid and counts equal (GROR: one launch of the
+    degree kernel for the pairs; the wide known-scale batch at C = 12000:
+    one of the beta count)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     params, pairs, seeds, keep = _batch(name)
@@ -327,6 +446,12 @@ def test_cuda_batched_graph_equals_each_pair_alone(name):
     plan.solve(src, dst, keep, [torch.Generator("cuda").manual_seed(s) for s in seeds])
     sols = plan.solution()
     assert plan.stats["graph_launches"] == 1 and plan.stats["host_reads"] == 0
+    kernel = {"gror": "consistency_degree", "wide_known": "pair_beta_count"}.get(name)
+    if kernel is not None:  # one launch for the pairs, counted on the device
+        before = fused._launch_counts()[kernel]
+        plan.solve(src, dst, keep, [torch.Generator("cuda").manual_seed(s) for s in seeds])
+        assert plan.stats["graph_launches"] == 1
+        assert fused._launch_counts()[kernel] == before + 1
     for i in range(src.shape[0]):
         alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
         assert bool(sols.valid[i]) == bool(alone.valid)
@@ -388,7 +513,6 @@ def test_cuda_sweep_buckets_in_one_process():
         src, dst = torch.cat([src, pad], 2).cuda(), torch.cat([dst, pad], 2).cuda()
         keep = torch.ones((8, bucket), dtype=torch.int64, device="cuda")
         keep[:, n:] = -2
-        assert fused.pair_batch_route(params, bucket) == "batched"
         sols = register_batch(src, dst, keep, list(range(8)), params, vectorized=True)
         for i in (0, 7):
             alone = psulvsb_register(src[i], dst[i], keep[i], i, params)

@@ -428,3 +428,111 @@ def test_cuda_exact_peak_bin_pair_axis(cuda_device, p, c):
     full = hist.pair_ratio_histogram_reference(src, dst, act, num_bins=(128 + 1) * 16 + 1)
     plain = [x.tolist() for x in hist.peak_from_full_histogram(full, 128, 16)]
     assert got == alone == plain
+
+
+P_AXIS, C_AXIS = 3, 64  # the pair axes against jax.vmap of the Pallas front doors
+
+
+def _pair_axis_inputs(c, p, seed, test_scale=3.7):
+    src, dst, act = zip(*(_inputs(c, seed + q, test_scale) for q in range(p)))
+    return [torch.as_tensor(np.stack(x)) for x in (src, dst, act)]
+
+
+def test_beta_count_pair_axis_matches_jax_vmap(jref):
+    """P = 3 pairs of C = 64: `torch.func.vmap` over the port's
+    pair_beta_count, its (P, 3, C) front door and P single calls give equal
+    counts, equal to `jax.vmap` of the Pallas front door in interpret mode."""
+    import jax
+
+    beta = 0.1
+    t = _pair_axis_inputs(C_AXIS, P_AXIS, 600, test_scale=1.0)
+    want = np.asarray(jax.vmap(lambda s, d, a: jref.ph.pair_beta_count(
+        s, d, beta, a, **SMALL_BLOCKS))(*(jref.jnp.asarray(x.numpy()) for x in t)))
+    via_vmap = torch.func.vmap(lambda s, d, a: hist.pair_beta_count(s, d, beta, a))(*t)
+    axis = hist.pair_beta_count(t[0], t[1], beta, t[2])
+    alone = torch.stack([hist.pair_beta_count(t[0][q], t[1][q], beta, t[2][q])
+                         for q in range(P_AXIS)])
+    assert axis.shape == (P_AXIS,) and axis.dtype == torch.int64
+    assert torch.equal(via_vmap, axis) and torch.equal(axis, alone)
+    np.testing.assert_array_equal(axis.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("window", list(WINDOWS))
+def test_histogram_pair_axis_matches_jax_vmap(jref, window):
+    """The windowed histogram over P = 3 pairs of C = 64: `torch.func.vmap`
+    over the port's front door, its (P, 3, C) front door and P single calls
+    give equal counts, equal to `jax.vmap` of the Pallas front door in
+    interpret mode; a vmapped `lo_bin` gives each pair its own window."""
+    import jax
+
+    kw = WINDOWS[window]
+    t = _pair_axis_inputs(C_AXIS, P_AXIS, 700)
+    want = np.asarray(jax.vmap(lambda s, d, a: jref.ph.pair_ratio_histogram(
+        s, d, a, **kw, **SMALL_BLOCKS))(*(jref.jnp.asarray(x.numpy()) for x in t)))
+    via_vmap = torch.func.vmap(lambda s, d, a: hist.pair_ratio_histogram(s, d, a, **kw))(*t)
+    axis = hist.pair_ratio_histogram(*t, **kw)
+    alone = torch.stack([hist.pair_ratio_histogram(t[0][q], t[1][q], t[2][q], **kw)
+                         for q in range(P_AXIS)])
+    assert axis.shape == (P_AXIS, kw["num_bins"]) and axis.dtype == torch.int64
+    assert torch.equal(via_vmap, axis) and torch.equal(axis, alone)
+    np.testing.assert_array_equal(axis.numpy(), want.astype(np.int64))
+    if window == "fine":
+        lo = torch.tensor([40, 48, 56])
+        per_pair = torch.func.vmap(lambda s, d, a, lo_q: hist.pair_ratio_histogram(
+            s, d, a, **{**kw, "lo_bin": lo_q}))(*t, lo)
+        for q in range(P_AXIS):
+            assert torch.equal(per_pair[q], hist.pair_ratio_histogram(
+                t[0][q], t[1][q], t[2][q], **{**kw, "lo_bin": int(lo[q])}))
+        assert torch.equal(hist.pair_ratio_histogram(*t, **{**kw, "lo_bin": lo}), per_pair)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_axes_equal_single_launches_and_plain(cuda_device):
+    """P = 8 pairs in one launch each: the beta count at C = 12000 and the
+    windowed histogram at C = 1889 (a lo on the device for each pair) equal
+    P single launches and the plain version; vmap comes to the same launch."""
+    p = 8
+    src, dst, act = (x.to(cuda_device) for x in _pair_axis_inputs(12000, p, 800, 1.0))
+    before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+    got = hist.pair_beta_count(src, dst, 0.1, act)
+    torch.cuda.synchronize()
+    assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
+    assert torch.equal(got, hist.pair_beta_count_reference(src, dst, 0.1, act))
+    assert torch.equal(got, torch.stack([hist.pair_beta_count(src[q], dst[q], 0.1, act[q])
+                                         for q in range(p)]))
+    src, dst, act = (x.to(cuda_device) for x in _pair_axis_inputs(1889, p, 900))
+    lo = torch.arange(40, 40 + 2 * p, 2, device=cuda_device)
+    kw = dict(num_bins=48, stride=1, clamp_overflow=False)
+    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    got = torch.func.vmap(lambda s, d, a, lo_q: hist.pair_ratio_histogram(
+        s, d, a, lo_bin=lo_q, **kw))(src, dst, act, lo)
+    torch.cuda.synchronize()
+    assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+    assert torch.equal(got, hist.pair_ratio_histogram_reference(src, dst, act, lo_bin=lo, **kw))
+    for q in range(p):
+        assert torch.equal(got[q], hist.pair_ratio_histogram(src[q], dst[q], act[q],
+                                                             lo_bin=lo[q], **kw))
+
+
+@pytest.mark.parametrize("shape", [(1,), (2,), (4,), (3, 1)])
+def test_lo_of_the_wrong_shape_raises(shape):
+    """A lo on the device is 0-d or one a pair: a (1,) lo over three pairs,
+    a lo shorter or longer than the pairs and a 2-D lo raise, as they do on
+    a card, where the kernel would read one lo a pair."""
+    src, dst, act = _pair_axis_inputs(C_AXIS, P_AXIS, 950)
+    lo = torch.full(shape, 40, dtype=torch.int64)
+    with pytest.raises(ValueError, match="lo_bin"):
+        hist.pair_ratio_histogram(src, dst, act, num_bins=32, lo_bin=lo, clamp_overflow=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1,), (4,), (8, 1)])
+def test_cuda_lo_of_the_wrong_shape_raises(cuda_device, shape):
+    """On a card, a lo that is neither 0-d nor (P,) raises before the
+    launch: the kernel reads one lo a pair and would read past it."""
+    src, dst, act = (x.to(cuda_device) for x in _pair_axis_inputs(1889, 8, 960))
+    lo = torch.full(shape, 40, dtype=torch.int64, device=cuda_device)
+    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    with pytest.raises(ValueError, match="lo_bin"):
+        hist.pair_ratio_histogram(src, dst, act, num_bins=32, lo_bin=lo, clamp_overflow=False)
+    assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before

@@ -153,3 +153,60 @@ def test_cuda_edges(cuda_device):
     assert pairs.consistency_degree(x, x, 0.1, off).tolist() == [0] * 5
     with pytest.raises(ValueError, match="C = 0"):
         pairs.consistency_degree(x[:, :0], x[:, :0], 0.1)
+
+
+P_AXIS, C_AXIS = 3, 64  # the pair axis against jax.vmap of the Pallas front door
+
+
+def _pair_axis_inputs(c, p, seed, tau=0.05):
+    src, dst, act = zip(*(_inputs(c, seed + q, tau) for q in range(p)))
+    return np.stack(src), np.stack(dst), np.stack(act)
+
+
+def test_pair_axis_matches_jax_vmap():
+    """P = 3 pairs of C = 64: `torch.func.vmap` over the port's front door
+    (its operator's vmap rule), the (P, 3, C) front door and P single calls
+    give equal degrees, equal to `jax.vmap` of the Pallas front door in
+    interpret mode."""
+    jax = pytest.importorskip("jax")
+    from psulvsb_tpu.ops.pallas_pairs import consistency_degree as jax_degree
+
+    tau = 0.05
+    src, dst, act = _pair_axis_inputs(C_AXIS, P_AXIS, 400, tau)
+    jnp = jax.numpy
+    want = np.asarray(jax.vmap(lambda s, d, a: jax_degree(s, d, tau, active=a))(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(act)))
+    t = [torch.as_tensor(x) for x in (src, dst, act)]
+    via_vmap = torch.func.vmap(lambda s, d, a: pairs.consistency_degree(s, d, tau, a))(*t)
+    axis = pairs.consistency_degree(t[0], t[1], tau, t[2])
+    alone = torch.stack([pairs.consistency_degree(t[0][q], t[1][q], tau, t[2][q])
+                         for q in range(P_AXIS)])
+    assert axis.shape == (P_AXIS, C_AXIS) and axis.dtype == torch.int32
+    assert torch.equal(via_vmap, axis) and torch.equal(axis, alone)
+    np.testing.assert_array_equal(axis.numpy(), want)
+    # No mask, and a mask shared by the vmapped calls.
+    shared = torch.func.vmap(lambda s, d: pairs.consistency_degree(s, d, tau, t[2][0]))(*t[:2])
+    for q in range(P_AXIS):
+        assert torch.equal(shared[q], pairs.consistency_degree(t[0][q], t[1][q], tau, t[2][0]))
+    assert torch.equal(pairs.consistency_degree(t[0], t[1], tau)[1],
+                       pairs.consistency_degree(t[0][1], t[1][1], tau))
+
+
+@pytest.mark.cuda
+def test_cuda_pair_axis_equals_single_launches_and_plain(cuda_device):
+    """P = 8 pairs in one launch: the degrees of P single launches and of
+    the plain version, and `torch.func.vmap` comes to the same launch."""
+    tau, p = 0.1, 8
+    src, dst, act = (torch.as_tensor(x, device=cuda_device)
+                     for x in _pair_axis_inputs(1889, p, 500, tau))
+    before = pairs.KERNEL_LAUNCHES
+    got = pairs.consistency_degree(src, dst, tau, act)
+    torch.cuda.synchronize()
+    assert pairs.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, pairs.consistency_degree_reference(src, dst, tau, act))
+    alone = torch.stack([pairs.consistency_degree(src[q], dst[q], tau, act[q]) for q in range(p)])
+    assert torch.equal(got, alone)
+    before = pairs.KERNEL_LAUNCHES
+    via_vmap = torch.func.vmap(lambda s, d, a: pairs.consistency_degree(s, d, tau, a))(
+        src, dst, act)
+    assert pairs.KERNEL_LAUNCHES == before + 1 and torch.equal(via_vmap, got)

@@ -4,7 +4,7 @@ cases of tests/test_parallel.py at its TINY caps.
 On the CPU a batch runs each pair's solve eagerly, so each pair of
 `register_batch` must equal its `psulvsb_register` alone with the same seed
 exactly, in order and with pairs in flight (`_register_in_flight`).
-`vectorized=True` takes these settings to the batched form, one program over
+`vectorized=True` takes every setting to the batched form, one program over
 a pair axis, whose products and reductions run over other shapes and so sum
 in another order: there valid and inlier counts are equal and scale,
 rotation and translation within BATCHED_TOL (1e-5 here, 1e-4 on the card).
@@ -49,7 +49,7 @@ def _assert_same(got, want, vectorized, i):
 
 def _batch(form, *args, **kwargs):
     """register_batch with vectorized=form, or for "in_flight" the in-flight
-    form whatever the setting's route."""
+    form."""
     if form == "in_flight":
         return _register_in_flight(*args, **kwargs)
     return register_batch(*args, vectorized=form, **kwargs)
