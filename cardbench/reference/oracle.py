@@ -1,0 +1,53 @@
+"""A plain answer to a pair, in any torch dtype on the host: the
+least-squares pose (Kabsch) over the correspondences that the true pose
+explains, and that pose's consensus. In float64 it is the pose the judge
+holds each answer against; computed in bfloat16, the precision below the
+solver's float32, it stands in the program's place for the control of
+`correct`, and the judge has to refuse it, also with its rotation made
+orthonormal again in float32 before it is handed out. Nothing here imports
+the program."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _svd_dtype(dtype: torch.dtype) -> torch.dtype:
+    # torch's SVD takes float32 and float64 only; a lower precision's
+    # covariance is widened for the decomposition alone.
+    return dtype if dtype in (torch.float32, torch.float64) else torch.float32
+
+
+def _nearest_rotation(r: torch.Tensor) -> torch.Tensor:
+    u, _, vh = torch.linalg.svd(r)
+    fix = torch.diag(torch.tensor([1.0, 1.0, float(torch.sign(torch.det(u @ vh)))],
+                                  dtype=r.dtype))
+    return u @ fix @ vh
+
+
+def oracle_answer(pair, threshold: float, dtype: torch.dtype,
+                  out_dtype: torch.dtype | None = None) -> dict:
+    """The fit in `dtype`; with `out_dtype`, its rotation is made
+    orthonormal again in that type and the pose handed out in it."""
+    src = torch.as_tensor(np.asarray(pair.src, np.float64)).to(dtype)
+    dst = torch.as_tensor(np.asarray(pair.dst, np.float64)).to(dtype)
+    rot = torch.as_tensor(np.asarray(pair.rotation, np.float64)).to(dtype)
+    trans = torch.as_tensor(np.asarray(pair.translation, np.float64)).to(dtype)
+    thr = torch.tensor(threshold, dtype=dtype)
+
+    def inliers(r, t):
+        res = torch.sqrt(((dst - (r @ src + t[:, None])) ** 2).sum(0))
+        return res <= thr
+
+    mask = inliers(rot, trans)
+    s, d = src[:, mask], dst[:, mask]
+    mu_s, mu_d = s.mean(1), d.mean(1)
+    cov = (d - mu_d[:, None]) @ (s - mu_s[:, None]).T
+    r = _nearest_rotation(cov.to(_svd_dtype(dtype))).to(dtype)
+    t = mu_d - r @ mu_s
+    count = int(inliers(r, t).sum())
+    if out_dtype is not None:
+        r, t = _nearest_rotation(r.to(out_dtype)), t.to(out_dtype)
+    return {"valid": count > 0, "scale": 1.0, "rotation": r.double().numpy(),
+            "translation": t.double().numpy(), "count": count}
