@@ -107,6 +107,67 @@ extern "C" int graph_cond_capture_nodes(void* stream, unsigned long long* nodes_
   return 0;
 }
 
+// The program's clock inside a graph (utils/timing.py): one thread reads
+// %globaltimer, the card's nanosecond clock that every SM shares, and keeps
+// it in a record of int64 words laid out as timing.SpanRecord describes:
+//   [0, slots)            open: a span's start, written by its opening stamp;
+//   [slots, 2 slots)      total: ns summed over the span's closings;
+//   [2 slots, 3 slots)    count: closings;
+//   3 slots + 0..3        solves (the ring's index), events logged, rounds, local batches;
+//   then `cap` (start, end) pairs of slot 0 (the whole solve), one a solve,
+//   then `log_cap` (slot * 2 + end, time) pairs, one a stamp.
+// A stamp past a ring's end is counted by its index and not kept. The
+// closing stamp of slot 0 adds the solve's rounds and local batches, summed
+// over its `pairs` pairs. With cap = log_cap = 0 and end = 0 a stamp only
+// writes the time to word `slot` (a log of stamps the host labels). A kernel
+// node may sit inside IF and WHILE bodies, where a CUDA event may not.
+__global__ void trace_stamp_kernel(long long* rec, int slot, int end, int slots, long long cap,
+                                   long long log_cap, const long long* rounds,
+                                   const long long* batches, int pairs) {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (!end) {
+    rec[slot] = now;
+  } else {
+    rec[slots + slot] += now - rec[slot];
+    rec[2 * slots + slot] += 1;
+  }
+  long long* head = rec + 3 * slots;
+  if (cap > 0 && slot == 0) {
+    long long i = head[0];
+    if (i < cap) head[4 + 2 * i + end] = now;
+    if (end) {
+      head[0] = i + 1;
+      long long r = 0, b = 0;
+      for (int p = 0; p < pairs; ++p) {
+        r += rounds[p];
+        b += batches[p];
+      }
+      head[2] += r;
+      head[3] += b;
+    }
+  }
+  if (log_cap > 0) {
+    long long i = head[1];
+    if (i < log_cap) {
+      long long* event = head + 4 + 2 * cap + 2 * i;
+      event[0] = 2 * slot + end;
+      event[1] = now;
+    }
+    head[1] = i + 1;
+  }
+}
+
+// Launch (or capture) one stamp on `stream`; see trace_stamp_kernel.
+extern "C" int graph_cond_stamp(void* rec, int slot, int end, int slots, long long cap,
+                                long long log_cap, const void* rounds, const void* batches,
+                                int pairs, void* stream) {
+  trace_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(rec), slot, end, slots, cap, log_cap,
+      static_cast<const long long*>(rounds), static_cast<const long long*>(batches), pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // A stream of its own for a capture (PyTorch hands out its pooled streams
 // round-robin, so two of those may be one stream).
 extern "C" int graph_cond_stream_create(void** stream_out) {

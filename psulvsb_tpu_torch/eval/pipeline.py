@@ -21,6 +21,7 @@ from psulvsb_tpu_torch.solver.config import SolverParams
 from psulvsb_tpu_torch.solver.fused import as_generator, psulvsb_register, resolve_device
 from psulvsb_tpu_torch.solver.psulvsb import psulvsb_solve
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
+from psulvsb_tpu_torch.utils import timing
 from psulvsb_tpu_torch.utils.padding import DEFAULT_PAD_BUCKETS, pad_columns, pad_to_bucket
 from psulvsb_tpu_torch.utils.precision import pin_float32
 
@@ -65,31 +66,49 @@ def solve_with_prefilter(
 
     fused: the one-dispatch `psulvsb_register` (the default), else the
     staged `psulvsb_solve`. `elapsed_s` ends after the solution is on the
-    device."""
+    device.
+
+    With tracing on (`utils.timing`) the call is the host span "pipeline",
+    its parts "pipeline.stage" (numpy to padded device tensors),
+    "pipeline.prefilter", "pipeline.solve" (the draws and the graph launch)
+    and "pipeline.sync"; the card is stamped at the call's first and last
+    device operation (device span "call") and around the pre-filter (device
+    span "pipeline.prefilter")."""
     device = resolve_device(device)
     pin_float32()
-    src = np.asarray(torch.as_tensor(src).cpu(), np.float32)
-    dst = np.asarray(torch.as_tensor(dst).cpu(), np.float32)
-    c = src.shape[1]
-    target = pad_bucket(c, pad_buckets)
-    src_p = torch.as_tensor(pad_columns(src, target), device=device)
-    dst_p = torch.as_tensor(pad_columns(dst, target), device=device)
-    valid = torch.arange(target, device=device) < c
-    t0 = time.monotonic()
+    with timing.span("pipeline"):
+        with timing.span("pipeline.stage"):
+            src = np.asarray(torch.as_tensor(src).cpu(), np.float32)
+            dst = np.asarray(torch.as_tensor(dst).cpu(), np.float32)
+            c = src.shape[1]
+            target = pad_bucket(c, pad_buckets)
+            timing.device_stamp(device, "call", False)
+            src_p = torch.as_tensor(pad_columns(src, target), device=device)
+            dst_p = torch.as_tensor(pad_columns(dst, target), device=device)
+            valid = torch.arange(target, device=device) < c
+        t0 = time.monotonic()
 
-    if use_prefilter:
-        src_normals = estimate_normals(src_p, k=normal_k, active=valid)
-        dst_normals = estimate_normals(dst_p, k=normal_k, active=valid)
-        keep_mask, _ = normal_angle_histogram_filter(src_normals, dst_normals, active=valid)
-        keep_mask = torch.where(valid, keep_mask, -2)
-    else:
-        keep_mask = torch.where(valid, 1, -2).to(torch.int64)
+        with timing.span("pipeline.prefilter"):
+            timing.device_stamp(device, "pipeline.prefilter", False)
+            if use_prefilter:
+                src_normals = estimate_normals(src_p, k=normal_k, active=valid)
+                dst_normals = estimate_normals(dst_p, k=normal_k, active=valid)
+                keep_mask, _ = normal_angle_histogram_filter(src_normals, dst_normals,
+                                                             active=valid)
+                keep_mask = torch.where(valid, keep_mask, -2)
+            else:
+                keep_mask = torch.where(valid, 1, -2).to(torch.int64)
+            timing.device_stamp(device, "pipeline.prefilter", True)
 
-    gen = as_generator(generator_or_seed, device)
-    if fused:
-        sol = psulvsb_register(src_p, dst_p, keep_mask, gen, params, device=device)
-    else:
-        sol, _ = psulvsb_solve(src_p, dst_p, keep_mask, params, gen)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return PipelineResult(solution=sol, keep_mask=keep_mask, elapsed_s=time.monotonic() - t0)
+        with timing.span("pipeline.solve"):
+            gen = as_generator(generator_or_seed, device)
+            if fused:
+                sol = psulvsb_register(src_p, dst_p, keep_mask, gen, params, device=device)
+            else:
+                sol, _ = psulvsb_solve(src_p, dst_p, keep_mask, params, gen)
+        timing.device_stamp(device, "call", True)
+        with timing.span("pipeline.sync"):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        return PipelineResult(solution=sol, keep_mask=keep_mask,
+                              elapsed_s=time.monotonic() - t0)

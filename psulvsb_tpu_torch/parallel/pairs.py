@@ -33,6 +33,7 @@ from psulvsb_tpu_torch.solver.fused import (
     stage_inputs,
 )
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
+from psulvsb_tpu_torch.utils import timing
 from psulvsb_tpu_torch.utils.precision import pin_float32
 
 PAIRS_IN_FLIGHT = 4  # plan instances (and streams) of the concurrent form
@@ -105,7 +106,13 @@ def register_batch(
     padding-only pairs, which come back invalid and are dropped), for every
     setting, as JAX's vmap takes any; a plan of the exact clique callback
     runs its batched solve eagerly, as its single-pair plan does. On the CPU
-    the chunk is the whole batch."""
+    the chunk is the whole batch.
+
+    With tracing on (`utils.timing`) the call is the host span "batch",
+    its parts "batch.stage" and, for each pair or chunk, "batch.solve" (the
+    draws and the launch) and "batch.copy" (the solution into the batch's
+    rows); the card is stamped at the call's first and last device
+    operation (device span "call")."""
     if vectorized not in (False, True):
         raise ValueError(f"vectorized is a bool, got {vectorized!r}")
     form = "batched" if vectorized else "in_order"
@@ -128,7 +135,18 @@ def _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, for
     device = resolve_device(device)
     pin_float32()
     params.check_port_supported()
-    src, dst, keep = stage_inputs(src_batch, dst_batch, keep_batch, device)
+    with timing.span("batch", form=form):
+        with timing.span("batch.stage"):
+            timing.device_stamp(device, "call", False)
+            src, dst, keep = stage_inputs(src_batch, dst_batch, keep_batch, device)
+        out = _solve_pairs(src, dst, keep, seeds_or_generators, params, form, device, graphs)
+        timing.device_stamp(device, "call", True)
+        return out
+
+
+def _solve_pairs(src, dst, keep, seeds_or_generators, params, form, device, graphs):
+    """`_register`'s pairs, staged on the device: the solves and the
+    solutions' copies."""
     if src.dim() != 3:
         raise ValueError(f"register_batch takes (B, 3, C) clouds, got {tuple(src.shape)}")
     b, _, c = src.shape
@@ -149,8 +167,10 @@ def _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, for
                 d = torch.cat([d, d.new_zeros((p - n,) + d.shape[1:])])
                 k = torch.cat([k, k.new_full((p - n, c), -2)])
                 g = g + [as_generator(0, device) for _ in range(p - n)]
-            plan.solve(s, d, k, g)
-            plan.solution(out, start, n)
+            with timing.span("batch.solve", pairs=n):
+                plan.solve(s, d, k, g)
+            with timing.span("batch.copy"):
+                plan.solution(out, start, n)
         return out
     if form == "in_order":
         plans = [plan_for(params, c, device, graphs)]
@@ -163,8 +183,10 @@ def _register(src_batch, dst_batch, keep_batch, seeds_or_generators, params, for
         stream.wait_stream(ready)  # the staged inputs and `out`
     for i in range(b):
         plan = plans[i % len(plans)]
-        plan.solve(src[i], dst[i], keep[i], gens[i])
-        plan.solution(out, i)
+        with timing.span("batch.solve", pairs=1):
+            plan.solve(src[i], dst[i], keep[i], gens[i])
+        with timing.span("batch.copy"):
+            plan.solution(out, i)
     for stream in side:
         ready.wait_stream(stream)
     return out

@@ -24,16 +24,20 @@ that puts its largest bodies in one slot holds the largest of them only. A tenso
 the graph reads must live outside the body (a plan buffer, written with
 `copy_`), since an untaken body writes nothing.
 
-Kernel launches are counted where they run: the kernels' wrappers add to
-their host counts when a capture calls them, and the control turns what a
-region of the graph captured into an addition to a counter on the device,
-captured in that region, so a replay counts the launches it really makes.
+Kernel launches are counted where they run, in a traced plan: the kernels'
+wrappers add to their host counts when a capture calls them, and the control
+turns what a region of the graph captured into an addition to a counter on
+the device, captured in that region, so a replay counts the launches it
+really makes. A traced plan also captures the program's clock
+(`GraphControl.stamp`, utils/timing.py): a one-thread kernel that reads the
+card's nanosecond clock, the one source of time that works inside IF and
+WHILE bodies. An untraced plan captures neither.
 """
 
 from __future__ import annotations
 
 import contextlib
-from ctypes import byref, c_char_p, c_int, c_ulonglong, c_void_p
+from ctypes import byref, c_char_p, c_int, c_longlong, c_ulonglong, c_void_p
 
 import torch
 
@@ -54,11 +58,13 @@ def _lib():
         lib.graph_cond_capture_nodes.argtypes = [c_void_p, c_void_p]
         lib.graph_cond_stream_create.argtypes = [c_void_p]
         lib.graph_cond_stream_destroy.argtypes = [c_void_p]
+        lib.graph_cond_stamp.argtypes = [c_void_p, c_int, c_int, c_int, c_longlong,
+                                         c_longlong, c_void_p, c_void_p, c_int, c_void_p]
         lib.graph_cond_error.argtypes = [c_int]
         lib.graph_cond_error.restype = c_char_p
         for fn in (lib.graph_cond_set, lib.graph_cond_begin, lib.graph_cond_end,
                    lib.graph_cond_capture_nodes, lib.graph_cond_stream_create,
-                   lib.graph_cond_stream_destroy):
+                   lib.graph_cond_stream_destroy, lib.graph_cond_stamp):
             fn.restype = c_int
         _FUNCS = lib
     return _FUNCS
@@ -77,6 +83,30 @@ def _new_stream(device: torch.device) -> torch.cuda.ExternalStream:
     return torch.cuda.ExternalStream(raw.value, device=device)
 
 
+def launch_stamp(rec: torch.Tensor, slot: int, end: bool, slots: int, cap: int = 0,
+                 log_cap: int = 0, rounds: torch.Tensor | None = None,
+                 batches: torch.Tensor | None = None, pairs: int = 0) -> None:
+    """Launch, or capture, on the current stream of `rec`'s card the kernel
+    that stamps the card's clock into the int64 record `rec` (layout:
+    `utils.timing.SpanRecord`; `csrc/graph_cond.cu`)."""
+    if rec.dtype != torch.int64 or rec.device.type != "cuda" or not rec.is_contiguous():
+        raise ValueError(f"a stamp record is contiguous int64 on the card, got {rec.dtype} "
+                         f"on {rec.device}")
+    if not 0 <= slot < slots or rec.numel() < 3 * slots + 4 + 2 * (cap + log_cap):
+        raise ValueError(f"slot {slot} of {slots}, rings {cap} and {log_cap}, do not fit a "
+                         f"record of {rec.numel()}")
+    for counter in (rounds, batches):
+        if counter is not None and (counter.dtype != torch.int64 or counter.numel() < pairs
+                                    or counter.device != rec.device):
+            raise ValueError("the solve's counters are int64 on the record's card, one a pair")
+    stream = torch.cuda.current_stream(rec.device)
+    _check(_lib().graph_cond_stamp(
+        rec.data_ptr(), slot, int(bool(end)), slots, cap, log_cap,
+        None if rounds is None else rounds.data_ptr(),
+        None if batches is None else batches.data_ptr(), pairs, stream.cuda_stream),
+        "launching a stamp")
+
+
 def _flag_pointer(flag: torch.Tensor) -> int:
     if flag.dtype != torch.bool or flag.numel() != 1 or flag.device.type != "cuda":
         raise ValueError(f"a condition is one bool on the card, got {flag.dtype} "
@@ -89,15 +119,21 @@ class GraphControl:
 
     `counts()` gives the kernels' host launch counts (a dict), and
     `launches` is the device counter, one int64 entry per name in the same
-    order, that replays add to. Capture on `capture_stream`; call `close()`
-    once the capture has ended; the pools then hold the bodies' memory and
-    the streams stay until `release()`."""
+    order, that replays add to. `trace`, a traced plan's
+    `utils.timing.SpanRecord`, turns on the launch marks and the stamps;
+    without it neither is captured. `stamps` and `marks` count the kernel
+    nodes each captured. Capture on `capture_stream`; call `close()` once
+    the capture has ended; the pools then hold the bodies' memory and the
+    streams stay until `release()`."""
 
-    def __init__(self, device: torch.device, counts, launches: torch.Tensor):
+    def __init__(self, device: torch.device, counts, launches: torch.Tensor, trace=None):
         self.device = device
         self.index = device.index if device.index is not None else torch.cuda.current_device()
         self.counts = counts
         self.launches = launches
+        self.trace = trace
+        self.stamps = 0
+        self.marks = 0
         self.names = list(counts())
         self.marked = counts()
         self.depth = 0
@@ -135,13 +171,23 @@ class GraphControl:
 
     def mark(self) -> None:
         """Capture, on the current stream, the addition to the device
-        counter of the launches captured since the last mark."""
+        counter of the launches captured since the last mark (traced
+        plans only)."""
+        if self.trace is None:
+            return
         now = self.counts()
         for i, name in enumerate(self.names):
             added = now[name] - self.marked[name]
             if added:
                 self.launches[i].add_(added)
+                self.marks += 1
         self.marked = now
+
+    def stamp(self, slot: int, end: bool) -> None:
+        """Capture, on the current stream, a stamp of the card's clock that
+        opens (end False) or closes slot `slot` of the plan's record."""
+        self.trace.stamp(slot, end)
+        self.stamps += 1
 
     @contextlib.contextmanager
     def _body(self, flag: torch.Tensor, kind: int, slot: int | None):

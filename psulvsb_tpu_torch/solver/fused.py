@@ -28,9 +28,10 @@ control flow is conditional nodes (solver/conditional.py), IF for a
 
 A solve stages its inputs and its draws (one call on the caller's generator
 into the plan's buffer, `solver.psulvsb.DrawLayout`) and launches the graph
-once; the host reads nothing until the caller reads the solution. The kernel
-launches a replay makes are counted on the device and added to the kernels'
-counts when the plan's `stats` or `flush_launch_counts` read them.
+once; the host reads nothing until the caller reads the solution. In a
+traced plan the kernel launches a replay makes are counted on the device and
+added to the kernels' counts when the plan's `stats` or
+`flush_launch_counts` read them.
 
 The plain version of this module (`graphs=False`, and any CPU device) runs
 the same description eagerly: each IF is decided on the host from the words
@@ -54,6 +55,17 @@ iteration run masked).
 As in the JAX module, no clock is read: the reference's wall-clock budget
 (registration.cc:1475) is a projection made when the plan is built, a cap of
 `fused_scan_rounds(params)` host rounds.
+
+A plan built while tracing is on (`utils.timing.enable`) is a traced plan,
+kept apart from the others in the cache: its graph stamps the card's clock
+into the plan's `SpanRecord` around the whole solve and around each stage
+(the names of `timing.SOLVE_SPANS`: the init with GROR, the clique seeds,
+the sample stage, each local batch, the host stage, the self-update, the
+solution with the refinement), the closing stamp adds the solve's rounds
+and local batches to the record's counters, and the kernels' launches are
+counted on the device. An untraced plan captures none of it. With a pair
+axis the stamps lie outside the vmapped stages and time the P pairs
+together.
 
 A plan with `pairs=P` is `jax.vmap` of the solve over P pairs
 (parallel/pairs.py's `vectorized=True`), for every setting: one program
@@ -116,6 +128,7 @@ from psulvsb_tpu_torch.solver.psulvsb import (
     local_max_batches,
 )
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
+from psulvsb_tpu_torch.utils import timing
 from psulvsb_tpu_torch.utils.precision import pin_float32
 from psulvsb_tpu_torch.utils.scalars import as_generator, device_flag, pick
 
@@ -272,12 +285,16 @@ class _Eager:
     without, the greedy cliques run their fixed step counts and the
     rotation loops their masked iterations, the same results."""
 
-    def __init__(self, bufs: dict, host_loops: bool = False):
+    def __init__(self, bufs: dict, host_loops: bool = False, trace=None):
         self.bufs = bufs
+        self.trace = trace
         self.known: dict[str, float] = {"flag.always": 1.0, "flag.run": 1.0,
                                         "flag.refine": 0.0, "carry.rate_idx": 0.0}
         self.reads = 0
         self.repeat = self._repeat if host_loops else None
+
+    def stamp(self, slot: int, end: bool) -> None:
+        self.trace.stamp(slot, end)
 
     def _repeat(self, flag: torch.Tensor, body, slot: int | None = None) -> None:
         while bool(flag):
@@ -327,6 +344,8 @@ class _Captured:
         self.bufs = bufs
         self.control = control
         self.repeat = control.repeat
+        self.trace = control.trace
+        self.stamp = control.stamp
 
     def when(self, name: str, slot: int | None = None):
         with self.control.when(self.bufs[name], slot):
@@ -384,10 +403,11 @@ class ReplayPlan:
     through.
 
     One plan runs one solve at a time, on `stream` when it has one (the
-    batch's concurrent form gives each instance its own)."""
+    batch's concurrent form gives each instance its own). `traced`: the
+    plan keeps a `timing.SpanRecord` (`trace`) that its solves stamp."""
 
     def __init__(self, params: SolverParams, c: int, device: torch.device, graphs: bool,
-                 stream=None, pairs: int | None = None):
+                 stream=None, pairs: int | None = None, traced: bool = False):
         self.params = params
         self.c = c
         self.device = device
@@ -420,6 +440,8 @@ class ReplayPlan:
         self.pool_bytes = 0
         self.graph_nodes: int | None = None
         self.conditional_nodes = 0
+        self.stamp_nodes = 0  # the graph's stamp kernels (traced plans)
+        self.mark_nodes = 0  # the graph's launch-count additions (traced plans)
         self.solves = 0
         self.graph_launches = 0  # replays of the graph, every solve so far
         self._stats: dict = {}
@@ -428,6 +450,11 @@ class ReplayPlan:
         self._masks: list[torch.Tensor] = []  # the pair masks of the IFs and loops open now
         with self._on_stream():
             self.bufs = self._fixed_buffers()
+            self.trace = timing.SpanRecord(
+                timing.SOLVE_SPANS, device, self.bufs["stat.rounds"], self.bufs["stat.batches"],
+                pairs or 1, f"C={c}" + (f" P={pairs}" if pairs else ""), stream,
+            ) if traced else None
+        self._slots = {name: k for k, name in enumerate(timing.SOLVE_SPANS)}
 
     # ---- buffers ------------------------------------------------------------
 
@@ -458,7 +485,7 @@ class ReplayPlan:
     def nbytes(self) -> int:
         """Device bytes the plan holds: its buffers and its graph's pools."""
         own = sum(t.numel() * t.element_size() for t in self.bufs.values())
-        return own + self.pool_bytes
+        return own + self.pool_bytes + (self.trace.nbytes if self.trace is not None else 0)
 
     def _on_stream(self):
         if self.stream is None:
@@ -741,42 +768,73 @@ class ReplayPlan:
 
     # ---- the solve, described once for both controls -------------------------
 
+    def _span(self, ctl, name: str):
+        """Stamps around a stage where the control traces (a traced plan's
+        graph and its plain version), else nothing. A control without a
+        `trace` traces nothing."""
+        if getattr(ctl, "trace", None) is None:
+            return contextlib.nullcontext()
+        return self._stamped(ctl, self._slots[name])
+
+    @contextlib.contextmanager
+    def _stamped(self, ctl, slot: int):
+        ctl.stamp(slot, False)
+        yield
+        ctl.stamp(slot, True)
+
+    def _local_step(self, ctl, b: dict, r: int, k, b_one: bool) -> None:
+        with self._span(ctl, "solve.local"):
+            self._apply(self._local_batch(ctl, b, r, k, b_one))
+
     def _solve(self, ctl) -> None:
         """Mirrors `psulvsb_solve`'s loop; `ctl` decides each IF (module
         docstring)."""
         p, b = self.params, self.bufs
         batched = self.pairs is not None
-        for name in ("stat.rounds", "stat.batches", "stat.greedy_steps"):
-            b[name].zero_()
-        self._masks = [b["flag.always"]] if batched else []
-        for _ in self._when(ctl, "flag.always", HEAVY):
-            self._apply(self._vmap(self._prologue, b))
-            if p.clique_eager:  # a successful seed wins over GROR's
-                self._apply(self._seed(b, "keep", ctl, ("warm", "best_sampled")))
-        for r in range(self.rounds):
-            for _ in self._when(ctl, "flag.run"):
+        with self._span(ctl, "solve"):
+            for name in ("stat.rounds", "stat.batches", "stat.greedy_steps"):
+                b[name].zero_()
+            self._masks = [b["flag.always"]] if batched else []
+            for _ in self._when(ctl, "flag.always", HEAVY):
+                with self._span(ctl, "solve.init"):
+                    self._apply(self._vmap(self._prologue, b))
+                if p.clique_eager:  # a successful seed wins over GROR's
+                    with self._span(ctl, "solve.clique_seed"):
+                        self._apply(self._seed(b, "keep", ctl, ("warm", "best_sampled")))
+            for r in range(self.rounds):
+                self._round(ctl, r)
+            with self._span(ctl, "solve.finalize"):
+                self._apply(self._vmap(self._solution, b))
+                if p.enable_refinement:
+                    for _ in self._when(ctl, "flag.refine"):
+                        self._apply(self._vmap(self._finalize, b))
+
+    def _round(self, ctl, r: int) -> None:
+        """Host round r of the solve, inside the IF of whether it runs."""
+        p, b = self.params, self.bufs
+        for _ in self._when(ctl, "flag.run"):
+            with self._span(ctl, "solve.sample"):
                 self._apply(self._vmap(lambda bb: self._sample(bb, r), b))
-                ctl.know("flag.batch", True)
-                # Only from round _LAST on can the rate be the last one.
-                branches = [(False, "flag.round_not_last"), (True, "flag.round_last")]
-                for b_one, flag in (branches if r >= _LAST else branches[:1]):
-                    for _ in (self._when(ctl, flag) if r >= _LAST else [None]):
-                        self._loop(ctl, "flag.batch", self.max_batches,
-                                   lambda k, b_one=b_one: self._apply(
-                                       self._local_batch(ctl, b, r, k, b_one)),
-                                   HEAVY if b_one else None)
-                        self._apply(self._vmap(lambda bb, b_one=b_one: self._host(bb, r, b_one), b))
-                if not batched:
-                    ctl.read(*_ROUND_WORD)
-                for _ in self._when(ctl, "flag.update"):
+            ctl.know("flag.batch", True)
+            # Only from round _LAST on can the rate be the last one.
+            branches = [(False, "flag.round_not_last"), (True, "flag.round_last")]
+            for b_one, flag in (branches if r >= _LAST else branches[:1]):
+                for _ in (self._when(ctl, flag) if r >= _LAST else [None]):
+                    self._loop(ctl, "flag.batch", self.max_batches,
+                               lambda k, b_one=b_one: self._local_step(ctl, b, r, k, b_one),
+                               HEAVY if b_one else None)
+                    with self._span(ctl, "solve.host"):
+                        self._apply(self._vmap(lambda bb, b_one=b_one: self._host(bb, r, b_one),
+                                               b))
+            if self.pairs is None:
+                ctl.read(*_ROUND_WORD)
+            for _ in self._when(ctl, "flag.update"):
+                with self._span(ctl, "solve.self_update"):
                     self._apply(self._vmap(self._self_update, b))
-                if p.clique_lazy:
-                    for _ in self._when(ctl, "flag.seed", HEAVY):
+            if p.clique_lazy:
+                for _ in self._when(ctl, "flag.seed", HEAVY):
+                    with self._span(ctl, "solve.clique_seed"):
                         self._apply(self._seed(b, "hs.keep_mask", ctl, ("warm",)))
-        self._apply(self._vmap(self._solution, b))
-        if p.enable_refinement:
-            for _ in self._when(ctl, "flag.refine"):
-                self._apply(self._vmap(self._finalize, b))
 
     def _capture(self) -> None:
         """Capture the whole solve into one graph. The plain version runs
@@ -789,7 +847,7 @@ class ReplayPlan:
         dev = self.device
         t0 = time.perf_counter()
         self._solve(_Eager(self.bufs, host_loops=True))
-        control = GraphControl(dev, _launch_counts, self.bufs["launches"])
+        control = GraphControl(dev, _launch_counts, self.bufs["launches"], self.trace)
         control.warm(HEAVY + 2, lambda: _warm_libraries(dev))
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -818,6 +876,7 @@ class ReplayPlan:
         self.pool_bytes = max(0, torch.cuda.memory_reserved(dev) - reserved)
         self.graph_nodes = None if top is None else top + control.nodes
         self.conditional_nodes = control.conditionals
+        self.stamp_nodes, self.mark_nodes = control.stamps, control.marks
         self.graph, self.control = graph, control
         self.build_s = time.perf_counter() - t0
 
@@ -836,7 +895,8 @@ class ReplayPlan:
         else:
             # The batched plain version runs its loops while any pair's flag
             # holds, read on the host once a body.
-            ctl = _Eager(self.bufs, host_loops=self.device.type == "cuda" or bool(self.pairs))
+            ctl = _Eager(self.bufs, host_loops=self.device.type == "cuda" or bool(self.pairs),
+                         trace=self.trace)
             searches = pmc.EXACT_SEARCHES
             self._solve(ctl)
             self._host_stats = {"host_reads": ctl.reads, "graph_launches": 0,
@@ -850,8 +910,10 @@ class ReplayPlan:
         solve: one graph launch, or the plain version. With a pair axis:
         (P, 3, C) clouds, a (P, C) keep mask and P generators, row p's
         draws from generator p (each pair draws what its solve alone
-        draws)."""
-        with self._on_stream():
+        draws). A traced plan's host span "plan.solve" carries the index
+        of the solve's device span."""
+        index = self.trace.next_index() if self.trace is not None else None
+        with self._on_stream(), timing.span("plan.solve", index=index, c=self.c):
             self.bufs["src"].copy_(src, non_blocking=True)
             self.bufs["dst"].copy_(dst, non_blocking=True)
             self.bufs["keep"].copy_(keep, non_blocking=True)
@@ -866,8 +928,9 @@ class ReplayPlan:
             self._run()
 
     def flush_launches(self) -> None:
-        """Add the launches counted on the device to the kernels' counts."""
-        if not self.graphs:
+        """Add the launches counted on the device to the kernels' counts
+        (a traced plan's graph counts them)."""
+        if not self.graphs or self.trace is None:
             return
         with self._on_stream():
             launches = self.bufs["launches"].tolist()
@@ -920,8 +983,11 @@ class ReplayPlan:
         return out
 
     def release(self) -> None:
-        """Drop the graph and give its memory back."""
+        """Drop the graph and give its memory back; the launch counts and
+        the span record are read first."""
         self.flush_launches()
+        if self.trace is not None:
+            self.trace.read()
         self.graph = None
         if self.control is not None:
             self.control.release()
@@ -948,16 +1014,18 @@ def plan_for(params: SolverParams, c: int, device, graphs: bool = True,
     """The cached plan of (params, C, device), built at first use; `graphs`
     holds on CUDA devices only. Instances beyond 0 are further plans of the
     same key on streams of their own, for solves in flight at once. `pairs`:
-    the plan of P pairs at once (the batched form)."""
+    the plan of P pairs at once (the batched form). While tracing is on
+    (`utils.timing`) the plan is a traced plan, cached apart."""
     device = resolve_device(device)
     graphs = bool(graphs) and device.type == "cuda"
-    key = (params, int(c), device, graphs, int(instance), pairs)
+    traced = timing.enabled()
+    key = (params, int(c), device, graphs, int(instance), pairs, traced)
     plan = _PLANS.get(key)
     if plan is None:
         if device.type == "cuda":
             _make_room(device, plan_bytes(params, c, pairs))
         stream = torch.cuda.Stream(device) if instance and device.type == "cuda" else None
-        plan = ReplayPlan(params, int(c), device, graphs, stream, pairs)
+        plan = ReplayPlan(params, int(c), device, graphs, stream, pairs, traced)
         _PLANS[key] = plan
         while len(_PLANS) > PLAN_CACHE_SIZE:
             _PLANS.popitem(last=False)[1].release()

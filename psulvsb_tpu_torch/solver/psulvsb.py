@@ -81,6 +81,7 @@ from psulvsb_tpu_torch.solver.basic import (
 )
 from psulvsb_tpu_torch.solver.config import RATE_SCHEDULE, InlierSelectionMode, SolverParams
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
+from psulvsb_tpu_torch.utils import timing
 from psulvsb_tpu_torch.utils.precision import mm, pin_float32
 from psulvsb_tpu_torch.utils.scalars import as_scalar, device_flag, pick as _pick
 
@@ -1476,15 +1477,15 @@ def psulvsb_solve(
     stage_s: dict[str, float] = {}
 
     def timed(name, fn, *args, **kw):
+        """A profiled stage: `utils.timing.timed` from a synchronised card to
+        the stage's end on it, a host span "solve.<name>" with tracing on."""
         if not profile:
             return fn(*args, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        t0 = time.monotonic()
-        out = fn(*args, **kw)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stage_s[name] = stage_s.get(name, 0.0) + (time.monotonic() - t0)
+        with timing.timed(f"solve.{name}", sync_on=ori_src) as span:
+            out = fn(*args, **kw)
+        stage_s[name] = stage_s.get(name, 0.0) + span["elapsed_s"]
         return out
 
     layout = DrawLayout(params, c, fused_scan_rounds(params))

@@ -164,13 +164,22 @@ def test_timer_timed_and_throttle(caplog):
 
 
 def test_trace_writes_chrome_trace(tmp_path):
+    """The program's own exporter: the spans recorded inside the block, on
+    one clock, as Chrome trace events; tracing is off again after it."""
     with timing.trace(str(tmp_path / "tr")) as d:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with timing.timed("outer"):
+            with timing.span("inner", k=3):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not timing.enabled()
     files = [f for f in os.listdir(d) if f.endswith(".json")]
     assert len(files) == 1
     with open(os.path.join(d, files[0])) as f:
         events = json.load(f)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
+    spans = {e["name"]: e for e in events if e.get("ph") == "X"}
+    assert set(spans) == {"outer", "inner"} and spans["inner"]["args"]["k"] == 3
+    outer, inner = spans["outer"], spans["inner"]
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert inner["args"]["parent"] == outer["args"]["id"]
 
 
 # --- the CLI --------------------------------------------------------------

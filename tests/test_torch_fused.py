@@ -451,12 +451,23 @@ def test_cuda_replay_equals_eager_segments(name):
     """On the card a solve is one graph launch with no host read, and gives
     its eager run's solution exactly (the same kernels on the same inputs),
     on a second pair through the same plan too; the launches its kernels
-    make in the graph are counted."""
+    make in the graph are counted (a traced plan counts them, so tracing is
+    on)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     from psulvsb_tpu_torch.ops import gnc
+    from psulvsb_tpu_torch.utils import timing
 
     params, pair, seed = _case(name)
+    timing.enable(True)
+    try:
+        _replay_equals_eager(params, pair, seed, gnc)
+    finally:
+        timing.enable(False)
+        fused.clear_plan_cache()
+
+
+def _replay_equals_eager(params, pair, seed, gnc):
     for k in range(2):
         src, dst, keep = _tensors(pair)
         src, dst = src.roll(k, 1), dst.roll(k, 1)

@@ -14,6 +14,11 @@ parallel.pairs.register_batch of the 5 pairs in order, one with pairs in
 flight and one batched (each profiled on its own). The profiler's window is idle for 20 ms
 at both ends, and a window that lost device records (fewer launches of a
 port kernel than the path's solves made) is taken again.
+The `fused`, `batch` and `sweep` modes run torch.profiler over the plans'
+conditional graphs, where CUPTI loses records and then faults the card
+(tools/profiler_graph_repro.py); the program's own tracing,
+psulvsb_tpu_torch.utils.timing (tools/trace_probe.py), reads those paths
+on the card's clock instead.
 Printed per path: the card, the wall time of the profiled solves, the
 device busy time per solve (the sum of the kernel events' durations; one
 stream, so they do not overlap) and its share of the wall time, device
@@ -274,6 +279,11 @@ def main() -> int:
         return 1
     card = card_line()
     device = torch.device("cuda", 0)
+    # The plans' graphs count their kernels' launches (read_launches) only
+    # when they are traced plans.
+    from psulvsb_tpu_torch.utils import timing
+
+    timing.enable(True)
     modes = ["staged"]
     for name in sys.argv[1:] or ["anchor", "unknown", "gror", "frontend"]:
         if name == "sweep":
