@@ -81,6 +81,14 @@ and prints no result line):
    device time a launch (profiler), where a call must run the kernel and
    the zeroing of its degrees only; its pair axis at P = 1 and 8
    anchor-protocol pairs of C = 1889 as phase 5's;
+8a. dense init vs plain — ops.init.dense_init (the kernel) against
+   dense_init_reference at C = 2048, 4096, 6144 (5000 real) and 8192, P = 1
+   and 8 through vmap, both tests: counts within 1e-4, pools by Jaccard >=
+   0.999, the kernel's slots in lax.top_k's order (priority descending,
+   ties by ascending position; the pairs both pools hold in the same
+   order); device time of a captured graph of 20 calls beside the bound and
+   the plain version's, the peak allocation under one (C, C) float32 array,
+   and one launch a solve on the fused main path;
 9. slice, artificial GROR preset — the anchor pair through
    RobustRegistrationSolver(SolverParams.preset_artificial_gror(caps
    (2048, 256, 4))) at its own defaults (clique "auto", PMC_EXACT on the
@@ -278,7 +286,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -304,7 +314,7 @@ PROFILER_ATTEMPTS = 6
 LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
 ANCHOR_C = 1889
 N_TIMED_SOLVES = 5
-KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree")
+KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree", "dense_init")
 CAPS = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)  # bench.py:95
 DEGREE_SIZES = [197, 1250, 1889, 5000, 8192]
 DEGREE_TIMED_SIZES = [1250, 1889, 8192]  # the front end's C, the anchor's, the dense limit
@@ -416,6 +426,23 @@ def median_ms(fn, reps=20, warmup=3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=20) -> float:
+    """Device milliseconds of one call of fn: `reps` calls captured into
+    one CUDA graph, its replay timed with CUDA events (median of 5), so the
+    host's dispatch of a multi-launch operator is not timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+    torch.cuda.synchronize()
+    return median_ms(graph.replay, reps=5, warmup=1) / reps
 
 
 def profiled_kernels(fn, reps=PROFILED_REPS) -> dict:
@@ -792,20 +819,22 @@ def drive_path(name, device, card, route=None):
 
 def phase_slice(device, card: str) -> dict:
     _, launches = drive_path("anchor", device, card)
-    if launches["gnc_batch"] <= 0:
-        raise AssertionError("the anchor solves never launched the GNC kernel")
-    return {"launches": launches["gnc_batch"]}
+    for name in ("gnc_batch", "dense_init"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the anchor solves never launched {name}")
+    return {"launches": launches["gnc_batch"], "dense_init": launches["dense_init"]}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0 (the launches the plans' graphs
     counted on the device too)."""
-    from psulvsb_tpu_torch.ops import gnc, hist, pairs
+    from psulvsb_tpu_torch.ops import gnc, hist, init, pairs
     from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
     flush_launch_counts()
     gnc.KERNEL_LAUNCHES = 0
     pairs.KERNEL_LAUNCHES = 0
+    init.KERNEL_LAUNCHES = 0
     for name in hist.KERNEL_LAUNCHES:
         hist.KERNEL_LAUNCHES[name] = 0
 
@@ -813,13 +842,13 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """Every kernel's launch count, with the launches the plans' graphs
     counted on the device since the last read added in."""
-    from psulvsb_tpu_torch.ops import gnc, hist, pairs
+    from psulvsb_tpu_torch.ops import gnc, hist, init, pairs
     from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
     flush_launch_counts()
     return {
         "gnc_batch": gnc.KERNEL_LAUNCHES, **hist.KERNEL_LAUNCHES,
-        "consistency_degree": pairs.KERNEL_LAUNCHES,
+        "consistency_degree": pairs.KERNEL_LAUNCHES, "dense_init": init.KERNEL_LAUNCHES,
     }
 
 
@@ -1268,6 +1297,163 @@ def phase_degree_kernel(device) -> dict:
     return {"max_diff": worst, "times": times, "pair_axis": degree_pair_axis(device)}
 
 
+DENSE_SIZES = [(2048, 2048), (4096, 4096), (6144, 5000), (8192, 8192)]  # (C, active points)
+DENSE_OPS_PER_PAIR = 2 * 9 + 3  # two distances, difference, |.|, compare, as pair_beta_count
+
+
+def dense_inputs(c, active, seed, device):
+    """A 3DMatch-protocol pair (noise 0.01, 90% outliers) of `active`
+    points padded to C with keep -2, about 5% of the real points at 0 or
+    -1, and the hash constants, as device tensors."""
+    from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+
+    rng = np.random.default_rng(seed)
+    pair = make_synthetic_pair(rng, synthetic_cloud(active, seed=seed), 0.01, 0.9,
+                               max_translation=2.0)
+    src = np.zeros((3, c), np.float32)
+    dst = np.zeros((3, c), np.float32)
+    src[:, :active], dst[:, :active] = pair.src, pair.dst
+    keep = np.full(c, -2, np.int64)
+    keep[:active] = np.where(rng.uniform(size=active) < 0.05, rng.choice([0, -1], active), 1)
+    ab = rng.integers(1, 2**31 - 1, size=2)
+    return tuple(torch.as_tensor(x, device=device) for x in (src, dst, keep, ab))
+
+
+def dense_agreement(got, want, c: int, ab) -> float:
+    """1 - Jaccard of kernel and plain pools (one pair of C points, hash
+    constants `ab`), after their counts agree within 1e-4, with the kernel's
+    slots in lax.top_k's order: pairs i < j, each slot's hash priority never
+    above the one before, a run of equal priorities by ascending position,
+    the pairs both pools hold in the plain pool's priority order, zeros
+    after the pool. Raises AssertionError where any of these fails."""
+    from psulvsb_tpu_torch.ops.init import hash_priority
+
+    gc, gp, wc, wp = (int(t) for t in (got[2], got[3], want[2], want[3]))
+    if abs(gc - wc) > 1e-4 * wc or abs(gp - wp) > 1e-4 * wp:
+        raise AssertionError(f"dense init counts ({gc}, {gp}) against plain ({wc}, {wp})")
+    gi, gj, wi, wj = (t.cpu() for t in (got[0], got[1], want[0], want[1]))
+    g = list(zip(gi[:gp].tolist(), gj[:gp].tolist()))
+    w = list(zip(wi[:wp].tolist(), wj[:wp].tolist()))
+    both = set(g) & set(w)
+    miss = 1.0 - len(both) / max(len(set(g) | set(w)), 1)
+    if miss > 1e-3:
+        raise AssertionError(f"dense init pools overlap by Jaccard {1 - miss:.6f} < 0.999")
+    if not bool((gi[:gp] < gj[:gp]).all()):
+        raise AssertionError("a dense init slot holds a pair with i >= j")
+    if bool(gi[gp:].any()) or bool(gj[gp:].any()):
+        raise AssertionError("the dense init's slots after its pool are not zero")
+    ab = torch.as_tensor(ab).cpu()
+    pos = gi[:gp] * c + gj[:gp]
+    pri = hash_priority(pos, ab)
+    step = pri[1:] - pri[:-1]
+    if bool((step > 0).any()):
+        at = int(torch.nonzero(step > 0)[0])
+        raise AssertionError(f"dense init slot {at + 1}'s priority {float(pri[at + 1])} is above "
+                             f"slot {at}'s {float(pri[at])}")
+    if bool(((pos[1:] - pos[:-1]) <= 0)[step == 0].any()):
+        raise AssertionError("a run of equal priorities in the dense init's slots is not in "
+                             "ascending position")
+    kept = torch.tensor([e in both for e in g], dtype=torch.bool)
+    plain_kept = torch.tensor([e in both for e in w], dtype=torch.bool)
+    plain_pri = hash_priority(wi[:wp] * c + wj[:wp], ab)
+    if not torch.equal(pri[kept], plain_pri[plain_kept]):
+        raise AssertionError("the pairs both dense init pools hold come in another priority order")
+    return miss
+
+
+def phase_dense_init(device, card: str) -> dict:
+    """The dense init's kernel (csrc/dense_init.cu) against its plain
+    version at the solve paths' sizes, one pair and PAIR_AXIS_P through
+    vmap, both tests (3DMatch's beta; the estimated scale's ratio peak):
+    counts within 1e-4, pools by Jaccard >= 0.999, slots in lax.top_k's
+    order (`dense_agreement`); its time (CUDA events)
+    beside the bound and the plain version's; the peak memory a launch
+    allocates against one (C, C) float32 array; and one launch a solve on
+    the fused main path."""
+    from psulvsb_tpu_torch import SolverParams, psulvsb_register
+    from psulvsb_tpu_torch.ops import init
+    from psulvsb_tpu_torch.ops.hist import exact_peak_bin
+
+    beta = 2.0 * 0.01 * math.sqrt(SolverParams.preset_3dmatch().cbar2)
+    pool, fill = 16384, 14336
+    nb = 10000 * 20
+    out = {"max_err": 0.0, "times": {}, "peak_bytes": {}}
+    for c, active in DENSE_SIZES:
+        for p in (1, PAIR_AXIS_P):
+            inputs = [dense_inputs(c, active, 60 + q, device) for q in range(p)]
+            src, dst, keep, ab = (torch.stack(x) for x in zip(*inputs))
+            for scale in ("known", "estimated"):
+                peak = None
+                if scale == "estimated":
+                    peak = exact_peak_bin(src, dst, keep == 1, bins_per_unit=20)[0]
+                args = (beta, 20, nb, fill, pool, 131072)
+
+                def kernel():
+                    return torch.func.vmap(
+                        lambda s, d, k, a, pk: init.dense_init(s, d, k, a, pk, *args),
+                        in_dims=(0, 0, 0, 0, None if peak is None else 0),
+                    )(src, dst, keep, ab, peak)
+
+                def plain_one(q):
+                    return init.dense_init_reference(src[q], dst[q], keep[q], ab[q],
+                                                     None if peak is None else peak[q], *args)
+
+                before = init.KERNEL_LAUNCHES
+                got = kernel()
+                torch.cuda.synchronize()
+                if init.KERNEL_LAUNCHES != before + 1:
+                    raise AssertionError("dense_init must launch its kernel once a call")
+                err = max(dense_agreement([t[q] for t in got], plain_one(q), c, ab[q])
+                          for q in range(p))
+                out["max_err"] = max(out["max_err"], err)
+                if scale != "known":
+                    continue
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                kernel()
+                torch.cuda.synchronize()
+                peak_bytes = torch.cuda.max_memory_allocated() - base
+                if peak_bytes >= 4 * c * c:
+                    raise AssertionError(f"the dense init kernel allocated {peak_bytes} bytes, "
+                                         f"a (C, C) float32 array's worth")
+                out["peak_bytes"][(c, p)] = peak_bytes
+                ms = graph_ms(kernel)
+                host_ms = median_ms(kernel)
+                plain_ms = median_ms(lambda: [plain_one(q) for q in range(p)], reps=5, warmup=1)
+                split = {}
+                for name, us in profiled_kernels(kernel, reps=5).items():
+                    short = re.search(r"dense_\w+_kernel(<[^>]*>)?", name)
+                    short = short.group(0) if short else name[:24]
+                    split[short] = round(split.get(short, 0.0) + sum(us) / 5, 2)
+                n = (keep == 1).sum(1).tolist()
+                bound = bound_ms(p * c * 25 + p * pool * 16,
+                                 sum(k * (k - 1) // 2 for k in n) * DENSE_OPS_PER_PAIR)
+                out["times"][(c, p)] = (ms, plain_ms, bound)
+                print(f"[dense_init] C={c} ({active} real) P={p}: kernel {ms:.4f} ms a launch "
+                      f"(a graph of 20), {ms / p:.4f} ms a pair, {host_ms:.4f} ms eager (host "
+                      f"dispatch included); plain {plain_ms:.4f} ms ({p} calls; median of 5, "
+                      f"CUDA events); device us a call by kernel (profiler, 5 calls) {split}; bound "
+                      f"{bound[0]:.6f} ms by {bound[1]}; peak "
+                      f"allocation {peak_bytes} bytes (one (C, C) float32: {4 * c * c}); "
+                      f"members {[int(x) for x in got[2]]}; worst 1 - Jaccard {err:.2e}")
+    params = SolverParams.preset_3dmatch(**CAPS)
+    src, dst, keep, _ = dense_inputs(6144, 5000, 77, device)
+    psulvsb_register(src, dst, keep, 0, params, device=device)  # builds the plan
+    reset_launches()
+    for seed in range(1, 4):
+        psulvsb_register(src, dst, keep, seed, params, device=device)
+    launched = read_launches()["dense_init"]
+    if launched != 3:
+        raise AssertionError(f"the fused main path launched dense_init {launched} times in 3 "
+                             f"solves")
+    print(f"[dense_init] fused main path (preset_3dmatch, C=6144 with 5000 real): 3 solves, "
+          f"{launched} launches; card: {card}")
+    out["fused_launches"] = launched
+    return out
+
+
+
 def phase_gror_slice(device, card: str) -> dict:
     infos, launches = drive_path("gror", device, card)
     if not all(i["gror_init"] for i in infos):
@@ -1594,7 +1780,8 @@ def phase_fused_paths(device, card: str) -> dict:
         if launches["gnc_batch"] < sum(r["local_batches"] for r in runs):
             raise AssertionError(f"fused {name}: the graph's GNC launches were not counted: "
                                  f"{launches}")
-    need = {"unknown": "pair_ratio_hist", "wide": "pair_beta_count", "gror": "consistency_degree",
+    need = {"anchor": "dense_init", "unknown": "pair_ratio_hist", "wide": "pair_beta_count",
+            "gror": "consistency_degree",
             "frontend": "consistency_degree", "eager_seed": "consistency_degree",
             "lazy_seed": "pair_ratio_hist"}
     for name, kernel in need.items():
@@ -2963,6 +3150,7 @@ def main() -> int:
     unknown = timed_phase("phase_unknown_scale", phase_unknown_scale, device, card)
     wide = timed_phase("phase_wide", phase_wide, device)
     degree = timed_phase("phase_degree_kernel", phase_degree_kernel, device)
+    dense = timed_phase("phase_dense_init", phase_dense_init, device, card)
     gror = timed_phase("phase_gror_slice", phase_gror_slice, device, card)
     timed_phase("phase_frontend", phase_frontend, device, card)
     timed_phase("phase_clique", phase_clique, device, card)
@@ -3036,6 +3224,8 @@ def main() -> int:
             "psulvsb_tpu/ops/pallas_pairs.py:53", "gror",
             gror["launches"]["consistency_degree"], degree["max_diff"],
             degree["times"][ANCHOR_C]),
+        row("dense_init", "dense_init.cu", "psulvsb_tpu/solver/psulvsb.py:320 (XLA, no Pallas)",
+            "anchor", sl["dense_init"], dense["max_err"], dense["times"][(6144, 1)]),
         pair_row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235",
                  ("anchor", 8), kern["pair_axis"]),
         pair_row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",

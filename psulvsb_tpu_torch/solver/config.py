@@ -6,13 +6,19 @@ Field-by-field parity with teaser::RobustRegistrationSolver::Params
 (registration.h:378-473) plus the constants the reference hard-codes in
 registration.cc (noise bounds, loop limits, the rate schedule, the 60 s
 budget). Every setting of the solver runs; `check_port_supported` is kept
-for its callers and validates `clique_init` only.
+for its callers and validates `clique_init` only. Made params refuse, with
+ValueError, a dense init the card's kernel cannot take (`__post_init__`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+
+# The dense init kernel's limits (csrc/dense_init.cu): a flat pair position
+# i C + j fits 32 bits, and one block ranks the pool's fill in shared memory.
+DENSE_INIT_MAX_C = 1 << 16
+DENSE_INIT_MAX_FILL = 1 << 15
 
 
 class RotationEstimationAlgorithm(enum.IntEnum):
@@ -159,6 +165,29 @@ class SolverParams:
     # The port always runs the GNC loop through ops.gnc.gnc_batch, so this
     # field is carried for parity and not read.
     gnc_impl: str = "auto"
+
+    def __post_init__(self) -> None:
+        # The "dense" route (and "auto" up to dense_init_max_c) runs the
+        # dense init kernel on a card: refuse here what it cannot take, on
+        # every device, rather than at the first plan build on the card.
+        if self.init_mode not in ("auto", "dense"):
+            return
+        if self.init_mode == "auto" and self.dense_init_max_c > DENSE_INIT_MAX_C:
+            raise ValueError(f"dense_init_max_c must be at most {DENSE_INIT_MAX_C} (the dense "
+                             f"init kernel's C), got {self.dense_init_max_c}")
+        fill = self.pool_fill
+        if fill > DENSE_INIT_MAX_FILL:
+            raise ValueError(
+                f"the dense init fills at most {DENSE_INIT_MAX_FILL} pool slots (the kernel's "
+                f"limit), got {fill} from pool_cap {self.pool_cap}, reduced_cap "
+                f"{self.reduced_cap} and pool_reserve {self.pool_reserve}")
+
+    @property
+    def pool_fill(self) -> int:
+        """Slots of the reduced pool the init fills: min(pool_cap,
+        reduced_cap) less the effective reserve, min(pool_reserve, pool // 8)."""
+        pool = min(self.pool_cap, self.reduced_cap)
+        return pool - min(self.pool_reserve, pool // 8)
 
     @property
     def pr_noise(self) -> float:

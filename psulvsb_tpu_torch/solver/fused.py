@@ -102,6 +102,7 @@ from psulvsb_tpu_torch.clique.kcore import (
 from psulvsb_tpu_torch.gror.gror import _gror_core
 from psulvsb_tpu_torch.ops import gnc as _gnc_ops
 from psulvsb_tpu_torch.ops import hist as _hist_ops
+from psulvsb_tpu_torch.ops import init as _init_ops
 from psulvsb_tpu_torch.ops import pairs as _pairs_ops
 from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.config import (
@@ -211,12 +212,14 @@ def _launch_counts() -> dict[str, int]:
         "gnc_batch": _gnc_ops.KERNEL_LAUNCHES,
         "consistency_degree": _pairs_ops.KERNEL_LAUNCHES,
         **_hist_ops.KERNEL_LAUNCHES,
+        "dense_init": _init_ops.KERNEL_LAUNCHES,
     }
 
 
 def _set_launch_counts(counts: dict[str, int]) -> None:
     _gnc_ops.KERNEL_LAUNCHES = counts["gnc_batch"]
     _pairs_ops.KERNEL_LAUNCHES = counts["consistency_degree"]
+    _init_ops.KERNEL_LAUNCHES = counts["dense_init"]
     for name in _hist_ops.KERNEL_LAUNCHES:
         _hist_ops.KERNEL_LAUNCHES[name] = counts[name]
 
@@ -293,8 +296,8 @@ class _Eager:
         self.reads = 0
         self.repeat = self._repeat if host_loops else None
 
-    def stamp(self, slot: int, end: bool) -> None:
-        self.trace.stamp(slot, end)
+    def stamp(self, slot: int, end: bool, red_count=None, fill: int = 0) -> None:
+        self.trace.stamp(slot, end, red_count, fill)
 
     def _repeat(self, flag: torch.Tensor, body, slot: int | None = None) -> None:
         while bool(flag):
@@ -768,19 +771,25 @@ class ReplayPlan:
 
     # ---- the solve, described once for both controls -------------------------
 
-    def _span(self, ctl, name: str):
+    def _span(self, ctl, name: str, thinned: bool = False):
         """Stamps around a stage where the control traces (a traced plan's
         graph and its plain version), else nothing. A control without a
-        `trace` traces nothing."""
+        `trace` traces nothing. `thinned`: the closing stamp counts the pairs
+        whose reduced set (`red_count`, the init's) outgrew the pool's fill,
+        so that the init's priority, not membership alone, chose the pool
+        (the `init_thinned` counter)."""
         if getattr(ctl, "trace", None) is None:
             return contextlib.nullcontext()
-        return self._stamped(ctl, self._slots[name])
+        return self._stamped(ctl, self._slots[name], thinned)
 
     @contextlib.contextmanager
-    def _stamped(self, ctl, slot: int):
+    def _stamped(self, ctl, slot: int, thinned: bool = False):
         ctl.stamp(slot, False)
         yield
-        ctl.stamp(slot, True)
+        if thinned:
+            ctl.stamp(slot, True, self.bufs["red_count"], self.params.pool_fill)
+        else:
+            ctl.stamp(slot, True)
 
     def _local_step(self, ctl, b: dict, r: int, k, b_one: bool) -> None:
         with self._span(ctl, "solve.local"):
@@ -796,7 +805,7 @@ class ReplayPlan:
                 b[name].zero_()
             self._masks = [b["flag.always"]] if batched else []
             for _ in self._when(ctl, "flag.always", HEAVY):
-                with self._span(ctl, "solve.init"):
+                with self._span(ctl, "solve.init", thinned=True):
                     self._apply(self._vmap(self._prologue, b))
                 if p.clique_eager:  # a successful seed wins over GROR's
                     with self._span(ctl, "solve.clique_seed"):

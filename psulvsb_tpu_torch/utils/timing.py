@@ -140,6 +140,9 @@ SOLVE_SPANS = ("solve", "solve.init", "solve.clique_seed", "solve.sample", "solv
 SOLVE_RING = 1 << 16  # solves a plan's record keeps between two reads
 EVENT_LOG = 1 << 16  # stamps a plan's record logs between two reads (the trace's timeline)
 STAMP_LOG = 1 << 14  # eager stamps kept on a card between two reads
+# Words of a stamp record's head: solves, events logged, rounds, local
+# batches, thinned inits (csrc/graph_cond.cu gives the layout).
+RECORD_HEAD = 5
 
 
 class _Recorder:
@@ -159,7 +162,8 @@ class _Recorder:
         self.timeline: list[tuple] = []  # (name, plan, start, end, clock): logged stamps
         self.stamps: list[tuple] = []  # (name, request, end, value, clock): eager stamps
         self.counters = {"solves": 0, "pairs": 0, "rounds": 0, "local_batches": 0,
-                         "ring_overflow": 0, "log_overflow": 0, "span_overflow": 0}
+                         "init_thinned": 0, "ring_overflow": 0, "log_overflow": 0,
+                         "span_overflow": 0}
         self.calibration: dict = {}
 
 
@@ -224,10 +228,11 @@ def current_request() -> int | None:
     return _REC.stack[-1][5] if _REC.stack else None
 
 
-def _stamp_lib(rec, slot, end, slots, cap=0, log_cap=0, rounds=None, batches=None, pairs=0):
+def _stamp_lib(rec, slot, end, slots, cap=0, log_cap=0, rounds=None, batches=None, pairs=0,
+               red_count=None, fill=0):
     from psulvsb_tpu_torch.solver.conditional import launch_stamp
 
-    launch_stamp(rec, slot, end, slots, cap, log_cap, rounds, batches, pairs)
+    launch_stamp(rec, slot, end, slots, cap, log_cap, rounds, batches, pairs, red_count, fill)
 
 
 class _StampLog:
@@ -235,7 +240,7 @@ class _StampLog:
     next word of a buffer, and the host keeps what each word is."""
 
     def __init__(self, device: torch.device):
-        self.buf = torch.zeros(3 * STAMP_LOG + 4, dtype=torch.int64, device=device)
+        self.buf = torch.zeros(3 * STAMP_LOG + RECORD_HEAD, dtype=torch.int64, device=device)
         self.labels: list[tuple] = []  # (name, request, end)
 
     def stamp(self, name: str, end: bool, request) -> None:
@@ -275,8 +280,9 @@ class SpanRecord:
     its layout: per slot the open stamp, the ns summed and the closings;
     the solves' ring and the stamps' log), on the CPU the same kept on the
     host. `names` are the slots (slot 0 the whole solve, whose closing adds
-    the solve's `rounds` and `batches`, summed over its `pairs`). `read()`
-    folds it into the recorder and empties it."""
+    the solve's `rounds` and `batches`, summed over its `pairs`; a closing
+    stamp given the init's reduced-set sizes adds how many outgrew the
+    pool's fill). `read()` folds it into the recorder and empties it."""
 
     _ids = 0
 
@@ -293,8 +299,8 @@ class SpanRecord:
         self.issued = 0  # solves begun on the host since the last read
         n = len(self.names)
         if self.cuda:
-            self.rec = torch.zeros(3 * n + 4 + 2 * (SOLVE_RING + EVENT_LOG), dtype=torch.int64,
-                                   device=device)
+            self.rec = torch.zeros(3 * n + RECORD_HEAD + 2 * (SOLVE_RING + EVENT_LOG),
+                                   dtype=torch.int64, device=device)
         else:
             self._host_reset()
         _RECORDS.add(self)
@@ -308,19 +314,22 @@ class SpanRecord:
         self.open, self.total, self.count = [0] * n, [0] * n, [0] * n
         self.ring: list[list[int]] = []
         self.log: list[tuple] = []
-        self.solves = self.logged = self.n_rounds = self.n_batches = 0
+        self.solves = self.logged = self.n_rounds = self.n_batches = self.n_thinned = 0
 
     def next_index(self) -> int:
         """The index the next solve's `solve` span will have."""
         self.issued += 1
         return self.base + self.issued - 1
 
-    def stamp(self, slot: int, end: bool) -> None:
+    def stamp(self, slot: int, end: bool, red_count: torch.Tensor | None = None,
+              fill: int = 0) -> None:
         """Open or close `slot` on the current stream (captured inside a
-        capture), or on the host clock on the CPU."""
+        capture), or on the host clock on the CPU. A closing stamp given
+        the pairs' reduced-set sizes `red_count` counts those above `fill`
+        (`init_thinned`)."""
         if self.cuda:
             _stamp_lib(self.rec, slot, end, len(self.names), SOLVE_RING, EVENT_LOG,
-                       self.rounds, self.batches, self.pairs)
+                       self.rounds, self.batches, self.pairs, red_count, fill)
             return
         now = time.perf_counter_ns()
         if end:
@@ -336,6 +345,8 @@ class SpanRecord:
                 self.solves += 1
                 self.n_rounds += int(self.rounds.sum())
                 self.n_batches += int(self.batches.sum())
+        if end and red_count is not None:
+            self.n_thinned += int((red_count > fill).sum())
         if len(self.log) < EVENT_LOG:
             self.log.append((slot, end, now))
         self.logged += 1
@@ -350,8 +361,8 @@ class SpanRecord:
                 words = self.rec.tolist()
                 self.rec.zero_()
             total, count = words[n:2 * n], words[2 * n:3 * n]
-            solves, logged, rounds, batches = words[3 * n:3 * n + 4]
-            ring_at = 3 * n + 4
+            solves, logged, rounds, batches, thinned = words[3 * n:3 * n + RECORD_HEAD]
+            ring_at = 3 * n + RECORD_HEAD
             ring = [words[ring_at + 2 * i:ring_at + 2 * i + 2]
                     for i in range(min(solves, SOLVE_RING))]
             log_at = ring_at + 2 * SOLVE_RING
@@ -360,8 +371,8 @@ class SpanRecord:
             clock = "device"
         else:
             total, count, ring, log_ = self.total, self.count, self.ring, self.log
-            solves, logged, rounds, batches = self.solves, self.logged, self.n_rounds, \
-                self.n_batches
+            solves, logged, rounds, batches, thinned = (
+                self.solves, self.logged, self.n_rounds, self.n_batches, self.n_thinned)
             clock = "host"
         rec = _REC
         for name, ns, k in zip(self.names, total, count):
@@ -382,6 +393,7 @@ class SpanRecord:
         c["pairs"] += solves * self.pairs
         c["rounds"] += rounds
         c["local_batches"] += batches
+        c["init_thinned"] += thinned
         c["ring_overflow"] += max(0, solves - SOLVE_RING)
         c["log_overflow"] += max(0, logged - EVENT_LOG)
         self.base += solves
@@ -417,7 +429,7 @@ def calibrate(device=None, tries: int = CALIBRATION_TRIES) -> dict:
     if device is None:
         now = time.perf_counter_ns()
         return {"host_ns": now, "device_ns": now, "halfwidth_ns": 0, "tries": []}
-    buf = torch.zeros(3 * tries + 4, dtype=torch.int64, device=device)
+    buf = torch.zeros(3 * tries + RECORD_HEAD, dtype=torch.int64, device=device)
     hosts = []
     for k in range(tries):
         torch.cuda.synchronize(device)
@@ -561,7 +573,9 @@ def snapshot() -> dict:
     them; "solves" (start_ns, end_ns, plan, index, pairs) from the plans'
     rings; "calls" and "device_spans" from the eager stamps; "timeline",
     each logged stage span (name, plan, start_ns, end_ns); "counters"
-    (solves, pairs, rounds, local batches, overflows); "gaps", each with
+    (solves, pairs, rounds, local batches, `init_thinned`: the pairs' solves
+    whose init thinned the reduced set to the pool's fill, overflows);
+    "gaps", each with
     the host span it is put down to, and "gaps_by_span" (ns summed, count,
     longest); "calibration", the fit from the host clock to the card's."""
     _read_devices()

@@ -435,23 +435,35 @@ def test_in_flight_settings_keep_their_form_in_register_batch():
 @pytest.mark.parametrize("name", DENSE_BATCHES + ["gror", "wide_known"])
 def test_cuda_batched_graph_equals_each_pair_alone(name):
     """On the card: one graph launch for the batch, each pair within 1e-4
-    of its solve alone, valid and counts equal (GROR: one launch of the
-    degree kernel for the pairs; the wide known-scale batch at C = 12000:
-    one of the beta count)."""
+    of its solve alone, valid and counts equal, and one launch of the
+    init's kernel for the pairs (the dense init's; GROR: the degree
+    kernel's; the wide known-scale batch at C = 12000: the beta count's),
+    counted on the device, which a graph does in traced plans, so tracing
+    is on."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from psulvsb_tpu_torch.utils import timing
+
+    timing.enable(True)
+    try:
+        _batched_graph_equals_each_pair_alone(name)
+    finally:
+        timing.enable(False)
+        fused.clear_plan_cache()
+
+
+def _batched_graph_equals_each_pair_alone(name):
     params, pairs, seeds, keep = _batch(name)
     src, dst, keep = (x.cuda() for x in _stack(pairs, keep))
     plan = fused.plan_for(params, src.shape[2], "cuda", pairs=src.shape[0])
     plan.solve(src, dst, keep, [torch.Generator("cuda").manual_seed(s) for s in seeds])
     sols = plan.solution()
     assert plan.stats["graph_launches"] == 1 and plan.stats["host_reads"] == 0
-    kernel = {"gror": "consistency_degree", "wide_known": "pair_beta_count"}.get(name)
-    if kernel is not None:  # one launch for the pairs, counted on the device
-        before = fused._launch_counts()[kernel]
-        plan.solve(src, dst, keep, [torch.Generator("cuda").manual_seed(s) for s in seeds])
-        assert plan.stats["graph_launches"] == 1
-        assert fused._launch_counts()[kernel] == before + 1
+    kernel = {"gror": "consistency_degree", "wide_known": "pair_beta_count"}.get(name, "dense_init")
+    before = fused._launch_counts()[kernel]
+    plan.solve(src, dst, keep, [torch.Generator("cuda").manual_seed(s) for s in seeds])
+    assert plan.stats["graph_launches"] == 1
+    assert fused._launch_counts()[kernel] == before + 1
     for i in range(src.shape[0]):
         alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
         assert bool(sols.valid[i]) == bool(alone.valid)

@@ -6,6 +6,7 @@ its clock, what it costs, and what it shows.
     python3 tools/trace_probe.py modes --builds 8 --seconds 6
     python3 tools/trace_probe.py export --seconds 2
     python3 tools/trace_probe.py nodes
+    python3 tools/trace_probe.py setup --cell kitti.online --seed 1
 
 from the root of a checkout with a card. Each mode prints JSON lines and
 writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
@@ -26,7 +27,12 @@ writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
   Chrome trace kept under <out>/export/;
 - nodes: graph nodes of untraced and traced plans at the cells' (params,
   C, P), with the stamps and launch marks a traced plan captures (on a
-  program without tracing: the untraced count alone).
+  program without tracing: the untraced count alone);
+- setup: one cell's set-up in this process, as cardbench/run.py times it
+  from the process's start, split: the imports, the pool, each warm-up
+  call of a traffic that makes them one by one (kitti.online; the first
+  of a size builds its plan: build, capture, instantiate) and the plans'
+  own figures. One process is one reading: run it once a process.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import statistics
 import sys
 import time
 from pathlib import Path
+
+T_START = time.perf_counter()  # the setup mode's clock starts here, as cardbench/run.py's
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -65,7 +73,7 @@ def clock(args) -> None:
 
     dev = torch.device("cuda", 0)
     n = 1024
-    buf = torch.zeros(3 * n + 4, dtype=torch.int64, device=dev)
+    buf = torch.zeros(3 * n + timing.RECORD_HEAD, dtype=torch.int64, device=dev)
     launch_stamp(buf, 0, False, n)  # builds and loads the library
     torch.cuda.synchronize(dev)
     side = torch.cuda.Stream(dev)
@@ -275,9 +283,48 @@ def nodes(args) -> None:
             fused.clear_plan_cache()
 
 
+def setup(args) -> None:
+    import torch
+
+    from cardbench import harness
+    from psulvsb_tpu_torch.ops import _build
+
+    imports_s = time.perf_counter() - T_START
+    cell = _cell(args.cell)
+    run = harness.Run(cell, args.seed, _device(), False)
+    traffic = run.traffic = cell.traffic_class()(run)
+    steps = []
+
+    def timed(name, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if run.cuda:
+                torch.cuda.synchronize()
+            steps.append({"step": name, "args": [x for x in a if isinstance(x, int)][:2],
+                          "s": time.perf_counter() - t0})
+            return out
+        return call
+
+    traffic.make_pool = timed("pool", traffic.make_pool)
+    if hasattr(traffic, "_call"):
+        traffic._call = timed("call", traffic._call)
+    traffic.setup()
+    plans = [{**harness.plan_summary(p), "instantiate_s": p.instantiate_s,
+              "graph_nodes": p.graph_nodes} for p in traffic.plans()]
+    if run.cuda:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - T_START
+    emit("setup", {"cell": args.cell, "seed": args.seed, "tree": args.tree,
+                   "card": harness.card_line(), "setup_s": setup_s, "imports_s": imports_s,
+                   "steps": steps, "plans": plans,
+                   "library_build_s": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()}})
+    traffic.release()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("clock", "cost", "modes", "export", "nodes"))
+    ap.add_argument("mode", choices=("clock", "cost", "modes", "export", "nodes", "setup"))
     ap.add_argument("--cells", default="kitti.online,kitti.inorder,3dmatch.inorder,"
                                         "3dmatch.vectorized")
     ap.add_argument("--cell", default="kitti.inorder")
