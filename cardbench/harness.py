@@ -181,11 +181,27 @@ def drive_window(run: Run, seconds: float) -> None:
 def judge_window(run: Run) -> dict:
     """Each answer of the window judged by the plain reference; with keep
     masks, a sample of them drawn from the seed against the plain
-    pre-filter. Returns the numbers compared, each with its limit."""
+    pre-filter. Returns the numbers compared, each with its limit.
+
+    The pose gaps' medians are taken over the answers to pairs whose true
+    inliers all lie within the threshold of the truth (`clean`), where the
+    float64 fit's inliers are the pair's; a window with no such answer reads
+    inf. At known scale every pair is clean: the noise, uniform in
+    [-nb, nb]^3, stays within sqrt(3) nb of the truth, and the threshold is
+    2 nb or more. At a test scale sigma (a configuration's `test_scale`) the
+    stretched noise reaches sigma sqrt(3) nb, and where it crosses the
+    threshold the solver's inliers, and its weights over them, differ from
+    the fit's by the columns near it, so that a sound answer strays from the
+    fit half as far as bfloat16 arithmetic moves it (PERF.md, section 4).
+    There each pair is judged at its own scale against a similarity fit,
+    and `scale_err` is the widest over the answers neither missed nor
+    filtered (a miss's scale says nothing; the misses are `missed_share`'s).
+    The counts of answers, hits and clean hits go to standard error."""
     import torch
 
     config, limits = run.config, run.workload["limits"]
     nb = config["noise_bound"]
+    scaled = "test_scale" in config
     residuals: dict = {}  # the truth's, a pool pair
     fits: dict = {}  # the float64 fit over the truth's inliers, a pair and threshold
     keeps = []
@@ -196,26 +212,34 @@ def judge_window(run: Run) -> dict:
             thr = ref_judge.inlier_threshold(nb, np.ones(pair.src.shape[1]) if keep is None
                                              else keep)
             if pair_key not in residuals:
-                residuals[pair_key] = ref_judge.residuals(pair.src, pair.dst, 1.0, pair.rotation,
-                                                          pair.translation)
+                residuals[pair_key] = ref_judge.residuals(pair.src, pair.dst, pair.scale,
+                                                          pair.rotation, pair.translation)
             if (pair_key, thr) not in fits:
-                fits[(pair_key, thr)] = ref_fit(pair, thr, torch.float64)
+                fits[(pair_key, thr)] = ref_fit(pair, thr, torch.float64, similarity=scaled)
             explained = residuals[pair_key] <= thr
             kept = None if keep is None else int((explained & (np.asarray(keep) == 1)).sum())
-            run.judged.append(ref_judge.judge(pair, answer, thr, int(explained.sum()),
-                                              config["criteria"], fits[(pair_key, thr)], kept))
+            reading = ref_judge.judge(pair, answer, thr, int(explained.sum()),
+                                      config["criteria"], fits[(pair_key, thr)], kept)
+            reading["clean"] = bool(explained[~pair.outlier_mask].all())
+            run.judged.append(reading)
             if keep is not None:
                 keeps.append((pair, keep))
     j = run.judged
+    hits = [r for r in j if r["rot_gap_deg"] is not None]
+    clean = [r for r in hits if r["clean"]]
     values = {
         "orth_err": max((r["orth_err"] for r in j), default=float("inf")),
         "scale_err": max((r["scale_err"] for r in j), default=float("inf")),
         "count_off_share": _share([r["count_off"] for r in j if r["count_off"] is not None]),
         "missed_share": _share(judged) if (judged := [r["missed"] for r in j
                                                         if r["missed"] is not None]) else 1.0,
-        "rot_gap_deg_p50": _median([r["rot_gap_deg"] for r in j if r["rot_gap_deg"] is not None]),
-        "trans_gap_p50": _median([r["trans_gap"] for r in j if r["trans_gap"] is not None]),
+        "rot_gap_deg_p50": _median([r["rot_gap_deg"] for r in clean]),
+        "trans_gap_p50": _median([r["trans_gap"] for r in clean]),
     }
+    if scaled:
+        values["scale_err"] = max((r["scale_err"] for r in hits), default=float("inf"))
+    print(f"judged {len(j)} answers: {len(hits)} hits, {len(clean)} of them clean",
+          file=sys.stderr)
     if keeps:
         rng = np.random.default_rng([run.seed % (1 << 64), 1 << 33])
         n = min(int(run.workload["params"]["keep_sample"]), len(keeps))
@@ -233,7 +257,7 @@ def _share(flags: list) -> float:
 
 
 def _median(values: list) -> float:
-    return float(np.median(values)) if values else 0.0
+    return float(np.median(values)) if values else float("inf")
 
 
 def forbidden_loaded() -> list[str]:

@@ -3,14 +3,16 @@ runs: a cell run on many seeds in one process, sound, with the control in
 the program's place, or with a fault planted in the timed path.
 
     python3 cardbench/probe.py --workload <name> --seeds 1,2,3 --seconds 5 \\
-        --modes sound,control,control_f32,stale,half,altered[,keep] \\
+        --modes sound,control,control_f32,stale,half,altered[,keep][,unscaled] \\
         [--out <file.jsonl>] [--gaps <dir>]
 
 Modes:
 - sound: the program as it is;
 - control: each answer replaced, once the window has closed, by the plain
   reference's (reference/oracle.py, and reference/prefilter.py for keep
-  masks) computed in bfloat16, the precision below the solver's float32;
+  masks) computed in bfloat16, the precision below the solver's float32
+  (a similarity fit, with its scale, for a configuration with a
+  `test_scale`);
 - control_f32: the same, with each rotation made orthonormal again in
   float32 before it is handed out (bfloat16 arithmetic that `orth_err`
   cannot see);
@@ -21,9 +23,15 @@ Modes:
 - altered: each answer's translation moved by 40 noise bounds where the
   plan hands it out;
 - keep: the pre-filter's keep mask altered where it is produced (every
-  tenth column thrown out; a cell with keep masks only).
-One line of JSON a run: mode, seed, correct and the numbers compared; with
---gaps, each run's per-answer pose gaps and flags as
+  tenth column thrown out; a cell with keep masks only);
+- unscaled: each answer's scale set to 1 where the plan hands it out, as a
+  program that skipped the scale estimate would return it (a cell whose
+  configuration has a `test_scale`).
+One line of JSON a run: mode, seed, correct, the numbers compared, the
+answers neither missed nor filtered (`hits`) and those of them to clean
+pairs (harness.judge_window), the metrics, the run's memory peak (and what
+was allocated when it began) and the plans' sizes; with --gaps, each run's
+per-answer readings, flags and answers as
 `<dir>/<cell>.<mode>.<seed>.npz`.
 """
 
@@ -37,7 +45,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-MODES = ("sound", "control", "control_f32", "stale", "half", "altered", "keep")
+MODES = ("sound", "control", "control_f32", "stale", "half", "altered", "keep", "unscaled")
 
 
 class Patches:
@@ -60,6 +68,24 @@ def _zeroed(sol):
     import torch
 
     return type(sol)(*(torch.zeros_like(field) for field in sol))
+
+
+def _on_solution(patches: Patches, field: str, change) -> None:
+    """`change(plan, tensor)` alters the solution's `field` in place where
+    the plan hands it out (fresh tensors, or rows of a batch's solution)."""
+    from psulvsb_tpu_torch.solver import fused
+
+    solution = fused.ReplayPlan.solution
+
+    def changed(self, out=None, index=None, count=None):
+        res = solution(self, out, index, count)
+        if out is None:
+            change(self, getattr(res, field))
+        else:
+            rows = index if self.pairs is None else slice(index, index + (count or self.pairs))
+            change(self, getattr(out, field)[rows])
+        return res
+    patches.set(fused.ReplayPlan, "solution", changed)
 
 
 def plant(mode: str, patches: Patches) -> None:
@@ -91,18 +117,10 @@ def plant(mode: str, patches: Patches) -> None:
         patches.set(pairs, "register_batch", half_batch)
         patches.set(pipeline, "solve_with_prefilter", every_second)
     elif mode == "altered":
-        solution = fused.ReplayPlan.solution
-
-        def moved(self, out=None, index=None, count=None):
-            res = solution(self, out, index, count)
-            shift = 40.0 * self.params.noise_bound
-            if out is None:
-                res.translation.add_(shift)
-            else:
-                rows = index if self.pairs is None else slice(index, index + (count or self.pairs))
-                out.translation[rows] += shift
-            return res
-        patches.set(fused.ReplayPlan, "solution", moved)
+        _on_solution(patches, "translation",
+                     lambda plan, t: t.add_(40.0 * plan.params.noise_bound))
+    elif mode == "unscaled":
+        _on_solution(patches, "scale", lambda plan, s: s.fill_(1.0))
     elif mode == "keep":
         hist = pipeline.normal_angle_histogram_filter
 
@@ -140,7 +158,8 @@ def control(run, out_dtype=None) -> None:
                 keep = keeps[key]
             thr = judge.inlier_threshold(nb, np.ones(pair.src.shape[1]) if keep is None else keep)
             if (key, thr) not in answers:
-                answers[(key, thr)] = oracle.oracle_answer(pair, thr, torch.bfloat16, out_dtype)
+                answers[(key, thr)] = oracle.oracle_answer(
+                    pair, thr, torch.bfloat16, out_dtype, similarity="test_scale" in run.config)
             out.append((answers[(key, thr)], keep))
         rec["answers"] = tuple(np.stack([np.asarray(a[0][f]) for a in out])
                                for f in ("valid", "scale", "rotation", "translation", "count"))
@@ -148,14 +167,24 @@ def control(run, out_dtype=None) -> None:
             rec["keep"] = [k for _, k in out]
 
 
-def save_gaps(path: Path, judged: list[dict]) -> None:
+def save_gaps(path: Path, run) -> None:
+    """Each judged answer's readings and flags, with the answer itself and
+    its pool key (size, index), in the order judged."""
     import numpy as np
 
     def column(key):
-        return np.array([np.nan if r[key] is None else float(r[key]) for r in judged])
-    np.savez_compressed(path, rot_gap_deg=column("rot_gap_deg"), trans_gap=column("trans_gap"),
-                        missed=column("missed"), count_off=column("count_off"),
-                        filtered=column("filtered"))
+        return np.array([np.nan if r[key] is None else float(r[key]) for r in run.judged])
+    keys, answers = [], []
+    for rec in run.records:
+        for key, answer in run.traffic.answers(rec):
+            keys.append(key)
+            answers.append(answer)
+    fields = ("valid", "scale", "rotation", "translation", "count")
+    np.savez_compressed(path, **{k: column(k) for k in (
+        "rot_gap_deg", "trans_gap", "scale_err", "missed", "count_off", "filtered", "recall",
+        "clean")}, key=np.array(keys).reshape(-1, 2),
+        **{f"answer_{f}": np.array([np.asarray(a[f], np.float64) for a in answers])
+           for f in fields})
 
 
 def probe(workload: str, seeds: list[int], seconds: float, modes: list[str], device,
@@ -177,6 +206,11 @@ def probe(workload: str, seeds: list[int], seconds: float, modes: list[str], dev
                     control(run)
                 elif mode == "control_f32":
                     control(run, torch.float32)
+            start_bytes = 0
+            if device.type == "cuda" and torch.cuda.is_initialized():
+                # each run's own peak, over what earlier runs left
+                torch.cuda.reset_peak_memory_stats(device)
+                start_bytes = torch.cuda.memory_allocated(device)
             t0 = time.perf_counter()
             try:
                 result = harness.run_cell(
@@ -185,15 +219,20 @@ def probe(workload: str, seeds: list[int], seconds: float, modes: list[str], dev
             finally:
                 patches.undo()
             if gaps is not None:
-                save_gaps(Path(gaps) / f"{workload}.{mode}.{seed}.npz", runs[0].judged)
+                save_gaps(Path(gaps) / f"{workload}.{mode}.{seed}.npz", runs[0])
             line = {"workload": workload, "mode": mode, "seed": seed,
                     "correct": result["correct"], "attempted": result["attempted"],
                     "failed": result["failed"],
                     "checks": {k: v["value"] for k, v in result["checks"].items()},
                     "filtered_share": sum(bool(r["filtered"]) for r in runs[0].judged)
                     / max(len(runs[0].judged), 1),
+                    "hits": sum(r["rot_gap_deg"] is not None for r in runs[0].judged),
+                    "clean_hits": sum(r["rot_gap_deg"] is not None and r["clean"]
+                                      for r in runs[0].judged),
                     "metrics": {k: v["value"] for k, v in result["metrics"].items()},
-                    "seconds": time.perf_counter() - t0}
+                    "memory_peak_bytes": result["device"]["memory_peak_bytes"],
+                    "memory_start_bytes": start_bytes,
+                    "plans": runs[0].plans, "seconds": time.perf_counter() - t0}
             print(json.dumps(line), flush=True)
             if out is not None:
                 out.write(json.dumps(line) + "\n")

@@ -17,7 +17,9 @@ the program can change the yardstick.
   roll and pitch, a step of some metres along the mean heading;
 - `make_pool`: the pairs one run draws from, made from the run's seed, the
   rotation angles (or yaws) on fixed strata so that every seed gives the
-  same work.
+  same work; for a configuration with a `test_scale`, each pair's dst
+  stretched by its own test scale (the unknown-scale protocol,
+  teaser_cpp_ply_main.cc:319), on fixed strata too.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ class Pair(NamedTuple):
     rotation: np.ndarray  # (3, 3) float32, the truth
     translation: np.ndarray  # (3,) float32
     outlier_mask: np.ndarray  # (n,) bool, True where dst was corrupted
+    scale: float = 1.0  # the test scale that stretched dst: dst ~ scale (R src + t)
 
 
 def synthetic_cloud(n: int, seed: int = 0, dtype=np.float32) -> np.ndarray:
@@ -107,17 +110,26 @@ def make_synthetic_pair(rng: np.random.Generator, src: np.ndarray, noise_bound: 
     return Pair(src, dst.astype(dtype), rot, trans, outlier_mask)
 
 
-def stratum(j: int, per_size: int) -> float:
+def stratum(j: int, per_size: int, first: int = 7) -> float:
     """Pair j's point in [0, 1): the midpoints of per_size equal strata,
-    dealt out by a stride coprime to per_size so that each outlier rate of
-    the cycle meets points from across the range."""
-    stride = next(s for s in range(7, 7 + per_size) if np.gcd(s, per_size) == 1)
+    dealt out by a stride coprime to per_size (the first from `first` on)
+    so that each outlier rate of the cycle meets points from across the
+    range."""
+    stride = next(s for s in range(first, first + per_size) if np.gcd(s, per_size) == 1)
     return ((j * stride) % per_size + 0.5) / per_size
 
 
 def pool_angle(j: int, per_size: int) -> float:
     """Pair j's rotation angle, on fixed strata of [0, pi)."""
     return stratum(j, per_size) * np.pi
+
+
+def pool_scale(j: int, per_size: int, spec: dict) -> float:
+    """Pair j's test scale, on fixed strata of [spec["low"], spec["high"]),
+    dealt by a stride of its own (29 and on: the angles' stride is 7), so
+    that the scale follows neither the angle nor the outlier rate (at 48
+    pairs a size their correlations are 0.06 and -0.02)."""
+    return spec["low"] + (spec["high"] - spec["low"]) * stratum(j, per_size, first=29)
 
 
 def _axis_rotation(axis: int, angle: float) -> np.ndarray:
@@ -147,9 +159,14 @@ def make_pool(config: dict, seed: int, sizes: list[int], per_size: int) -> dict[
     vehicle's), so every seed makes the same sizes, rates and angles; the
     seed draws the clouds, axes, translations, noise and wrong matches.
     (Drawn angles made the pre-filter's losses, and with them a run's work,
-    follow the seed.)"""
+    follow the seed.) With the configuration's `test_scale` ({"low",
+    "high"}), each pair's dst is then stretched by its scale (`pool_scale`)
+    as the port stretches it (eval/realdata.py: the float32 dst times the
+    scale, kept in float32), after the noise and the wrong matches; without
+    it nothing is drawn or stretched."""
     root = int(seed) % SEED_SPACE
     rates = config["outlier_rates"]
+    stretch = config.get("test_scale")
     spec = config.get("pose")
     if spec is not None and spec["kind"] != "vehicle":
         raise ValueError(f"pose kind must be 'vehicle', got {spec['kind']!r}")
@@ -161,8 +178,12 @@ def make_pool(config: dict, seed: int, sizes: list[int], per_size: int) -> dict[
         for j in range(per_size):
             rng = np.random.default_rng([root, k, j])
             pose = None if spec is None else vehicle_pose(rng, spec, j, per_size)
-            pool[n].append(make_synthetic_pair(
+            pair = make_synthetic_pair(
                 rng, cloud, config["noise_bound"], rates[j % len(rates)],
                 config.get("max_translation", 0.0), config["outlier_mode"],
-                angle=pool_angle(j, per_size), pose=pose))
+                angle=pool_angle(j, per_size), pose=pose)
+            if stretch is not None:
+                sigma = pool_scale(j, per_size, stretch)
+                pair = pair._replace(dst=np.asarray(pair.dst * sigma, np.float32), scale=sigma)
+            pool[n].append(pair)
     return pool

@@ -5,10 +5,11 @@ inlier count. It is judged by what it says, against the pair as the
 benchmark made it:
 
 - `orth_err`: R is a rotation, max(|R^T R - I|, |det R - 1|);
-- `scale_err`: at known scale s is 1;
+- `scale_err`: |s - sigma|, sigma the pair's test scale (`Pair.scale`, 1 at
+  known scale, where s has to be 1);
 - `missed`: the pose is an answer to this pair: its count reaches half of
-  the consensus of the true pose (over the columns the pre-filter kept,
-  where it ran);
+  the consensus of the true pose (sigma (R p + t), over the columns the
+  pre-filter kept, where it ran);
 - `filtered`: the pre-filter kept under half of the true pose's consensus,
   so the solve had no answer to find; such an answer is judged by its keep
   mask (against the plain pre-filter, on a sample) and by recall, and not
@@ -23,10 +24,11 @@ benchmark made it:
 - `rot_gap_deg`, `trans_gap`, for an answer neither missed nor filtered:
   the angle between its rotation and the reference pose's, and the distance
   between their translations, where the reference pose is the float64
-  least-squares fit (Kabsch) over the correspondences that the true pose
-  explains (reference/oracle.py). Their medians over a window's answers
-  see the precision of the arithmetic, which a rotation made orthonormal
-  again before it is returned would hide from `orth_err`: most sound
+  least-squares fit (Kabsch; Umeyama's similarity at a test scale) over the
+  correspondences that the true pose explains (reference/oracle.py). Their
+  medians over a window's answers see the precision of the arithmetic,
+  which a rotation made orthonormal again before it is returned would hide
+  from `orth_err`: most sound
   answers fit the same inliers and meet the reference to float32 rounding,
   while a few fit an inlier set that differs by a column or two and stray
   by up to some hundredths of a degree, as far as bfloat16 arithmetic moves
@@ -39,7 +41,10 @@ height test, and the whole bin's points change between kept and held back
 (a sound run read 8.4% of one pair's columns so, measured on one H100).
 
 `recall` is the registration criterion (teaser_cpp_ply_main.cc:424, :714)
-against the generator's truth. Nothing here imports the program.
+against the generator's truth, with the answer's translation in the
+truth's units, s t / sigma (as the port's `score_pose` has it), and, where
+the criteria give `max_scale_err`, |s - sigma| within it (:319-424).
+Nothing here imports the program.
 """
 
 from __future__ import annotations
@@ -94,22 +99,26 @@ def pose_gap(answer: dict, reference: dict) -> tuple[float, float]:
 def judge(pair, answer: dict, threshold: float, true_consensus: int, criteria: dict,
           reference: dict, kept_consensus: int | None = None) -> dict:
     """One answer's readings. `answer`: valid, scale, rotation (3, 3),
-    translation (3,), count; `true_consensus`: the consensus of the truth at
-    `threshold`; `reference`: the float64 fit over the truth's inliers
-    (rotation, translation); `kept_consensus`: the truth's consensus over
-    the columns the pre-filter kept, where it ran."""
+    translation (3,), count; `true_consensus`: the consensus of the truth
+    (at the pair's scale) at `threshold`; `reference`: the float64 fit over
+    the truth's inliers (scale, rotation, translation); `kept_consensus`:
+    the truth's consensus over the columns the pre-filter kept, where it
+    ran."""
     finite = all(np.all(np.isfinite(np.asarray(answer[k], np.float64)))
                  for k in ("scale", "rotation", "translation"))
     count = int(answer["count"])
+    sigma = float(pair.scale)
+    scale = float(answer["scale"])
     if finite:
         ref = consensus(pair.src, pair.dst, answer["scale"], answer["rotation"],
                         answer["translation"], threshold)
         re, te = pose_gap({"rotation": answer["rotation"],
-                           "translation": float(answer["scale"]) * np.asarray(answer["translation"],
-                                                                             np.float64)},
+                           "translation": scale * np.asarray(answer["translation"],
+                                                             np.float64) / sigma},
                           {"rotation": pair.rotation, "translation": pair.translation})
     else:
         ref, re, te = -1, float("inf"), float("inf")
+    scale_err = abs(scale - sigma) if finite else float("inf")
     filtered = kept_consensus is not None and kept_consensus < 0.5 * true_consensus
     found = true_consensus if kept_consensus is None else kept_consensus
     missed = None if filtered else (not bool(answer["valid"])) or count < 0.5 * found
@@ -118,14 +127,15 @@ def judge(pair, answer: dict, threshold: float, true_consensus: int, criteria: d
     return {
         "finite": finite,
         "orth_err": orth_err(answer["rotation"]),
-        "scale_err": abs(float(answer["scale"]) - 1.0) if finite else float("inf"),
+        "scale_err": scale_err,
         "filtered": filtered,
         "missed": missed,
         "count_off": None if filtered or missed else
         abs(count - ref) > COUNT_TOL * max(count, ref, 1),
         "rot_gap_deg": rot_gap,
         "trans_gap": trans_gap,
-        "recall": re <= criteria["max_rot_deg"] and te <= criteria["max_trans"],
+        "recall": re <= criteria["max_rot_deg"] and te <= criteria["max_trans"]
+        and scale_err <= criteria.get("max_scale_err", float("inf")),
     }
 
 
