@@ -1,0 +1,61 @@
+"""pair_ratio_hist.roofline_pct.unknown: `ops.hist.exact_peak_bin` (the
+histogram kernel, one launch a solve at unknown scale) alone at each bucket
+of the cell, on one of the cell's own pairs of that size with its real
+columns active, timed with CUDA events over replays of a captured graph of
+launches (as the kernel runs inside the plan's graph), as a share of
+counts.pair_grid_bound("pair_ratio_hist", C, real columns, its output
+bytes), the bounds and times summed over the buckets. None without a card."""
+
+import sys
+
+from cardbench import counts
+
+LAUNCHES = 50  # launches in the timed graph
+REPLAYS = 5
+OUT_BYTES = counts.PEAK_BINS * 8 + 17  # the full pass's int64 counts, peak, count, flag
+
+
+def _launch_ms(run, n: int) -> tuple[float, int, int]:
+    """ms a launch at size n's bucket, the bucket, the real columns."""
+    import torch
+
+    from psulvsb_tpu_torch.ops.hist import exact_peak_bin
+
+    src, dst, keep = run.traffic.padded(n)
+    dev = run.device
+    src, dst = (torch.as_tensor(a[0], device=dev) for a in (src, dst))
+    act = torch.as_tensor(keep[0] == 1, device=dev)
+    bins = run.params.hist_bins_per_unit
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            exact_peak_bin(src, dst, act, bins_per_unit=bins)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(LAUNCHES):
+            exact_peak_bin(src, dst, act, bins_per_unit=bins)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(dev)
+    del graph
+    return start.elapsed_time(end) / (REPLAYS * LAUNCHES), src.shape[1], int(act.sum())
+
+
+def read(run):
+    if not run.cuda or run.traffic is None:
+        return None
+    bound_sum = ms_sum = 0.0
+    for n in run.traffic.sizes:
+        ms, c, n_active = _launch_ms(run, n)
+        bound, by = counts.pair_grid_bound("pair_ratio_hist", c, n_active, OUT_BYTES)
+        print(f"exact_peak_bin at C={c}, {n_active} active: {ms:.6f} ms a launch, bound "
+              f"{bound:.6f} ms by {by}", file=sys.stderr)
+        bound_sum += bound
+        ms_sum += ms
+    return 100.0 * bound_sum / ms_sum if ms_sum > 0 else None

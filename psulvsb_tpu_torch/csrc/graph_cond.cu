@@ -113,21 +113,35 @@ extern "C" int graph_cond_capture_nodes(void* stream, unsigned long long* nodes_
 //   [0, slots)            open: a span's start, written by its opening stamp;
 //   [slots, 2 slots)      total: ns summed over the span's closings;
 //   [2 slots, 3 slots)    count: closings;
-//   3 slots + 0..4        solves (the ring's index), events logged, rounds, local batches,
-//                         thinned inits;
+//   3 slots + 0..3        solves (the ring's index), events logged, rounds, local batches;
+//   3 slots + 4..         the counters of timing.STAMP_COUNTERS (thinned inits,
+//                         uncertified scale peaks, refit counts);
 //   then `cap` (start, end) pairs of slot 0 (the whole solve), one a solve,
 //   then `log_cap` (slot * 2 + end, time) pairs, one a stamp.
-// A stamp past a ring's end is counted by its index and not kept. The
-// closing stamp of slot 0 adds the solve's rounds and local batches, summed
-// over its `pairs` pairs; a closing stamp given the reduced sets' sizes
-// `red_count` (the init's) adds how many of the pairs' sets outgrew the
-// pool's `fill` (thinned inits). With cap = log_cap = 0 and end = 0 a stamp only
-// writes the time to word `slot` (a log of stamps the host labels). A kernel
-// node may sit inside IF and WHILE bodies, where a CUDA event may not.
+// RECORD_HEAD is timing.RECORD_HEAD. A stamp past a ring's end is counted
+// by its index and not kept. The closing stamp of slot 0 adds the solve's
+// rounds and local batches, summed over its `pairs` pairs; a closing stamp
+// given `values`, one a pair, adds to counter `counter` the pairs whose value
+// is counted by `kind`: 0, an int64 above `fill`; 1, an int64 other than
+// `other`'s; 2, a bool that is false. With cap = log_cap = 0 and end = 0 a
+// stamp only writes the time to word `slot` (a log of stamps the host
+// labels). A kernel node may sit inside IF and WHILE bodies, where a CUDA
+// event may not.
+#define RECORD_HEAD 7
+#define RECORD_COUNTERS (RECORD_HEAD - 4)
+
+__device__ bool counted(const void* values, const long long* other, long long fill, int kind,
+                        int p) {
+  if (kind == 2) return !static_cast<const bool*>(values)[p];
+  long long v = static_cast<const long long*>(values)[p];
+  return kind == 1 ? v != other[p] : v > fill;
+}
+
 __global__ void trace_stamp_kernel(long long* rec, int slot, int end, int slots, long long cap,
                                    long long log_cap, const long long* rounds,
-                                   const long long* batches, const long long* red_count,
-                                   long long fill, int pairs) {
+                                   const long long* batches, const void* values,
+                                   const long long* other, long long fill, int counter, int kind,
+                                   int pairs) {
   long long now;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
   if (!end) {
@@ -139,7 +153,7 @@ __global__ void trace_stamp_kernel(long long* rec, int slot, int end, int slots,
   long long* head = rec + 3 * slots;
   if (cap > 0 && slot == 0) {
     long long i = head[0];
-    if (i < cap) head[5 + 2 * i + end] = now;
+    if (i < cap) head[RECORD_HEAD + 2 * i + end] = now;
     if (end) {
       head[0] = i + 1;
       long long r = 0, b = 0;
@@ -151,15 +165,15 @@ __global__ void trace_stamp_kernel(long long* rec, int slot, int end, int slots,
       head[3] += b;
     }
   }
-  if (end && red_count != nullptr) {
+  if (end && values != nullptr) {
     long long t = 0;
-    for (int p = 0; p < pairs; ++p) t += red_count[p] > fill ? 1 : 0;
-    head[4] += t;
+    for (int p = 0; p < pairs; ++p) t += counted(values, other, fill, kind, p) ? 1 : 0;
+    head[4 + counter] += t;
   }
   if (log_cap > 0) {
     long long i = head[1];
     if (i < log_cap) {
-      long long* event = head + 5 + 2 * cap + 2 * i;
+      long long* event = head + RECORD_HEAD + 2 * cap + 2 * i;
       event[0] = 2 * slot + end;
       event[1] = now;
     }
@@ -170,12 +184,15 @@ __global__ void trace_stamp_kernel(long long* rec, int slot, int end, int slots,
 // Launch (or capture) one stamp on `stream`; see trace_stamp_kernel.
 extern "C" int graph_cond_stamp(void* rec, int slot, int end, int slots, long long cap,
                                 long long log_cap, const void* rounds, const void* batches,
-                                const void* red_count, long long fill, int pairs,
-                                void* stream) {
+                                const void* values, const void* other, long long fill,
+                                int counter, int kind, int pairs, void* stream) {
+  if (values != nullptr && (counter < 0 || counter >= RECORD_COUNTERS || kind < 0 || kind > 2 ||
+                            (kind == 1 && other == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   trace_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<long long*>(rec), slot, end, slots, cap, log_cap,
-      static_cast<const long long*>(rounds), static_cast<const long long*>(batches),
-      static_cast<const long long*>(red_count), fill, pairs);
+      static_cast<const long long*>(rounds), static_cast<const long long*>(batches), values,
+      static_cast<const long long*>(other), fill, counter, kind, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 

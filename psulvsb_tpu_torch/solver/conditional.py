@@ -42,7 +42,7 @@ from ctypes import byref, c_char_p, c_int, c_longlong, c_ulonglong, c_void_p
 import torch
 
 from psulvsb_tpu_torch.ops._build import load_library
-from psulvsb_tpu_torch.utils.timing import RECORD_HEAD
+from psulvsb_tpu_torch.utils.timing import RECORD_HEAD, STAMP_COUNTERS
 
 IF, WHILE = 0, 1
 _FUNCS = None
@@ -60,8 +60,8 @@ def _lib():
         lib.graph_cond_stream_create.argtypes = [c_void_p]
         lib.graph_cond_stream_destroy.argtypes = [c_void_p]
         lib.graph_cond_stamp.argtypes = [c_void_p, c_int, c_int, c_int, c_longlong,
-                                         c_longlong, c_void_p, c_void_p, c_void_p, c_longlong,
-                                         c_int, c_void_p]
+                                         c_longlong, c_void_p, c_void_p, c_void_p, c_void_p,
+                                         c_longlong, c_int, c_int, c_int, c_void_p]
         lib.graph_cond_error.argtypes = [c_int]
         lib.graph_cond_error.restype = c_char_p
         for fn in (lib.graph_cond_set, lib.graph_cond_begin, lib.graph_cond_end,
@@ -88,28 +88,39 @@ def _new_stream(device: torch.device) -> torch.cuda.ExternalStream:
 def launch_stamp(rec: torch.Tensor, slot: int, end: bool, slots: int, cap: int = 0,
                  log_cap: int = 0, rounds: torch.Tensor | None = None,
                  batches: torch.Tensor | None = None, pairs: int = 0,
-                 red_count: torch.Tensor | None = None, fill: int = 0) -> None:
+                 values: torch.Tensor | None = None, fill: int = 0, counter: int = 0,
+                 other: torch.Tensor | None = None) -> None:
     """Launch, or capture, on the current stream of `rec`'s card the kernel
     that stamps the card's clock into the int64 record `rec` (layout:
     `utils.timing.SpanRecord`; `csrc/graph_cond.cu`). A closing stamp given
-    the pairs' `red_count` counts those above `fill` (thinned inits)."""
+    the pairs' `values` adds to the counter `STAMP_COUNTERS[counter]` the
+    pairs whose value is above `fill` (int64), other than `other`'s (int64,
+    with `other`) or false (bool)."""
     if rec.dtype != torch.int64 or rec.device.type != "cuda" or not rec.is_contiguous():
         raise ValueError(f"a stamp record is contiguous int64 on the card, got {rec.dtype} "
                          f"on {rec.device}")
     if not 0 <= slot < slots or rec.numel() < 3 * slots + RECORD_HEAD + 2 * (cap + log_cap):
         raise ValueError(f"slot {slot} of {slots}, rings {cap} and {log_cap}, do not fit a "
                          f"record of {rec.numel()}")
-    for counter in (rounds, batches, red_count):
-        if counter is not None and (counter.dtype != torch.int64 or counter.numel() < pairs
-                                    or counter.device != rec.device or not counter.is_contiguous()):
-            raise ValueError("the solve's counters are contiguous int64 on the record's card, "
-                             "one a pair")
+    if not 0 <= counter < len(STAMP_COUNTERS):
+        raise ValueError(f"counter {counter} is not one of the {len(STAMP_COUNTERS)} counters")
+    flags = values is not None and values.dtype == torch.bool
+    kind = 2 if flags else 1 if other is not None else 0
+    for tensor in (rounds, batches, values, other):
+        if tensor is not None and (tensor.dtype != (torch.bool if tensor is values and flags
+                                                    else torch.int64)
+                                   or tensor.numel() < pairs or tensor.device != rec.device
+                                   or not tensor.is_contiguous()):
+            raise ValueError("the solve's counters are contiguous int64 (or bool flags) on the "
+                             "record's card, one a pair")
     stream = torch.cuda.current_stream(rec.device)
+
+    def pointer(tensor):
+        return None if tensor is None else tensor.data_ptr()
+
     _check(_lib().graph_cond_stamp(
-        rec.data_ptr(), slot, int(bool(end)), slots, cap, log_cap,
-        None if rounds is None else rounds.data_ptr(),
-        None if batches is None else batches.data_ptr(),
-        None if red_count is None else red_count.data_ptr(), int(fill), pairs,
+        rec.data_ptr(), slot, int(bool(end)), slots, cap, log_cap, pointer(rounds),
+        pointer(batches), pointer(values), pointer(other), int(fill), int(counter), kind, pairs,
         stream.cuda_stream),
         "launching a stamp")
 
@@ -190,12 +201,12 @@ class GraphControl:
                 self.marks += 1
         self.marked = now
 
-    def stamp(self, slot: int, end: bool, red_count: torch.Tensor | None = None,
-              fill: int = 0) -> None:
+    def stamp(self, slot: int, end: bool, values: torch.Tensor | None = None,
+              fill: int = 0, counter: int = 0, other: torch.Tensor | None = None) -> None:
         """Capture, on the current stream, a stamp of the card's clock that
         opens (end False) or closes slot `slot` of the plan's record (a
-        closing one given `red_count` counts the thinned inits)."""
-        self.trace.stamp(slot, end, red_count, fill)
+        closing one given `values` adds to a counter: `SpanRecord.stamp`)."""
+        self.trace.stamp(slot, end, values, fill, counter, other)
         self.stamps += 1
 
     @contextlib.contextmanager

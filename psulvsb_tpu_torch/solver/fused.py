@@ -24,6 +24,7 @@ control flow is conditional nodes (solver/conditional.py), IF for a
         IF this round escalated, no seed ran and not done: the lazy seed
             (its greedy clique a WHILE node, chunks while candidates are left)
     the solution (the host best), and IF the best count is not 0: finalize
+        (the refinement, and the count of the pose it returns)
     a stats word: rounds, local batches, whether a seed ran, greedy steps
 
 A solve stages its inputs and its draws (one call on the caller's generator
@@ -61,11 +62,13 @@ kept apart from the others in the cache: its graph stamps the card's clock
 into the plan's `SpanRecord` around the whole solve and around each stage
 (the names of `timing.SOLVE_SPANS`: the init with GROR, the clique seeds,
 the sample stage, each local batch, the host stage, the self-update, the
-solution with the refinement), the closing stamp adds the solve's rounds
-and local batches to the record's counters, and the kernels' launches are
-counted on the device. An untraced plan captures none of it. With a pair
-axis the stamps lie outside the vmapped stages and time the P pairs
-together.
+solution with the refinement; where the scale is estimated, the scale peak
+inside the init and the scale estimate inside each local batch), the closing stamps add to the
+record's counters (the solve's rounds and local batches; inits thinned to
+the pool's fill, scale peaks that failed their certificate, returned counts
+that are not the host best's: `timing.STAMP_COUNTERS`), and the kernels'
+launches are counted on the device. An untraced plan captures none of it.
+With a pair axis the stamps time the P pairs together.
 
 A plan with `pairs=P` is `jax.vmap` of the solve over P pairs
 (parallel/pairs.py's `vectorized=True`), for every setting: one program
@@ -113,10 +116,12 @@ from psulvsb_tpu_torch.solver.config import (
 from psulvsb_tpu_torch.solver.psulvsb import (
     DrawLayout,
     HostState,
+    InitPeak,
     LocalState,
     _clique_seed_stage,
-    _finalize_stage,
+    _finalize_counted,
     _host_stage,
+    _init_peak,
     _init_stage,
     _local_round,
     _sample_stage,
@@ -127,6 +132,7 @@ from psulvsb_tpu_torch.solver.psulvsb import (
     gumbel_of,
     init_route,
     local_max_batches,
+    peak_apart,
 )
 from psulvsb_tpu_torch.solver.solution import RegistrationSolution
 from psulvsb_tpu_torch.utils import timing
@@ -296,8 +302,9 @@ class _Eager:
         self.reads = 0
         self.repeat = self._repeat if host_loops else None
 
-    def stamp(self, slot: int, end: bool, red_count=None, fill: int = 0) -> None:
-        self.trace.stamp(slot, end, red_count, fill)
+    def stamp(self, slot: int, end: bool, values=None, fill: int = 0, counter: int = 0,
+              other=None) -> None:
+        self.trace.stamp(slot, end, values, fill, counter, other)
 
     def _repeat(self, flag: torch.Tensor, body, slot: int | None = None) -> None:
         while bool(flag):
@@ -407,7 +414,10 @@ class ReplayPlan:
 
     One plan runs one solve at a time, on `stream` when it has one (the
     batch's concurrent form gives each instance its own). `traced`: the
-    plan keeps a `timing.SpanRecord` (`trace`) that its solves stamp."""
+    plan keeps a `timing.SpanRecord` (`trace`) that its solves stamp. Where
+    the scale is estimated on a route of `peak_apart`, the init computes the
+    scale peak first (`_peak`, a span of its own in a traced plan) and hands
+    it to the rest of the init (`_prologue`)."""
 
     def __init__(self, params: SolverParams, c: int, device: torch.device, graphs: bool,
                  stream=None, pairs: int | None = None, traced: bool = False):
@@ -458,6 +468,8 @@ class ReplayPlan:
                 pairs or 1, f"C={c}" + (f" P={pairs}" if pairs else ""), stream,
             ) if traced else None
         self._slots = {name: k for k, name in enumerate(timing.SOLVE_SPANS)}
+        self.peak_apart = peak_apart(params, c)
+        self._peak_out: tuple = ()  # the init's scale peak (`_peak`), inside the init span
 
     # ---- buffers ------------------------------------------------------------
 
@@ -536,11 +548,19 @@ class ReplayPlan:
 
     # ---- the stages -----------------------------------------------------------
 
-    def _prologue(self, b: dict) -> dict:
+    def _peak(self, b: dict) -> tuple:
+        """The init's scale peak (`solver.psulvsb._init_peak`): its tensors,
+        an `InitPeak` without the fields it leaves None."""
+        peak = _init_peak(b["src"], b["dst"], b["keep"], self.params,
+                          self.layout.pairs(b["draws"], "peak"))
+        return tuple(t for t in peak if t is not None)
+
+    def _prologue(self, b: dict, *peak: torch.Tensor) -> dict:
         p, c, dev = self.params, self.c, self.device
         src, dst, keep = b["src"], b["dst"], b["keep"]
+        peak = InitPeak(*peak, *(None,) * (len(InitPeak._fields) - len(peak))) if peak else None
         red_i, red_j, red_count, red_pool = _init_stage(
-            src, dst, keep, p, None, self.layout.init_draws(b["draws"]))
+            src, dst, keep, p, None, self.layout.init_draws(b["draws"]), peak)
         # adoptive_thr_multiplier = 1 + |reduced| / |ori| (registration.cc:669),
         # in float64 and rounded once, as the staged solver's host arithmetic.
         n_reduced = (keep == 1).sum().to(_F64)
@@ -610,7 +630,8 @@ class ReplayPlan:
 
         return self._vmap(finish, b, clique)
 
-    def _local_round(self, b: dict, b_rate, b_one: bool, repeat=None, live=None):
+    def _local_round(self, b: dict, b_rate, b_one: bool, repeat=None, live=None,
+                     scale_span=contextlib.nullcontext):
         # A hypothesis' graph at the b_rate == 1.0 round has at most basic_cap
         # edges, which bounds its clique, so a fixed step count is exact.
         bcap = min(self.params.basic_cap, b["s_i"].shape[0])
@@ -618,7 +639,7 @@ class ReplayPlan:
             b["src"], b["dst"], b["s_i"], b["s_j"], b["s_ok"], b["s_count"], b["s_pts"],
             b_rate, b_one, b["hs.host_r"], _load(WarmState, "warm", b), b["thr"],
             self.params, clique_max_steps=max_clique_size_for_edges(bcap), track_extras=False,
-            sync_free=self.sync_free, repeat=repeat, clique_live=live,
+            sync_free=self.sync_free, repeat=repeat, clique_live=live, scale_span=scale_span,
         )
 
     def _sample(self, b: dict, r: int) -> dict:
@@ -635,9 +656,10 @@ class ReplayPlan:
                     "flag.round_not_last": ~last, "stat.rounds": b["stat.rounds"] + 1})
         return out
 
-    def _local(self, b: dict, r: int, k, b_one: bool, repeat=None, live=None) -> dict:
+    def _local(self, b: dict, r: int, k, b_one: bool, repeat=None, live=None,
+               scale_span=contextlib.nullcontext) -> dict:
         b_rate = 1.0 if b_one else pick(b["b_rates"], b["carry.rate_idx"])
-        start, step = self._local_round(b, b_rate, b_one, repeat, live)
+        start, step = self._local_round(b, b_rate, b_one, repeat, live, scale_span)
         state = _load(LocalState, "local", b, iterations=0, host_syncs=0, extras=start.extras)
         draws = b["draws"]
         state = step(state, gumbel_of(self.layout.uniform(draws, "u_local", r, k)),
@@ -688,23 +710,28 @@ class ReplayPlan:
                 "sol.count": b["hs.best_count"]}
 
     def _finalize(self, b: dict) -> dict:
-        rotation, translation, _, _ = _finalize_stage(
+        """The refinement, and the count of the pose it returns."""
+        rotation, translation, count, _, _ = _finalize_counted(
             b["src"], b["dst"], _load(HostState, "hs", b), _load(WarmState, "best_sampled", b),
-            self.params, rot_method=self.rot_method,
+            b["thr"], self.params, rot_method=self.rot_method,
         )
-        return {"sol.rotation": rotation, "sol.translation": translation}
+        return {"sol.rotation": rotation, "sol.translation": translation, "sol.count": count}
 
     def _local_batch(self, ctl, b: dict, r: int, k, b_one: bool) -> dict:
         """One local batch. With a pair axis its rotation loops test any pair
         inside the loop's mask (`_pair_repeat`), and the exact clique round
-        searches the graphs of those pairs alone (each pair's flag `live`)."""
+        searches the graphs of those pairs alone (each pair's flag `live`).
+        A traced plan stamps its scale estimate (`solve.local.scale`)."""
+        def span():
+            return self._span(ctl, "solve.local.scale")
+
         if self.pairs is None:
-            return self._local(b, r, k, b_one, ctl.repeat)
+            return self._local(b, r, k, b_one, ctl.repeat, scale_span=span)
         repeat = self._pair_repeat(ctl)
         if self.exact_clique and b_one:
-            return self._vmap(lambda bb, live: self._local(bb, r, k, b_one, repeat, live), b,
-                              self._masks[-1])
-        return self._vmap(lambda bb: self._local(bb, r, k, b_one, repeat), b)
+            return self._vmap(lambda bb, live: self._local(bb, r, k, b_one, repeat, live, span),
+                              b, self._masks[-1])
+        return self._vmap(lambda bb: self._local(bb, r, k, b_one, repeat, scale_span=span), b)
 
     # ---- the control flow, one pair or a pair axis ---------------------------
 
@@ -771,25 +798,40 @@ class ReplayPlan:
 
     # ---- the solve, described once for both controls -------------------------
 
-    def _span(self, ctl, name: str, thinned: bool = False):
+    def _span(self, ctl, name: str, counter: str | None = None):
         """Stamps around a stage where the control traces (a traced plan's
         graph and its plain version), else nothing. A control without a
-        `trace` traces nothing. `thinned`: the closing stamp counts the pairs
-        whose reduced set (`red_count`, the init's) outgrew the pool's fill,
-        so that the init's priority, not membership alone, chose the pool
-        (the `init_thinned` counter)."""
+        `trace` traces nothing. `counter`, one of `timing.STAMP_COUNTERS`:
+        the closing stamp adds the pairs it counts (`_counted`)."""
         if getattr(ctl, "trace", None) is None:
             return contextlib.nullcontext()
-        return self._stamped(ctl, self._slots[name], thinned)
+        return self._stamped(ctl, self._slots[name], counter)
+
+    def _counted(self, counter: str) -> tuple:
+        """(values, fill, other) that a closing stamp reads for `counter`,
+        from what the graph holds as the span closes, so that counting adds
+        no buffer and no operation: `init_thinned`, the pairs whose reduced
+        set (`red_count`, the init's) outgrew the pool's fill, so that the
+        init's priority, not membership alone, chose the pool;
+        `init_uncertified`, the pairs whose scale peak failed the
+        histogram's certificate; `count_refit`, the pairs whose returned
+        count is not the host best's."""
+        b = self.bufs
+        if counter == "init_thinned":
+            return b["red_count"], self.params.pool_fill, None
+        if counter == "init_uncertified":
+            return self._peak_out[1], 0, None  # InitPeak.certified
+        return b["sol.count"], 0, b["hs.best_count"]
 
     @contextlib.contextmanager
-    def _stamped(self, ctl, slot: int, thinned: bool = False):
+    def _stamped(self, ctl, slot: int, counter: str | None = None):
         ctl.stamp(slot, False)
         yield
-        if thinned:
-            ctl.stamp(slot, True, self.bufs["red_count"], self.params.pool_fill)
-        else:
+        if counter is None:
             ctl.stamp(slot, True)
+        else:
+            values, fill, other = self._counted(counter)
+            ctl.stamp(slot, True, values, fill, timing.STAMP_COUNTERS.index(counter), other)
 
     def _local_step(self, ctl, b: dict, r: int, k, b_one: bool) -> None:
         with self._span(ctl, "solve.local"):
@@ -805,14 +847,18 @@ class ReplayPlan:
                 b[name].zero_()
             self._masks = [b["flag.always"]] if batched else []
             for _ in self._when(ctl, "flag.always", HEAVY):
-                with self._span(ctl, "solve.init", thinned=True):
-                    self._apply(self._vmap(self._prologue, b))
+                with self._span(ctl, "solve.init", "init_thinned"):
+                    if self.peak_apart:
+                        with self._span(ctl, "solve.init.peak", "init_uncertified"):
+                            self._peak_out = self._vmap(self._peak, b)
+                    self._apply(self._vmap(self._prologue, b, *self._peak_out))
+                    self._peak_out = ()
                 if p.clique_eager:  # a successful seed wins over GROR's
                     with self._span(ctl, "solve.clique_seed"):
                         self._apply(self._seed(b, "keep", ctl, ("warm", "best_sampled")))
             for r in range(self.rounds):
                 self._round(ctl, r)
-            with self._span(ctl, "solve.finalize"):
+            with self._span(ctl, "solve.finalize", "count_refit"):
                 self._apply(self._vmap(self._solution, b))
                 if p.enable_refinement:
                     for _ in self._when(ctl, "flag.refine"):

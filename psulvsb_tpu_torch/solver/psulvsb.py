@@ -22,7 +22,9 @@ or estimated scale:
   rule replayed over the batch), `_host_stage` (scoring on every point, the chi(3) self-update)
   and `_self_update_pairs`;
 - `_finalize_stage` runs a weighted Procrustes kept only if an RMSE gate
-  passes, then the optional global translation rescue.
+  passes, then the optional global translation rescue; the solve's
+  final_inlier_count is the consensus of the pose it returns
+  (`_finalize_counted`).
 
 Every stage that draws random numbers takes them as an optional argument
 (hash constants, pair draws, sort keys, Gumbel keys, uniforms) and
@@ -39,6 +41,7 @@ counts those reads in info["host_syncs"].
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import NamedTuple
@@ -226,6 +229,55 @@ class InitDraws(NamedTuple):
         )
 
 
+class InitPeak(NamedTuple):
+    """The scale peak of a "dense" or "exact_hist" init (`_init_peak`), which
+    the init builds its reduced set around."""
+
+    peak: torch.Tensor  # () int64, the peak bin taken
+    certified: torch.Tensor  # () bool, the histogram's own peak passed its certificate
+    red_exact: torch.Tensor | None  # () int64, the exact |peak ± 1| count ("exact_hist")
+
+
+def peak_apart(params: SolverParams, c: int) -> bool:
+    """Whether the init of C correspondences takes a certified histogram
+    peak, which `_init_peak` computes apart from the reduced set: the scale
+    estimated on the "dense" or "exact_hist" route."""
+    return params.estimate_scaling and init_route(params, c) in ("dense", "exact_hist")
+
+
+def _init_peak(ori_src, ori_dst, keep_mask, params: SolverParams, peak_pairs) -> InitPeak:
+    """The scale peak of the "dense" and "exact_hist" inits.
+
+    "dense": `exact_peak_bin` (the histogram kernel, coarse and fine pass)
+    gives the peak and its certificate. "exact_hist": the histogram kernel
+    sweeps all pairs into exact_hist_bins bins of width 1 / hist_bins_per_unit
+    (the tail clamped into the last), giving the exact peak bin and the exact
+    |peak ± 1| count; the peak is certified when the clamp bin holds less
+    than it and it is not at the window's edge. Where the certificate fails
+    the subsample peak over the random pairs `peak_pairs` is taken; both
+    candidates are computed and torch.where picks, so no host read."""
+    active = keep_mask == 1
+    red_exact = None
+    if init_route(params, ori_src.shape[1]) == "dense":
+        peak_k, _, certified = exact_peak_bin(
+            ori_src, ori_dst, active, bins_per_unit=params.hist_bins_per_unit
+        )
+    else:
+        nb = params.exact_hist_bins
+        counts = pair_ratio_histogram(
+            ori_src, ori_dst, active, bins_per_unit=params.hist_bins_per_unit, num_bins=nb
+        )
+        interior = counts[: nb - 1]
+        peak_k = torch.argmax(interior)
+        certified = (counts[nb - 1] < _pick(interior, peak_k)) & (peak_k < nb - 2)
+        start = torch.clamp(peak_k - 1, 0, nb - 3)
+        red_exact = counts.index_select(0, start + torch.arange(3, device=counts.device)).sum()
+        # peak 0 slides the 3-bin window to {0, 1, 2}; membership is {0, 1}.
+        red_exact = red_exact - torch.where(peak_k == 0, counts[2], torch.zeros_like(counts[2]))
+    peak_sub = _subsample_peak(ori_src, ori_dst, active, params, peak_pairs)
+    return InitPeak(torch.where(certified, peak_k, peak_sub), certified, red_exact)
+
+
 def _init_stage_sampled(ori_src, ori_dst, keep_mask, params: SolverParams, draws: InitDraws):
     """Large-C init without the O(C^2) universe: the peak bin from a pair
     subsample (scale estimated), then the rejection fill; red_count is an
@@ -241,36 +293,21 @@ def _init_stage_sampled(ori_src, ori_dst, keep_mask, params: SolverParams, draws
     )
 
 
-def _init_stage_exact_hist(ori_src, ori_dst, keep_mask, params: SolverParams, draws: InitDraws):
-    """Large-C scale-estimation init with the exact histogram peak: the
-    histogram kernel sweeps all pairs into exact_hist_bins bins of width
-    1 / hist_bins_per_unit (the tail clamped into the last), giving the
-    exact peak bin and the exact |peak ± 1| count. The peak is certified
-    when the clamp bin holds less than it and it is not at the window's
-    edge; otherwise the subsample peak and the fill's estimated count are
-    taken. Both candidates are computed and chosen by torch.where, so the
-    choice costs no host read."""
+def _init_stage_exact_hist(ori_src, ori_dst, keep_mask, params: SolverParams, draws: InitDraws,
+                           peak: InitPeak):
+    """Large-C scale-estimation init with the exact histogram peak `peak`
+    (`_init_peak`): the rejection fill around the peak bin; red_count is the
+    exact |peak ± 1| count where the peak is certified, else the fill's
+    estimate. Both are computed and chosen by torch.where, so the choice
+    costs no host read."""
     c = ori_src.shape[1]
     active = keep_mask == 1
-    nb = params.exact_hist_bins
-    counts = pair_ratio_histogram(
-        ori_src, ori_dst, active, bins_per_unit=params.hist_bins_per_unit, num_bins=nb
-    )
-    interior = counts[: nb - 1]
-    peak_k = torch.argmax(interior)
-    certified = (counts[nb - 1] < _pick(interior, peak_k)) & (peak_k < nb - 2)
-    start = torch.clamp(peak_k - 1, 0, nb - 3)
-    red_exact = counts.index_select(0, start + torch.arange(3, device=counts.device)).sum()
-    # peak 0 slides the 3-bin window to {0, 1, 2}; membership is {0, 1}.
-    red_exact = red_exact - torch.where(peak_k == 0, counts[2], torch.zeros_like(counts[2]))
-    peak_sub = _subsample_peak(ori_src, ori_dst, active, params, draws.peak_pairs)
-    peak_bin = torch.where(certified, peak_k, peak_sub)
     red_i, red_j, red_est, pool = _fill_reduced_pool(
-        ori_src, ori_dst, active, peak_bin, c * (c - 1) // 2, params,
+        ori_src, ori_dst, active, peak.peak, c * (c - 1) // 2, params,
         draws.fill_pairs, draws.fill_keys,
     )
     red_count = torch.where(
-        certified, torch.clamp(red_exact, max=params.reduced_cap), red_est
+        peak.certified, torch.clamp(peak.red_exact, max=params.reduced_cap), red_est
     )
     return red_i, red_j, red_count, pool
 
@@ -329,17 +366,15 @@ def _init_stage_dense(
     params: SolverParams,
     generator: torch.Generator | None = None,
     ab: torch.Tensor | None = None,
-    peak_pairs: tuple | None = None,
+    peak_bin: torch.Tensor | None = None,
 ):
     """Exact reduced set over the dense pair grid (registration.cc:744-767),
     compacted by `ops.init.dense_init` (on a card the kernel
     csrc/dense_init.cu, which holds no (C, C) array). Known scale: pair
     (i < j) is a member when | ‖s_j - s_i‖ - ‖d_j - d_i‖ | <= 2 noise_bound
     sqrt(cbar2). Scale estimated: when its ratio bin floor(ratio *
-    hist_bins_per_unit) lies within ±1 of the peak bin, which
-    `exact_peak_bin` (the histogram kernel, coarse and fine pass) gives, or,
-    where its certificate fails, the subsample peak over `peak_pairs`;
-    torch.where picks, so no host read.
+    hist_bins_per_unit) lies within ±1 of `peak_bin`, `_init_peak`'s
+    (`exact_peak_bin`, or where its certificate fails the subsample peak).
 
     Pair norms come from ‖a-b‖² = ‖a‖² + ‖b‖² - 2ab. Members are compacted
     into `fill` slots by their priority, a multiplicative-xorshift hash of
@@ -352,22 +387,11 @@ def _init_stage_dense(
     dev = ori_src.device
     pool_cap, fill_cap = _pool_caps(params)
     num_bins = int(params.hist_max_scale) * params.hist_bins_per_unit
-    peak = None
-    if params.estimate_scaling:
-        active = keep_mask == 1
-        peak, _, certified = exact_peak_bin(
-            ori_src, ori_dst, active, bins_per_unit=params.hist_bins_per_unit
-        )
-        if peak_pairs is None:
-            peak_pairs = _random_pairs(params.init_peak_sample, c, generator, dev)
-        peak = torch.where(
-            certified, peak, _subsample_peak(ori_src, ori_dst, active, params, peak_pairs)
-        )
     if ab is None:
         ab = torch.randint(1, 2**31 - 1, (2,), generator=generator, device=dev)
     beta = 2.0 * params.noise_bound * math.sqrt(params.cbar2)
     return dense_init(
-        ori_src, ori_dst, keep_mask, ab.to(device=dev, dtype=_I64), peak, beta,
+        ori_src, ori_dst, keep_mask, ab.to(device=dev, dtype=_I64), peak_bin, beta,
         params.hist_bins_per_unit, num_bins, fill_cap, pool_cap, params.reduced_cap,
     )
 
@@ -403,27 +427,33 @@ def _init_stage(
     params: SolverParams,
     generator: torch.Generator | None = None,
     draws: InitDraws = InitDraws(),
+    peak: InitPeak | None = None,
 ):
     """Initial reduced set (registration.cc:682-767), compacted into an
     explicit (i, j) pair-index array; the mode comes from `init_route`.
     keep_mask: (C,) in {1, 0, -1} from the histogram pre-filter. `draws`
-    holds any random inputs given instead of drawn.
+    holds any random inputs given instead of drawn. On a route of
+    `peak_apart` the init is the scale peak (`_init_peak`, or the `peak`
+    given) and the reduced set around it.
 
     Returns (red_i (pool,), red_j (pool,), red_count (), pool_count ())."""
     c = ori_src.shape[1]
     mode = init_route(params, c)
-    if mode == "dense":
-        return _init_stage_dense(
-            ori_src, ori_dst, keep_mask, params, generator, draws.ab, draws.peak_pairs
-        )
     if mode == "exact":
         return _init_stage_exact(ori_src, ori_dst, keep_mask, params, draws.exact_keys, generator)
-    draws = draws.resolve(c, params, generator, ori_src.device, peak=params.estimate_scaling)
-    stage = {
-        "sampled": _init_stage_sampled,
-        "exact_hist": _init_stage_exact_hist,
-        "exact_beta": _init_stage_exact_beta,
-    }[mode]
+    if peak is None and peak_apart(params, c):
+        pairs = draws.peak_pairs
+        if pairs is None:
+            pairs = _random_pairs(params.init_peak_sample, c, generator, ori_src.device)
+        peak = _init_peak(ori_src, ori_dst, keep_mask, params, pairs)
+    if mode == "dense":
+        return _init_stage_dense(ori_src, ori_dst, keep_mask, params, generator, draws.ab,
+                                 None if peak is None else peak.peak)
+    draws = draws.resolve(c, params, generator, ori_src.device,
+                          peak=mode == "sampled" and params.estimate_scaling)
+    if mode == "exact_hist":
+        return _init_stage_exact_hist(ori_src, ori_dst, keep_mask, params, draws, peak)
+    stage = {"sampled": _init_stage_sampled, "exact_beta": _init_stage_exact_beta}[mode]
     return stage(ori_src, ori_dst, keep_mask, params, draws)
 
 
@@ -743,6 +773,7 @@ def _local_round(
     sync_free: bool = False,
     repeat=None,
     clique_live: torch.Tensor | None = None,
+    scale_span=contextlib.nullcontext,
 ):
     """One host round's local RANSAC loop (registration.cc:903-1398) as its
     starting `LocalState` and a function `step(state, g, u) -> LocalState`
@@ -762,7 +793,9 @@ def _local_round(
     back (`exact_clique_points`), for the hypotheses of a live pair only when
     `clique_live` (a () bool: the batched plan's pair mask) is given.
     Without `track_extras` the winning hypothesis' stage masks
-    (`state.extras`, behind the inlier getters) are not carried along."""
+    (`state.extras`, behind the inlier getters) are not carried along.
+    `scale_span()` gives the context around each batch's scale estimate (a
+    traced plan's stamps)."""
     dev = ori_src.device
     cap = s_i.shape[0]
     bcap = min(params.basic_cap, cap)
@@ -822,11 +855,12 @@ def _local_round(
         src_t = (ori_src[:, b_j] - ori_src[:, b_i]).movedim(0, 1)  # (batch, 3, bcap)
         dst_t = (ori_dst[:, b_j] - ori_dst[:, b_i]).movedim(0, 1)
         if params.estimate_scaling:
-            scale, sc_inl, _ = solve_scale_tls(
-                src_t, dst_t, nb, cb2, active=sel_ok, warm_scale=warm.scale,
-                use_warm=use_warm, max_draws=params.scale_max_draws,
-                estimator=params.scale_estimator, u=u, generator=generator,
-            )
+            with scale_span():
+                scale, sc_inl, _ = solve_scale_tls(
+                    src_t, dst_t, nb, cb2, active=sel_ok, warm_scale=warm.scale,
+                    use_warm=use_warm, max_draws=params.scale_max_draws,
+                    estimator=params.scale_estimator, u=u, generator=generator,
+                )
             rot_mask = sc_inl  # rotation runs on the scale inliers
         else:
             scale, sc_inl, _ = select_scale_inliers(src_t, dst_t, nb, cb2, sel_ok)
@@ -1262,6 +1296,34 @@ def _finalize_stage(
     return rotation, translation, better, rescued
 
 
+def pose_consensus(ori_src, ori_dst, keep_mask, scale, rotation, translation, thr):
+    """The consensus of the pose s (R p + t): the real columns (keep_mask
+    > -2) whose residual lies within `thr`, counted as `_host_stage` counts
+    the host best's."""
+    moved = scale * (mm(rotation, ori_src) + translation[:, None])
+    res = torch.sqrt(((ori_dst - moved) ** 2).sum(0))
+    return ((res <= thr) & (keep_mask > -2)).sum()
+
+
+def _finalize_counted(ori_src, ori_dst, hs: HostState, best_sampled: WarmState, thr,
+                      params: SolverParams, rot_method: str = "eigh"):
+    """`_finalize_stage`, and the solve's final_inlier_count: the consensus
+    of the pose it returns (the host best's scale with the final rotation
+    and translation) where the refinement was kept or the translation
+    rescued, else `hs.best_count` itself. The count is the returned pose's
+    (registration.cc:669, :1417-1444), not the host best's before the
+    refinement, which registration.cc:1528 and the JAX package return.
+
+    Returns (rotation, translation, count, refined () bool, rescued () bool)."""
+    rotation, translation, refined, rescued = _finalize_stage(
+        ori_src, ori_dst, hs, best_sampled, params, rot_method
+    )
+    moved = pose_consensus(ori_src, ori_dst, hs.keep_mask, hs.best.scale, rotation, translation,
+                           thr)
+    count = torch.where(refined | rescued, moved, hs.best_count)
+    return rotation, translation, count, refined, rescued
+
+
 # =============================================================================
 # The draws of a solve
 # =============================================================================
@@ -1369,22 +1431,23 @@ class DrawLayout:
         uniforms in [0, 1) with 24 random bits, as torch.rand makes them."""
         return (self.view(draws, name, *index) >> _UNIT_SHIFT).to(_F32) * (2.0 ** -24)
 
+    def pairs(self, draws: torch.Tensor, prefix: str):
+        """The init's random pairs (pi, pj) of the place `prefix` ("peak",
+        "fill"); None where the layout has none."""
+        if not self.has(f"{prefix}_a"):
+            return None
+        return _draw_pairs(self.integers(draws, f"{prefix}_a", 0, self.c),
+                           self.integers(draws, f"{prefix}_b", 0, max(self.c - 1, 1)))
+
     def init_draws(self, draws: torch.Tensor) -> InitDraws:
         """The init stage's random inputs."""
-        c = self.c
         if self.route == "exact":
             return InitDraws(exact_keys=self.integers(draws, "exact_keys", 0, _KEY_SPAN))
 
-        def pairs(prefix):
-            if not self.has(f"{prefix}_a"):
-                return None
-            return _draw_pairs(self.integers(draws, f"{prefix}_a", 0, c),
-                               self.integers(draws, f"{prefix}_b", 0, max(c - 1, 1)))
-
         return InitDraws(
             ab=self.integers(draws, "ab", 1, 2**31 - 1) if self.has("ab") else None,
-            peak_pairs=pairs("peak"),
-            fill_pairs=pairs("fill"),
+            peak_pairs=self.pairs(draws, "peak"),
+            fill_pairs=self.pairs(draws, "fill"),
             fill_keys=self.integers(draws, "fill_keys", 0, _KEY_SPAN) if self.has("fill_keys")
             else None,
         )
@@ -1423,6 +1486,9 @@ def psulvsb_solve(
     between rounds, as registration.cc:1475 does. profile=True adds
     per-stage wall times (info["stage_s"]) with a device synchronization
     after each stage, so a profiled solve is slower than a plain one.
+    The solution's final_inlier_count is the returned pose's consensus
+    (`_finalize_counted`); info["best_count"] is the host best's before the
+    refinement, the JAX solver's final_inlier_count.
     Besides the JAX solver's info, info reports "clique_seeded" (a clique
     seed ran and was adopted), "clique_rounds" (b_rate == 1.0 rounds that
     ran the clique branch), "exact_clique_searches" (native exact searches
@@ -1594,11 +1660,11 @@ def psulvsb_solve(
 
     # Final refinement (registration.cc:1499-1528).
     if params.enable_refinement and best_count != 0:
-        rotation, translation, refined, rescued = timed(
-            "finalize", _finalize_stage, ori_src, ori_dst, hs, best_sampled, params
+        rotation, translation, count, refined, rescued = timed(
+            "finalize", _finalize_counted, ori_src, ori_dst, hs, best_sampled, thr, params
         )
     else:
-        rotation, translation = hs.best.rotation, hs.best.translation
+        rotation, translation, count = hs.best.rotation, hs.best.translation, hs.best_count
         refined = torch.zeros((), dtype=torch.bool, device=dev)
         rescued = refined
 
@@ -1609,10 +1675,11 @@ def psulvsb_solve(
         scale=hs.best.scale,
         rotation=rotation,
         translation=translation,
-        final_inlier_count=hs.best_count,
+        final_inlier_count=count,
     )
     ex = best_extras
     info = {
+        "best_count": hs.best_count,
         "pro_host": hs.pro_host,
         "host_r": hs.host_r,
         "rounds": rounds,

@@ -134,15 +134,24 @@ def timed(name: str, sync_on=None):
 MAX_SPANS = 1 << 20  # host spans kept in one window; later ones are counted only
 CALIBRATION_TRIES = 20
 # The stage slots of a plan's record, in slot order; slot 0 is the whole
-# solve. The names are the staged solver's `stage_s` keys under "solve.".
+# solve. The stages' names are the staged solver's `stage_s` keys under
+# "solve."; a name with one more part is a span inside its stage (the scale
+# peak in the init, the scale estimate in a local batch: plans that estimate
+# the scale alone stamp them).
 SOLVE_SPANS = ("solve", "solve.init", "solve.clique_seed", "solve.sample", "solve.local",
-               "solve.host", "solve.self_update", "solve.finalize")
+               "solve.host", "solve.self_update", "solve.finalize", "solve.init.peak",
+               "solve.local.scale")
 SOLVE_RING = 1 << 16  # solves a plan's record keeps between two reads
 EVENT_LOG = 1 << 16  # stamps a plan's record logs between two reads (the trace's timeline)
 STAMP_LOG = 1 << 14  # eager stamps kept on a card between two reads
+# The counters a closing stamp adds to, each the pairs that the stamp's
+# values (one a pair) count: inits whose reduced set outgrew the pool's fill,
+# scale peaks that failed the histogram's certificate, solves whose returned
+# count is not the host best's.
+STAMP_COUNTERS = ("init_thinned", "init_uncertified", "count_refit")
 # Words of a stamp record's head: solves, events logged, rounds, local
-# batches, thinned inits (csrc/graph_cond.cu gives the layout).
-RECORD_HEAD = 5
+# batches, then STAMP_COUNTERS (csrc/graph_cond.cu gives the layout).
+RECORD_HEAD = 4 + len(STAMP_COUNTERS)
 
 
 class _Recorder:
@@ -162,8 +171,8 @@ class _Recorder:
         self.timeline: list[tuple] = []  # (name, plan, start, end, clock): logged stamps
         self.stamps: list[tuple] = []  # (name, request, end, value, clock): eager stamps
         self.counters = {"solves": 0, "pairs": 0, "rounds": 0, "local_batches": 0,
-                         "init_thinned": 0, "ring_overflow": 0, "log_overflow": 0,
-                         "span_overflow": 0}
+                         **dict.fromkeys(STAMP_COUNTERS, 0), "ring_overflow": 0,
+                         "log_overflow": 0, "span_overflow": 0}
         self.calibration: dict = {}
 
 
@@ -229,10 +238,11 @@ def current_request() -> int | None:
 
 
 def _stamp_lib(rec, slot, end, slots, cap=0, log_cap=0, rounds=None, batches=None, pairs=0,
-               red_count=None, fill=0):
+               values=None, fill=0, counter=0, other=None):
     from psulvsb_tpu_torch.solver.conditional import launch_stamp
 
-    launch_stamp(rec, slot, end, slots, cap, log_cap, rounds, batches, pairs, red_count, fill)
+    launch_stamp(rec, slot, end, slots, cap, log_cap, rounds, batches, pairs, values, fill,
+                 counter, other)
 
 
 class _StampLog:
@@ -281,8 +291,8 @@ class SpanRecord:
     the solves' ring and the stamps' log), on the CPU the same kept on the
     host. `names` are the slots (slot 0 the whole solve, whose closing adds
     the solve's `rounds` and `batches`, summed over its `pairs`; a closing
-    stamp given the init's reduced-set sizes adds how many outgrew the
-    pool's fill). `read()` folds it into the recorder and empties it."""
+    stamp given a value a pair adds how many exceed its threshold to one of
+    STAMP_COUNTERS). `read()` folds it into the recorder and empties it."""
 
     _ids = 0
 
@@ -314,22 +324,24 @@ class SpanRecord:
         self.open, self.total, self.count = [0] * n, [0] * n, [0] * n
         self.ring: list[list[int]] = []
         self.log: list[tuple] = []
-        self.solves = self.logged = self.n_rounds = self.n_batches = self.n_thinned = 0
+        self.solves = self.logged = self.n_rounds = self.n_batches = 0
+        self.counted = [0] * len(STAMP_COUNTERS)
 
     def next_index(self) -> int:
         """The index the next solve's `solve` span will have."""
         self.issued += 1
         return self.base + self.issued - 1
 
-    def stamp(self, slot: int, end: bool, red_count: torch.Tensor | None = None,
-              fill: int = 0) -> None:
+    def stamp(self, slot: int, end: bool, values: torch.Tensor | None = None,
+              fill: int = 0, counter: int = 0, other: torch.Tensor | None = None) -> None:
         """Open or close `slot` on the current stream (captured inside a
         capture), or on the host clock on the CPU. A closing stamp given
-        the pairs' reduced-set sizes `red_count` counts those above `fill`
-        (`init_thinned`)."""
+        the pairs' `values` adds to the counter STAMP_COUNTERS[counter] the
+        pairs whose value is above `fill` (int64), other than `other`'s
+        (int64, with `other`) or false (bool)."""
         if self.cuda:
             _stamp_lib(self.rec, slot, end, len(self.names), SOLVE_RING, EVENT_LOG,
-                       self.rounds, self.batches, self.pairs, red_count, fill)
+                       self.rounds, self.batches, self.pairs, values, fill, counter, other)
             return
         now = time.perf_counter_ns()
         if end:
@@ -345,8 +357,12 @@ class SpanRecord:
                 self.solves += 1
                 self.n_rounds += int(self.rounds.sum())
                 self.n_batches += int(self.batches.sum())
-        if end and red_count is not None:
-            self.n_thinned += int((red_count > fill).sum())
+        if end and values is not None:
+            if values.dtype == torch.bool:
+                hit = ~values
+            else:
+                hit = values != other if other is not None else values > fill
+            self.counted[counter] += int(hit.sum())
         if len(self.log) < EVENT_LOG:
             self.log.append((slot, end, now))
         self.logged += 1
@@ -361,7 +377,7 @@ class SpanRecord:
                 words = self.rec.tolist()
                 self.rec.zero_()
             total, count = words[n:2 * n], words[2 * n:3 * n]
-            solves, logged, rounds, batches, thinned = words[3 * n:3 * n + RECORD_HEAD]
+            solves, logged, rounds, batches, *counted = words[3 * n:3 * n + RECORD_HEAD]
             ring_at = 3 * n + RECORD_HEAD
             ring = [words[ring_at + 2 * i:ring_at + 2 * i + 2]
                     for i in range(min(solves, SOLVE_RING))]
@@ -371,8 +387,8 @@ class SpanRecord:
             clock = "device"
         else:
             total, count, ring, log_ = self.total, self.count, self.ring, self.log
-            solves, logged, rounds, batches, thinned = (
-                self.solves, self.logged, self.n_rounds, self.n_batches, self.n_thinned)
+            solves, logged, rounds, batches, counted = (
+                self.solves, self.logged, self.n_rounds, self.n_batches, self.counted)
             clock = "host"
         rec = _REC
         for name, ns, k in zip(self.names, total, count):
@@ -393,7 +409,8 @@ class SpanRecord:
         c["pairs"] += solves * self.pairs
         c["rounds"] += rounds
         c["local_batches"] += batches
-        c["init_thinned"] += thinned
+        for name, k in zip(STAMP_COUNTERS, counted):
+            c[name] += k
         c["ring_overflow"] += max(0, solves - SOLVE_RING)
         c["log_overflow"] += max(0, logged - EVENT_LOG)
         self.base += solves
@@ -550,12 +567,14 @@ def attribute_gaps(calls, spans) -> list[dict]:
 
 def _summary(snap_ops: dict, solves, prefilters, calls) -> None:
     """Add the derived device spans: `solve.control` (the whole solve less
-    its stage spans: the conditional nodes, the stamps, the launch marks and
-    the gaps between the chain's kernels) and `call.outside_graph` (device
-    time inside a call outside every solve and pre-filter span)."""
+    its stage spans, those inside a stage not subtracted again: the
+    conditional nodes, the stamps, the launch marks and the gaps between the
+    chain's kernels) and `call.outside_graph` (device time inside a call
+    outside every solve and pre-filter span)."""
     whole = snap_ops.get("solve")
     if whole is not None:
-        stages = sum(v["ns"] for k, v in snap_ops.items() if k.startswith("solve."))
+        stages = sum(v["ns"] for k, v in snap_ops.items()
+                     if k.startswith("solve.") and k.count(".") == 1)
         snap_ops["solve.control"] = {"ns": whole["ns"] - stages, "count": whole["count"]}
     if calls:
         merged = _merge([(s, e) for s, e in solves] + [(s, e) for s, e in prefilters])
@@ -573,9 +592,10 @@ def snapshot() -> dict:
     them; "solves" (start_ns, end_ns, plan, index, pairs) from the plans'
     rings; "calls" and "device_spans" from the eager stamps; "timeline",
     each logged stage span (name, plan, start_ns, end_ns); "counters"
-    (solves, pairs, rounds, local batches, `init_thinned`: the pairs' solves
-    whose init thinned the reduced set to the pool's fill, overflows);
-    "gaps", each with
+    (solves, pairs, rounds, local batches, STAMP_COUNTERS: the pairs' solves
+    whose init thinned the reduced set to the pool's fill, whose scale peak
+    failed its certificate, whose returned count is not the host best's;
+    overflows); "gaps", each with
     the host span it is put down to, and "gaps_by_span" (ns summed, count,
     longest); "calibration", the fit from the host clock to the card's."""
     _read_devices()

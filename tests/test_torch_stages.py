@@ -14,7 +14,10 @@ Tolerances: `red_count` within 0.1% and reduced pools as sets with Jaccard
 order, so a pair at the window's edge may flip); the sample stage and the
 self-update exactly; the local stage equal counts and flags with the
 rotation within 1e-4 and the scale within 1e-5 relative; the host stage equal masks and counts with pro_host
-within 1e-6; the finalize stage within 1e-4.
+within 1e-6; the finalize stage within 1e-4. The port's solve returns the
+count of the pose it returns, where the JAX package returns the host best's
+(its final_inlier_count is hs.best_count); the port keeps that one in
+hs.best_count, held equal to JAX's.
 """
 
 import functools
@@ -227,9 +230,12 @@ def test_init_stage_dense_estimated_scale():
     subsample peak over JAX's pair draws (the JAX stage on the CPU takes
     the subsample peak)."""
     ch = _jax_chain(scaled=True)
-    red_i, red_j, red_count, pool = tps._init_stage_dense(
-        _t(ch["src"]), _t(ch["dst"]), _t(ch["keep"]), params_from_jax(ch["params"]),
-        ab=_t(ch["ab"]), peak_pairs=tuple(_t(x, torch.int64) for x in ch["peak_pairs"]),
+    params = params_from_jax(ch["params"])
+    assert tps.init_route(params, ch["src"].shape[1]) == "dense"
+    red_i, red_j, red_count, pool = tps._init_stage(
+        _t(ch["src"]), _t(ch["dst"]), _t(ch["keep"]), params,
+        draws=tps.InitDraws(ab=_t(ch["ab"]),
+                            peak_pairs=tuple(_t(x, torch.int64) for x in ch["peak_pairs"])),
     )
     j_i, j_j, j_count, j_pool = ch["init"]
     assert abs(int(red_count) - int(j_count)) <= 2
@@ -314,3 +320,27 @@ def test_finalize_stage():
     assert not bool(rescued)  # the rescue is off in these presets
     np.testing.assert_allclose(rot.numpy(), w_rot, atol=1e-4)
     np.testing.assert_allclose(trans.numpy(), w_trans, atol=1e-4)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_finalize_counts_the_pose_it_returns(scaled):
+    """On the JAX chain's final state the port's finalize returns the JAX
+    finalize's pose and, as the solve's count, that pose's consensus by the
+    host stage's rule where the refinement was kept, else the host best's
+    count. The host best's count, the JAX package's final_inlier_count, is
+    held to JAX's by the host-stage parity (`test_host_stage`,
+    `test_host_and_finalize_carry_the_scale`)."""
+    ch = _jax_chain(scaled=scaled)
+    src, dst, thr = _t(ch["src"]), _t(ch["dst"]), _t(ch["thr"])
+    hs = host_state_from_numpy(ch["hs_final"], "cpu")
+    rot, trans, count, refined, rescued = tps._finalize_counted(
+        src, dst, hs, warm_state_from_numpy(ch["rounds"][-1]["local"].best), thr,
+        params_from_jax(ch["params"]),
+    )
+    w_rot, w_trans, w_better = ch["finalize"]
+    assert bool(refined) == bool(w_better) and not bool(rescued)
+    np.testing.assert_allclose(rot.numpy(), w_rot, atol=1e-4)
+    np.testing.assert_allclose(trans.numpy(), w_trans, atol=1e-4)
+    res = torch.linalg.vector_norm(dst - hs.best.scale * (rot @ src + trans[:, None]), dim=0)
+    want = int(((res <= thr) & (hs.keep_mask > -2)).sum())
+    assert int(count) == (want if bool(refined) else int(hs.best_count))

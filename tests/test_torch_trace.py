@@ -8,7 +8,11 @@ they are held here to the plan's own `stats`. Counts are compared exactly;
 span times only by order and nesting (a CPU run gives no device time). The
 CUDA case holds a captured plan's stamps to its `stats`, and its node count
 to the untraced plan's, and skips here (`python -m pytest
-tests/test_torch_trace.py -m cuda --noconftest` on a card).
+tests/test_torch_trace.py -m cuda --noconftest` on a card). Where the scale
+is estimated, two spans lie inside their stages (the init's scale peak, each
+local batch's scale estimate), and the closing stamps count the scale peaks
+that failed their certificate and the returned counts that are not the host
+best's.
 """
 
 import json
@@ -26,7 +30,8 @@ from psulvsb_tpu_torch.utils import timing
 
 CAPS = dict(sampled_cap=256, basic_cap=64, hypothesis_batch=4)
 C = 200
-STAGES = set(timing.SOLVE_SPANS) - {"solve"}
+STAGES = {n for n in timing.SOLVE_SPANS if n.count(".") == 1}  # the stages of a solve
+NESTED = {"solve.init.peak": "solve.init", "solve.local.scale": "solve.local"}
 
 
 def _pair(seed: int, outliers: float = 0.6, c: int = C):
@@ -45,6 +50,9 @@ def _case(name: str):
         return SolverParams.preset_artificial(clique_init="off", **CAPS), _pair(1), 7
     if name == "gror":
         return SolverParams.preset_artificial_gror(gror_k_optimal=150, **CAPS), _pair(1), 2
+    if name == "unknown":  # the scale estimated, the target stretched by 2.5
+        src, dst, keep = _pair(1, outliers=0.75)
+        return SolverParams.preset_3dmatch(estimate_scaling=True, **CAPS), (src, 2.5 * dst, keep), 6
     return (SolverParams.preset_artificial(clique_init="auto", **CAPS),
             _pair(5, outliers=0.97, c=300), 3)
 
@@ -112,6 +120,122 @@ def test_plain_version_span_tree_follows_stats(tracing, case):
     assert len(stages) == sum(ops[k]["count"] for k in STAGES if k in ops)
     assert all(start <= s <= e <= end for s, e, _ in stages)
     assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))
+
+
+def _scaled_batch(pairs: int):
+    """Unknown-scale pairs at 75% wrong matches, targets stretched by 1.5 to 3.5."""
+    out = []
+    for k in range(pairs):
+        p = make_synthetic_pair(np.random.default_rng(60 + k), synthetic_cloud(C, seed=61 + k),
+                                0.01, 0.75, max_translation=2.0, outlier_mode="mismatch",
+                                test_scale=1.5 + 2.0 * k)
+        out.append((torch.as_tensor(np.asarray(p.src), dtype=torch.float32),
+                    torch.as_tensor(np.asarray(p.dst), dtype=torch.float32),
+                    torch.ones(C, dtype=torch.int64)))
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def _solve_batch(params, src, dst, keep, seeds, vectorized):
+    sols = register_batch(src, dst, keep, seeds, params, vectorized=vectorized, device="cpu")
+    pairs = len(seeds) if vectorized else None
+    plan = fused.plan_for(params, C, "cpu", pairs=pairs)
+    return sols, plan
+
+
+@pytest.mark.parametrize("vectorized", [False, True])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_scale_spans_nest_in_their_stages_and_the_counters_count(tracing, scaled, vectorized):
+    """At an estimated scale each init holds a scale peak span and each
+    local batch a scale estimate span; `init_uncertified` counts the pairs
+    whose histogram peak failed its certificate and `count_refit` the pairs
+    whose returned count is not the host best's. At known scale neither span
+    is stamped and no peak is counted. `solve.control` is the solve less its
+    stages, the spans inside them not subtracted again."""
+    from psulvsb_tpu_torch.ops.hist import exact_peak_bin
+
+    params = SolverParams.preset_3dmatch(estimate_scaling=scaled, **CAPS)
+    src, dst, keep = _scaled_batch(2)
+    seeds = [4, 5]
+    sols, plan = _solve_batch(params, src, dst, keep, seeds, vectorized)
+    batches = plan.stats["local_batches"]
+    snap = timing.snapshot()
+    ops, counters = snap["device"], snap["counters"]
+    tops = sum(v["ns"] for k, v in ops.items() if k in STAGES)
+    assert ops["solve.control"]["ns"] == ops["solve"]["ns"] - tops
+    if not scaled:
+        assert not set(NESTED) & set(ops) and counters["init_uncertified"] == 0
+    else:
+        assert ops["solve.init.peak"]["count"] == ops["solve.init"]["count"]
+        assert ops["solve.local.scale"]["count"] == ops["solve.local"]["count"]
+        if vectorized:  # one span a chunk, the batches of its longest pair
+            assert ops["solve.init"]["count"] == 1
+            assert ops["solve.local"]["count"] == max(batches)
+        for inner, outer in NESTED.items():
+            outers = [(s, e) for n, _, s, e in snap["timeline"] if n == outer]
+            for n, _, s, e in snap["timeline"]:
+                if n == inner:
+                    assert any(a <= s <= e <= b for a, b in outers), (inner, s, e)
+        certified = [bool(exact_peak_bin(src[k], dst[k], keep[k] == 1)[2]) for k in range(2)]
+        assert counters["init_uncertified"] == certified.count(False)
+    # The returned counts that are not the host best's, from the staged solve.
+    refit = 0
+    for k, seed in enumerate(seeds):
+        sol, info = psulvsb_solve(src[k], dst[k], keep[k], params,
+                                  torch.Generator().manual_seed(seed))
+        assert int(sol.final_inlier_count) == int(sols.final_inlier_count[k])
+        refit += int(sol.final_inlier_count) != int(info["best_count"])
+    assert counters["count_refit"] == refit
+    if vectorized:
+        assert refit == int((sols.final_inlier_count != plan.bufs["hs.best_count"]).sum())
+
+
+@pytest.mark.parametrize("pairs", [None, 2])
+def test_a_traced_scale_plan_holds_the_untraced_buffers_and_answers(pairs):
+    """Every scale plan computes the init's peak apart from the rest; tracing
+    only stamps around it: the traced plan holds the untraced plan's
+    buffers and gives its answers bit for bit."""
+    params = SolverParams.preset_3dmatch(estimate_scaling=True, **CAPS)
+    src, dst, keep = _scaled_batch(2)
+    held, answers = {}, {}
+    fused.clear_plan_cache()
+    try:
+        for traced in (False, True):
+            timing.enable(traced)
+            sols, plan = _solve_batch(params, src, dst, keep, [8, 9], pairs is not None)
+            assert plan.peak_apart
+            held[traced] = {name: tuple(t.shape) for name, t in plan.bufs.items()}
+            answers[traced] = sols
+    finally:
+        timing.enable(False)
+        fused.clear_plan_cache()
+        timing.start()
+    assert held[False] == held[True]
+    assert all(torch.equal(a, b) for a, b in zip(answers[False], answers[True]))
+
+
+def test_a_closing_stamp_counts_by_the_kind_of_its_values():
+    """On the host, as csrc/graph_cond.cu on a card: int64 values above the
+    threshold, int64 values other than the others', bool flags that are
+    false; each into its own counter."""
+    rounds = batches = torch.zeros(3, dtype=torch.int64)
+    record = timing.SpanRecord(("solve", "solve.init"), torch.device("cpu"), rounds, batches,
+                               3, "counting")
+    timing.start()
+    record.stamp(1, False)
+    record.stamp(1, True, torch.tensor([5, 9, 12]), 8, 0)
+    record.stamp(1, False)
+    record.stamp(1, True, torch.tensor([True, False, False]), 0, 1)
+    record.stamp(1, False)
+    record.stamp(1, True, torch.tensor([3, 4, 5]), 0, 2, torch.tensor([3, 0, 5]))
+    record.read()
+    counters = timing.snapshot()["counters"]
+    assert [counters[n] for n in timing.STAMP_COUNTERS] == [2, 2, 1]
+
+
+def test_the_kernels_record_head_is_the_hosts():
+    src = open(os.path.join(os.path.dirname(fused.__file__), "..", "csrc", "graph_cond.cu")).read()
+    assert f"#define RECORD_HEAD {timing.RECORD_HEAD}\n" in src
+    assert timing.RECORD_HEAD == 4 + len(timing.STAMP_COUNTERS)
 
 
 def test_one_calls_spans_share_a_request_id(tracing):
@@ -299,11 +423,13 @@ def test_trace_exports_host_and_device_spans_on_one_timeline(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["anchor", "lazy_seed"])
+@pytest.mark.parametrize("name", ["anchor", "lazy_seed", "unknown"])
 def test_cuda_captured_stamps_follow_stats_and_cost_no_nodes_untraced(name):
     """A captured plan's stamps give the counts of its `stats`, and the
     same plan captured with tracing off has fewer graph nodes, short by
-    exactly the stamps and launch marks that it leaves out."""
+    exactly the stamps and launch marks that it leaves out. At an estimated
+    scale the scale peak and each batch's scale estimate are stamped too,
+    and the counters agree with the plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     params, (src, dst, keep), seed = _case(name)
@@ -327,6 +453,23 @@ def test_cuda_captured_stamps_follow_stats_and_cost_no_nodes_untraced(name):
     assert snap["counters"]["local_batches"] == stats["local_batches"]
     (start, end, *_), = snap["solves"]
     assert 0 < end - start and ops["solve.control"]["ns"] >= 0
+    assert ops["solve.control"]["ns"] == ops["solve"]["ns"] - sum(
+        v["ns"] for k, v in ops.items() if k in STAGES)
+    if name == "unknown":
+        assert ops["solve.init.peak"]["count"] == 1
+        assert ops["solve.local.scale"]["count"] == stats["local_batches"]
+        timing.enable(True)
+        try:
+            timing.start()
+            psulvsb_register(src, dst, keep, seed, params, device="cpu")  # the plain version
+            plain = timing.snapshot()["counters"]
+        finally:
+            timing.enable(False)
+        assert snap["counters"]["init_uncertified"] == plain["init_uncertified"]
+        refit = int(traced.bufs["sol.count"].cpu() != traced.bufs["hs.best_count"].cpu())
+        assert snap["counters"]["count_refit"] == refit
+    else:
+        assert not set(NESTED) & set(ops)
     psulvsb_register(src, dst, keep, seed, params)  # the untraced plan
     plain = fused.plan_for(params, c, "cuda")
     assert plain.trace is None and plain.stamp_nodes == plain.mark_nodes == 0
