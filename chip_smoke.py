@@ -314,7 +314,8 @@ PROFILER_ATTEMPTS = 6
 LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
 ANCHOR_C = 1889
 N_TIMED_SOLVES = 5
-KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree", "dense_init")
+KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree", "dense_init",
+           "local_batch")
 CAPS = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)  # bench.py:95
 DEGREE_SIZES = [197, 1250, 1889, 5000, 8192]
 DEGREE_TIMED_SIZES = [1250, 1889, 8192]  # the front end's C, the anchor's, the dense limit
@@ -819,36 +820,39 @@ def drive_path(name, device, card, route=None):
 
 def phase_slice(device, card: str) -> dict:
     _, launches = drive_path("anchor", device, card)
-    for name in ("gnc_batch", "dense_init"):
+    for name in ("gnc_batch", "dense_init", "local_pick", "local_accept"):
         if launches[name] <= 0:
             raise AssertionError(f"the anchor solves never launched {name}")
-    return {"launches": launches["gnc_batch"], "dense_init": launches["dense_init"]}
+    return {"launches": launches["gnc_batch"], "dense_init": launches["dense_init"],
+            "local_pick": launches["local_pick"], "local_accept": launches["local_accept"]}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0 (the launches the plans' graphs
     counted on the device too)."""
-    from psulvsb_tpu_torch.ops import gnc, hist, init, pairs
+    from psulvsb_tpu_torch.ops import gnc, hist, init, local, pairs
     from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
     flush_launch_counts()
     gnc.KERNEL_LAUNCHES = 0
     pairs.KERNEL_LAUNCHES = 0
     init.KERNEL_LAUNCHES = 0
-    for name in hist.KERNEL_LAUNCHES:
-        hist.KERNEL_LAUNCHES[name] = 0
+    for table in (hist.KERNEL_LAUNCHES, local.KERNEL_LAUNCHES):
+        for name in table:
+            table[name] = 0
 
 
 def read_launches() -> dict:
     """Every kernel's launch count, with the launches the plans' graphs
     counted on the device since the last read added in."""
-    from psulvsb_tpu_torch.ops import gnc, hist, init, pairs
+    from psulvsb_tpu_torch.ops import gnc, hist, init, local, pairs
     from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
     flush_launch_counts()
     return {
         "gnc_batch": gnc.KERNEL_LAUNCHES, **hist.KERNEL_LAUNCHES,
         "consistency_degree": pairs.KERNEL_LAUNCHES, "dense_init": init.KERNEL_LAUNCHES,
+        **local.KERNEL_LAUNCHES,
     }
 
 
@@ -1452,6 +1456,160 @@ def phase_dense_init(device, card: str) -> dict:
     out["fused_launches"] = launched
     return out
 
+
+
+LOCAL_BUCKETS = [(2048, 1500), (4096, 3500), (6144, 5000), (8192, 6500)]  # (C, real points): the cells'
+# Operations a point of the accept's scores (R p + t, a scale, the residual and its norm, the
+# test) and an endpoint value of its stabbing (R p and the residual, three axes), and a key of
+# the pick (the draw's uniform, two logarithms, the comparisons of a selection).
+LOCAL_SCORE_OPS = 25
+LOCAL_ENDPOINT_OPS = 24
+LOCAL_KEY_OPS = 6
+
+
+def local_inputs(c, active, seed, device, caps=CAPS):
+    """A 3DMatch-protocol pair of `active` points padded to C (keep -2), its
+    dense init and sample stage at `caps` on the card, a warm state near the
+    truth, the threshold and a batch of draws: what a local batch of
+    `3dmatch.inorder` takes."""
+    from psulvsb_tpu_torch import SolverParams
+    from psulvsb_tpu_torch.ops.local import gumbel_of
+    from psulvsb_tpu_torch.solver import psulvsb as ps
+    from psulvsb_tpu_torch.solver.basic import WarmState
+
+    params = SolverParams.preset_3dmatch(**caps)
+    src, dst, keep, _ = dense_inputs(c, active, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    layout = ps.DrawLayout(params, c, 1)
+    draws = layout.fill(gen, device)
+    red = ps._init_stage(src, dst, keep, params, None, layout.init_draws(draws))
+    s = ps._sample_stage(*red, 0.5, params, c, None, gumbel_of(layout.uniform(draws, "u_sample", 0)))
+    warm = WarmState(torch.ones((), device=device), torch.eye(3, device=device),
+                     torch.zeros(3, device=device), torch.zeros((), dtype=torch.bool, device=device))
+    thr = torch.full((), params.pr_noise * 2.0, device=device)
+    keys = layout.view(draws, "u_local", 0, 0)
+    return params, src, dst, s, warm, thr, keys
+
+
+def phase_local_batch(device, card: str) -> dict:
+    """The local batch's two kernels (csrc/local_batch.cu) against their
+    plain versions at the cells' buckets, one pair and PAIR_AXIS_P through
+    vmap, the benchmark's caps (2048, 256, 4): the basic sets equal, the
+    batch's state equal, the pose within 1e-5; each kernel's device time a
+    launch (a captured graph of 20) beside its bound, and the plain chain's
+    (pick and accept, CUDA events, P calls); then the fused main path: one
+    pick and one accept launch a local batch."""
+    from psulvsb_tpu_torch import psulvsb_register
+    from psulvsb_tpu_torch.ops import local
+    from psulvsb_tpu_torch.solver import fused as fz
+    from psulvsb_tpu_torch.solver.basic import WarmState, rotation_batch
+
+    out = {"times": {}, "max_err": 0.0}
+    for c, active in LOCAL_BUCKETS:
+        for p in (1, PAIR_AXIS_P):
+            cases = [local_inputs(c, active, 90 + q, device) for q in range(p)]
+            params = cases[0][0]
+            b, s_cap, bcap = params.hypothesis_batch, cases[0][3][0].shape[0], params.basic_cap
+            rule = local.AcceptRule.of(params)
+            zero = torch.zeros((), dtype=torch.int64, device=device)
+            false = torch.zeros((), dtype=torch.bool, device=device)
+            st = local._State(zero, zero, zero, false, false, None)
+
+            def stack(i, j=None):
+                return torch.stack([x[i] if j is None else x[i][j] for x in cases])
+
+            def pick(keys, si, sj, ok, cnt, sr, ds, ft):
+                return tuple(local.local_pick(keys, si, sj, ok, cnt, 0.5, sr, ds, bcap, ft,
+                                              params.inner_noise_bound, params.inner_cbar2, True))
+
+            ft = torch.zeros(p, dtype=torch.bool, device=device)
+            pargs = (stack(6), stack(3, 0), stack(3, 1), stack(3, 2), stack(3, 3), stack(1),
+                     stack(2), ft)
+            picked = torch.func.vmap(pick)(*pargs)
+            rot = [rotation_batch(picked[3][q], picked[4][q], picked[2][q], picked[7][q],
+                                  cases[q][4].rotation, picked[8][q], params) for q in range(p)]
+            rots, rot_inl = torch.stack([r[0] for r in rot]), torch.stack([r[1] for r in rot])
+
+            def accept(sr, ds, pts, bi, bj, ri, R, sc, ws, wr, wt, f, thr, tk):
+                got = local.local_accept(sr, ds, pts, bi, bj, ri, R, sc, WarmState(ws, wr, wt, f),
+                                         st, zero, thr, rule, ticket=tk)
+                return (*got.best[:3], *got[1:8])
+
+            aargs = (stack(1), stack(2), stack(3, 4), picked[0], picked[1], rot_inl, rots,
+                     picked[5], stack(4, 0), stack(4, 1), stack(4, 2), ft, stack(5), picked[9])
+            accepted = torch.func.vmap(accept)(*aargs)
+            for q in range(p):
+                choose = local.basic_choose_of(cases[q][3][3], 0.5, bcap, False)
+                pp = local.local_pick_reference(cases[q][6], *cases[q][3][:3], choose, cases[q][1],
+                                                cases[q][2], bcap, ft[q], params.inner_noise_bound,
+                                                params.inner_cbar2, True)
+                for x, y in zip(picked[:5], pp[:5]):
+                    if not torch.equal(x[q], y):
+                        raise AssertionError(f"local_pick differs from its plain version at C={c}")
+                want = local.local_accept_reference(
+                    cases[q][1], cases[q][2], cases[q][3][4], picked[0][q], picked[1][q],
+                    rot_inl[q], rots[q], picked[5][q], cases[q][4], st, zero, cases[q][5], rule)
+                got = [t[q] for t in accepted]
+                same = all(torch.equal(g, w) for g, w in zip(got[3:], (
+                    want.best_count, want.local_r, want.pro_local, want.hypotheses, want.escalate,
+                    want.done, want.extras_valid))) and torch.equal(got[1], want.best.rotation)
+                err = float((got[2] - want.best.translation).abs().max())
+                if not same or err > 1e-5:
+                    raise AssertionError(f"local_accept differs from its plain version at C={c}: "
+                                         f"{got[3:]} vs {tuple(want[1:8])}, translation {err}")
+                out["max_err"] = max(out["max_err"], err)
+
+            def plain_chain():
+                for q in range(p):
+                    choose = local.basic_choose_of(cases[q][3][3], 0.5, bcap, False)
+                    pp = local.local_pick_reference(cases[q][6], *cases[q][3][:3], choose,
+                                                    cases[q][1], cases[q][2], bcap, ft[q],
+                                                    params.inner_noise_bound, params.inner_cbar2,
+                                                    True)
+                    local.local_accept_reference(cases[q][1], cases[q][2], cases[q][3][4], pp.b_i,
+                                                 pp.b_j, rot_inl[q], rots[q], pp.scale,
+                                                 cases[q][4], st, zero, cases[q][5], rule)
+
+            pick_ms = graph_ms(lambda: torch.func.vmap(pick)(*pargs))
+            accept_ms = graph_ms(lambda: torch.func.vmap(accept)(*aargs))
+            plain_ms = median_ms(plain_chain, reps=5, warmup=1)
+            pick_bound = bound_ms(p * (b * s_cap * 8 + s_cap * 17 + b * bcap * (18 + 24 + 48)),
+                                  p * b * s_cap * LOCAL_KEY_OPS)
+            accept_bound = bound_ms(p * (c * 25 + b * bcap * 17 + b * 36),
+                                    p * ((b + 1) * active * LOCAL_SCORE_OPS
+                                         + b * 2 * bcap * LOCAL_ENDPOINT_OPS))
+            out["times"][(c, p)] = (pick_ms, accept_ms, plain_ms, pick_bound, accept_bound)
+            print(f"[local_batch] C={c} ({active} real) P={p} B={b} S={s_cap} bcap={bcap}: "
+                  f"pick {pick_ms * 1e3:.2f} us a launch, accept {accept_ms * 1e3:.2f} us (graphs "
+                  f"of 20); plain chain {plain_ms:.4f} ms ({p} pairs, CUDA events, median of 5); "
+                  f"bounds {pick_bound[0] * 1e3:.4f} us by {pick_bound[1]}, "
+                  f"{accept_bound[0] * 1e3:.4f} us by {accept_bound[1]}; roofline "
+                  f"{100 * pick_bound[0] / pick_ms:.2f}%, {100 * accept_bound[0] / accept_ms:.2f}%; "
+                  f"translation error {out['max_err']:.2e}")
+    from psulvsb_tpu_torch import SolverParams
+    from psulvsb_tpu_torch.utils import timing
+
+    params = SolverParams.preset_3dmatch(**CAPS)
+    src, dst, keep, _ = dense_inputs(4096, 3500, 78, device)
+    traced = timing.enabled()
+    timing.enable(True)  # a traced plan counts its graph's launches on the device
+    try:
+        psulvsb_register(src, dst, keep, 0, params, device=device)  # builds the plan
+        reset_launches()
+        for seed in range(1, 4):
+            psulvsb_register(src, dst, keep, seed, params, device=device)
+        launched = read_launches()
+        batches = fz.plan_for(params, 4096, device).stats["local_batches"]
+    finally:
+        timing.enable(traced)
+    print(f"[local_batch] fused main path (preset_3dmatch, C=4096 with 3500 real): 3 solves, "
+          f"local_pick {launched['local_pick']}, local_accept {launched['local_accept']} launches, "
+          f"the last solve's local batches {batches}; card: {card}")
+    if launched["local_pick"] != launched["local_accept"] or launched["local_accept"] < 3:
+        raise AssertionError(f"the fused main path must launch both kernels once a batch: "
+                             f"{launched}")
+    out["fused_launches"] = launched["local_accept"]
+    return out
 
 
 def phase_gror_slice(device, card: str) -> dict:
@@ -3151,6 +3309,7 @@ def main() -> int:
     wide = timed_phase("phase_wide", phase_wide, device)
     degree = timed_phase("phase_degree_kernel", phase_degree_kernel, device)
     dense = timed_phase("phase_dense_init", phase_dense_init, device, card)
+    batch_kernels = timed_phase("phase_local_batch", phase_local_batch, device, card)
     gror = timed_phase("phase_gror_slice", phase_gror_slice, device, card)
     timed_phase("phase_frontend", phase_frontend, device, card)
     timed_phase("phase_clique", phase_clique, device, card)
@@ -3226,6 +3385,10 @@ def main() -> int:
             degree["times"][ANCHOR_C]),
         row("dense_init", "dense_init.cu", "psulvsb_tpu/solver/psulvsb.py:320 (XLA, no Pallas)",
             "anchor", sl["dense_init"], dense["max_err"], dense["times"][(6144, 1)]),
+        *(row(name, "local_batch.cu", "psulvsb_tpu/solver/psulvsb.py:959 (XLA around Pallas GNC)",
+              "anchor", sl[name], batch_kernels["max_err"], (times[k], times[2], times[3 + k]))
+          for k, name in enumerate(("local_pick", "local_accept"))
+          for times in [batch_kernels["times"][(6144, 1)]]),
         pair_row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235",
                  ("anchor", 8), kern["pair_axis"]),
         pair_row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",

@@ -107,12 +107,13 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point `<name>_launch` of csrc/<name>.cu, built and loaded
-    on first use, with its int result and `argtypes` set once."""
+def launcher(name: str, argtypes: list, library: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry point `<name>_launch` of csrc/<library>.cu (by default
+    csrc/<name>.cu), built and loaded on first use, with its int result and
+    `argtypes` set once."""
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        fn = getattr(load_library(name), f"{name}_launch")
+        fn = getattr(load_library(library or name), f"{name}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         _LAUNCHERS[name] = fn

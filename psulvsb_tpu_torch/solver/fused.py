@@ -73,7 +73,7 @@ With a pair axis the stamps time the P pairs together.
 A plan with `pairs=P` is `jax.vmap` of the solve over P pairs
 (parallel/pairs.py's `vectorized=True`), for every setting: one program
 whose every per-pair buffer has a leading P, and each stage runs once for
-all P through `torch.func.vmap` (the four kernels take that axis through
+all P through `torch.func.vmap` (the kernels take that axis through
 their operators' vmap rules: one launch for the P pairs). Every IF and
 WHILE above runs while ANY pair's flag holds, and the pairs whose own flag
 does not hold are frozen: a stage writes only the rows of the pairs inside
@@ -106,6 +106,7 @@ from psulvsb_tpu_torch.gror.gror import _gror_core
 from psulvsb_tpu_torch.ops import gnc as _gnc_ops
 from psulvsb_tpu_torch.ops import hist as _hist_ops
 from psulvsb_tpu_torch.ops import init as _init_ops
+from psulvsb_tpu_torch.ops import local as _local_ops
 from psulvsb_tpu_torch.ops import pairs as _pairs_ops
 from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.config import (
@@ -219,6 +220,7 @@ def _launch_counts() -> dict[str, int]:
         "consistency_degree": _pairs_ops.KERNEL_LAUNCHES,
         **_hist_ops.KERNEL_LAUNCHES,
         "dense_init": _init_ops.KERNEL_LAUNCHES,
+        **_local_ops.KERNEL_LAUNCHES,
     }
 
 
@@ -226,8 +228,9 @@ def _set_launch_counts(counts: dict[str, int]) -> None:
     _gnc_ops.KERNEL_LAUNCHES = counts["gnc_batch"]
     _pairs_ops.KERNEL_LAUNCHES = counts["consistency_degree"]
     _init_ops.KERNEL_LAUNCHES = counts["dense_init"]
-    for name in _hist_ops.KERNEL_LAUNCHES:
-        _hist_ops.KERNEL_LAUNCHES[name] = counts[name]
+    for table in (_hist_ops.KERNEL_LAUNCHES, _local_ops.KERNEL_LAUNCHES):
+        for name in table:
+            table[name] = counts[name]
 
 
 # -----------------------------------------------------------------------------
@@ -631,7 +634,7 @@ class ReplayPlan:
         return self._vmap(finish, b, clique)
 
     def _local_round(self, b: dict, b_rate, b_one: bool, repeat=None, live=None,
-                     scale_span=contextlib.nullcontext):
+                     scale_span=contextlib.nullcontext, with_start: bool = True):
         # A hypothesis' graph at the b_rate == 1.0 round has at most basic_cap
         # edges, which bounds its clique, so a fixed step count is exact.
         bcap = min(self.params.basic_cap, b["s_i"].shape[0])
@@ -640,6 +643,7 @@ class ReplayPlan:
             b_rate, b_one, b["hs.host_r"], _load(WarmState, "warm", b), b["thr"],
             self.params, clique_max_steps=max_clique_size_for_edges(bcap), track_extras=False,
             sync_free=self.sync_free, repeat=repeat, clique_live=live, scale_span=scale_span,
+            with_start=with_start,
         )
 
     def _sample(self, b: dict, r: int) -> dict:
@@ -659,10 +663,12 @@ class ReplayPlan:
     def _local(self, b: dict, r: int, k, b_one: bool, repeat=None, live=None,
                scale_span=contextlib.nullcontext) -> dict:
         b_rate = 1.0 if b_one else pick(b["b_rates"], b["carry.rate_idx"])
-        start, step = self._local_round(b, b_rate, b_one, repeat, live, scale_span)
-        state = _load(LocalState, "local", b, iterations=0, host_syncs=0, extras=start.extras)
+        _, step = self._local_round(b, b_rate, b_one, repeat, live, scale_span, with_start=False)
+        # The plan carries no stage masks (_LOCAL_SKIP), so the state has none.
+        state = _load(LocalState, "local", b, iterations=0, host_syncs=0, extras=None)
+        # The batch's raw draws: the pick takes their Gumbel keys itself.
         draws = b["draws"]
-        state = step(state, gumbel_of(self.layout.uniform(draws, "u_local", r, k)),
+        state = step(state, self.layout.view(draws, "u_local", r, k),
                      self.layout.scale_u(draws, r, k))
         out = _flatten("local", state, {}, skip=_LOCAL_SKIP)
         out.update({"flag.batch": ~state.done, "stat.batches": b["stat.batches"] + 1})

@@ -3,7 +3,8 @@ of the PyTorch/CUDA port, `psulvsb_tpu_torch`.
 
 The sections mirror tools/gen_api_docs.py's over the JAX package, module
 for module; the kernel sections name the CUDA front doors (`ops/gnc.py`,
-`ops/hist.py`, `ops/pairs.py`) in place of the Pallas modules. Signatures
+`ops/hist.py`, `ops/pairs.py`, `ops/local.py`) in place of the Pallas
+modules. Signatures
 and first-paragraph docstrings come from the code. It imports the port only
 (no JAX). Regenerate after API changes:
 
@@ -66,6 +67,8 @@ SECTIONS: list[tuple[str, str, list[str] | None]] = [
      "(csrc/pair_ratio_hist.cu, csrc/pair_beta_count.cu)", "psulvsb_tpu_torch.ops.hist", None),
     ("CUDA kernel front door: pairwise ops (csrc/consistency_degree.cu)",
      "psulvsb_tpu_torch.ops.pairs", None),
+    ("CUDA kernel front doors: the local batch's pick and accept (csrc/local_batch.cu)",
+     "psulvsb_tpu_torch.ops.local", None),
     ("Batched dataset harness", "psulvsb_tpu_torch.eval.batch_harness", None),
     ("Serial dataset harness", "psulvsb_tpu_torch.eval.realdata", None),
     ("Dataset generator", "psulvsb_tpu_torch.eval.make_dataset", None),

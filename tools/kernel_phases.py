@@ -7,8 +7,10 @@ ROOT (default: this checkout) is a checkout of the repository, for example
 a `git archive` of the parent commit unpacked under build/. The script
 imports ROOT's own chip_smoke.py and psulvsb_tpu_torch, builds the
 kernels, runs chip_smoke's phase 3 (GNC kernel vs plain), phase 5
-(pair-grid kernels vs plain) and phase 8 (consistency degree vs plain), then
-times, at the solve paths' shapes:
+(pair-grid kernels vs plain), phase 8 (consistency degree vs plain) and,
+where ROOT's chip_smoke has it, the local batch's phase (the pick and
+accept kernels of csrc/local_batch.cu against their plain chain at the
+cells' buckets, P = 1 and 8), then times, at the solve paths' shapes:
 
 - ops.gnc.gnc_batch at (B, N) = (4, 256) (the anchor's batch) and
   (16, 1024), on chip_smoke's gnc_problem inputs;
@@ -150,6 +152,8 @@ def main() -> int:
     cs.phase_kernel_vs_plain(device)
     cs.phase_pair_kernels(device)
     cs.phase_degree_kernel(device)
+    if hasattr(cs, "phase_local_batch"):
+        cs.phase_local_batch(device, card)
 
     rng = np.random.default_rng(0)
     for b, n in ((4, 256), (16, 1024)):

@@ -7,6 +7,7 @@ its clock, what it costs, and what it shows.
     python3 tools/trace_probe.py export --seconds 2
     python3 tools/trace_probe.py nodes
     python3 tools/trace_probe.py setup --cell kitti.online --seed 1
+    python3 tools/trace_probe.py share --cells kitti.online,3dmatch.inorder --seconds 10
 
 from the root of a checkout with a card. Each mode prints JSON lines and
 writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
@@ -32,7 +33,12 @@ writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
   from the process's start, split: the imports, the pool, each warm-up
   call of a traffic that makes them one by one (kitti.online; the first
   of a size builds its plan: build, capture, instantiate) and the plans'
-  own figures. One process is one reading: run it once a process.
+  own figures. One process is one reading: run it once a process;
+- share: one traced window of each cell, its readings (as `cost` prints a
+  traced turn's) with the fused-route share of its local batches: the
+  local batch kernels' launches in the window, counted on the device,
+  over the window's local batches (a vectorized cell launches once a
+  chunk's batch, for its P pairs). Every traced turn prints the share.
 """
 
 from __future__ import annotations
@@ -134,17 +140,41 @@ def _traced_turn(cell, seed: int, seconds: float, timing):
 
     got = {}
 
+    def at_window():
+        got["launches"] = _launches()
+        timing.start()
+
     def after(run):
         got["snap"] = timing.snapshot()
         got["records"] = list(run.records)
+        got["launches"] = {k: v - got["launches"].get(k, 0) for k, v in _launches().items()}
 
     timing.enable(True)
     try:
         res = harness.run_cell(cell, seed, seconds, False, _device(),
-                               time.perf_counter(), at_window=timing.start, after_window=after)
+                               time.perf_counter(), at_window=at_window, after_window=after)
     finally:
         timing.enable(False)
-    return res, got["snap"], got["records"]
+    snap = dict(got["snap"], launches=got["launches"])
+    return res, snap, got["records"]
+
+
+def _launches() -> dict:
+    """The kernels' launch counts, the traced plans' device counts added."""
+    from psulvsb_tpu_torch.solver import fused
+
+    fused.flush_launch_counts()
+    return dict(fused._launch_counts())
+
+
+def fused_route(snap) -> dict:
+    """The window's local batch kernel launches against its local batches."""
+    launches = snap.get("launches", {})
+    batches = snap["counters"]["local_batches"]
+    accept = launches.get("local_accept")
+    return {"local_pick_launches": launches.get("local_pick"), "local_accept_launches": accept,
+            "local_batches": batches,
+            "share": None if accept is None or not batches else accept / batches}
 
 
 def _readings(snap, records, seconds: float) -> dict:
@@ -153,6 +183,7 @@ def _readings(snap, records, seconds: float) -> dict:
 
     reading = {"snap": snap, "records": records, "seconds": seconds}
     return {
+        "fused_route": fused_route(snap),
         "solve_ms_per_pair": tracing.solve_ms_per_pair(snap),
         "control_pct": tracing.control_pct(snap),
         "local_batches_per_pair": tracing.local_batches_per_pair(snap),
@@ -204,7 +235,20 @@ def modes(args) -> None:
                        "card": harness.card_line(),
                        "pairs_per_s": res["metrics"]["pairs_per_s"]["value"],
                        "ms_per_pair": stages, "counters": snap["counters"],
+                       "fused_route": fused_route(snap),
                        "gap_pct": tracing.gap_pct(snap)})
+
+
+def share(args) -> None:
+    from cardbench import harness
+
+    timing = _timing()
+    for name in args.cells.split(","):
+        res, snap, records = _traced_turn(_cell(name), args.seed, args.seconds, timing)
+        emit("share", {"cell": name, "seed": args.seed, "card": harness.card_line(),
+                       "correct": res["correct"],
+                       "metrics": {m: v["value"] for m, v in res["metrics"].items()},
+                       **_readings(snap, records, args.seconds)})
 
 
 def export(args) -> None:
@@ -324,7 +368,7 @@ def setup(args) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("clock", "cost", "modes", "export", "nodes", "setup"))
+    ap.add_argument("mode", choices=("clock", "cost", "modes", "export", "nodes", "setup", "share"))
     ap.add_argument("--cells", default="kitti.online,kitti.inorder,3dmatch.inorder,"
                                         "3dmatch.vectorized")
     ap.add_argument("--cell", default="kitti.inorder")
