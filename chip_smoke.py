@@ -830,30 +830,21 @@ def phase_slice(device, card: str) -> dict:
 def reset_launches() -> None:
     """Set every kernel's launch count to 0 (the launches the plans' graphs
     counted on the device too)."""
-    from psulvsb_tpu_torch.ops import gnc, hist, init, local, pairs
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
     from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
     flush_launch_counts()
-    gnc.KERNEL_LAUNCHES = 0
-    pairs.KERNEL_LAUNCHES = 0
-    init.KERNEL_LAUNCHES = 0
-    for table in (hist.KERNEL_LAUNCHES, local.KERNEL_LAUNCHES):
-        for name in table:
-            table[name] = 0
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
 
 
 def read_launches() -> dict:
     """Every kernel's launch count, with the launches the plans' graphs
     counted on the device since the last read added in."""
-    from psulvsb_tpu_torch.ops import gnc, hist, init, local, pairs
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
     from psulvsb_tpu_torch.solver.fused import flush_launch_counts
 
     flush_launch_counts()
-    return {
-        "gnc_batch": gnc.KERNEL_LAUNCHES, **hist.KERNEL_LAUNCHES,
-        "consistency_degree": pairs.KERNEL_LAUNCHES, "dense_init": init.KERNEL_LAUNCHES,
-        **local.KERNEL_LAUNCHES,
-    }
+    return dict(LAUNCHES)
 
 
 def hist_inputs(c, seed, device, test_scale):
@@ -929,6 +920,7 @@ def beta_thresholds(beta: float) -> list[float]:
 
 def phase_pair_kernels(device) -> dict:
     from psulvsb_tpu_torch.ops import hist
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
 
     worst = {"hist": 0, "beta": 0}
     for c in HIST_SIZES:
@@ -963,9 +955,9 @@ def phase_pair_kernels(device) -> dict:
             worst["beta"] = max(worst["beta"], diff)
             print(f"[pairs] C={c} beta count ({preset}, beta={beta}): {int(want)}, "
                   f"difference {diff}")
-        before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+        before = LAUNCHES["pair_ratio_hist"]
         k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
-        if hist.KERNEL_LAUNCHES["pair_ratio_hist"] != before + 1:
+        if LAUNCHES["pair_ratio_hist"] != before + 1:
             raise AssertionError("exact_peak_bin must launch the histogram kernel once a call")
         p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
         if k != p:
@@ -1066,16 +1058,17 @@ def window_pair_axis(device, c=ANCHOR_C) -> None:
     pair on the device (`torch.func.vmap` over the front door), against the
     plain version with the pair axis and P single calls: difference 0."""
     from psulvsb_tpu_torch.ops import hist
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
 
     p = PAIR_AXIS_P
     inputs = [hist_inputs(c, 70 + q, device, 1.0 + 0.5 * q) for q in range(p)]
     src, dst, act = (torch.stack(x) for x in zip(*inputs))
     lo = torch.arange(16, 16 + 8 * p, 8, device=device)
     kw = dict(num_bins=48, stride=1, clamp_overflow=False)
-    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    before = LAUNCHES["pair_ratio_hist"]
     got = torch.func.vmap(lambda s, d, a, lo_q: hist.pair_ratio_histogram(
         s, d, a, lo_bin=lo_q, **kw))(src, dst, act, lo)
-    if hist.KERNEL_LAUNCHES["pair_ratio_hist"] != before + 1:
+    if LAUNCHES["pair_ratio_hist"] != before + 1:
         raise AssertionError("the windowed histogram's pair axis must be one launch")
     compare_counts(f"window pair axis P={p}", got,
                    hist.pair_ratio_histogram_reference(src, dst, act, lo_bin=lo, **kw))
@@ -1094,6 +1087,7 @@ def beta_pair_axis(device, c=WIDE_C) -> dict:
     timed at P = 1 and PAIR_AXIS_P beside the P calls, with the device time
     a launch and the bound."""
     from psulvsb_tpu_torch.ops import hist
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
 
     beta = BETAS["artificial"]
     out = {"max_diff": 0, "times": {}}
@@ -1104,9 +1098,9 @@ def beta_pair_axis(device, c=WIDE_C) -> dict:
         def apart():
             return torch.stack([hist.pair_beta_count(s, d, beta, a) for s, d, a in inputs])
 
-        before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+        before = LAUNCHES["pair_beta_count"]
         got = hist.pair_beta_count(src, dst, beta, act)
-        if hist.KERNEL_LAUNCHES["pair_beta_count"] != before + 1:
+        if LAUNCHES["pair_beta_count"] != before + 1:
             raise AssertionError("the beta count's pair axis must be one launch")
         plain = hist.pair_beta_count_reference(src, dst, beta, act)
         diff = max(compare_counts(f"beta pair axis P={p}", got, plain),
@@ -1137,6 +1131,7 @@ def degree_pair_axis(device, c=ANCHOR_C) -> dict:
     (difference 0), timed at P = 1 and PAIR_AXIS_P beside the P calls, with
     the device time a launch and the bound."""
     from psulvsb_tpu_torch.ops import pairs
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
 
     tau = GROR_TAUS[0]
     out = {"max_diff": 0, "times": {}}
@@ -1147,9 +1142,9 @@ def degree_pair_axis(device, c=ANCHOR_C) -> dict:
         def apart():
             return torch.stack([pairs.consistency_degree(s, d, tau, a) for s, d, a in inputs])
 
-        before = pairs.KERNEL_LAUNCHES
+        before = LAUNCHES["consistency_degree"]
         got = pairs.consistency_degree(src, dst, tau, act)
-        if pairs.KERNEL_LAUNCHES != before + 1:
+        if LAUNCHES["consistency_degree"] != before + 1:
             raise AssertionError("the degree kernel's pair axis must be one launch")
         plain = pairs.consistency_degree_reference(src, dst, tau, act)
         diff = max(compare_counts(f"degree pair axis P={p}", got, plain),
@@ -1250,6 +1245,7 @@ def degree_inputs(c, seed, device):
 
 def phase_degree_kernel(device) -> dict:
     from psulvsb_tpu_torch.ops import pairs
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
 
     worst = 0
     rng = np.random.default_rng(0)
@@ -1258,9 +1254,9 @@ def phase_degree_kernel(device) -> dict:
         for kind in MASKS:
             act = mask_of(kind, c, rng, device)
             for tau in GROR_TAUS:
-                before = pairs.KERNEL_LAUNCHES
+                before = LAUNCHES["consistency_degree"]
                 got = pairs.consistency_degree(src, dst, tau, act)
-                if pairs.KERNEL_LAUNCHES != before + 1:
+                if LAUNCHES["consistency_degree"] != before + 1:
                     raise AssertionError("consistency_degree must launch its kernel once a call")
                 want = pairs.consistency_degree_reference(src, dst, tau, act)
                 torch.cuda.synchronize()
@@ -1376,6 +1372,7 @@ def phase_dense_init(device, card: str) -> dict:
     the fused main path."""
     from psulvsb_tpu_torch import SolverParams, psulvsb_register
     from psulvsb_tpu_torch.ops import init
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
     from psulvsb_tpu_torch.ops.hist import exact_peak_bin
 
     beta = 2.0 * 0.01 * math.sqrt(SolverParams.preset_3dmatch().cbar2)
@@ -1402,10 +1399,10 @@ def phase_dense_init(device, card: str) -> dict:
                     return init.dense_init_reference(src[q], dst[q], keep[q], ab[q],
                                                      None if peak is None else peak[q], *args)
 
-                before = init.KERNEL_LAUNCHES
+                before = LAUNCHES["dense_init"]
                 got = kernel()
                 torch.cuda.synchronize()
-                if init.KERNEL_LAUNCHES != before + 1:
+                if LAUNCHES["dense_init"] != before + 1:
                     raise AssertionError("dense_init must launch its kernel once a call")
                 err = max(dense_agreement([t[q] for t in got], plain_one(q), c, ab[q])
                           for q in range(p))

@@ -5,8 +5,13 @@ may include headers that lie under `csrc/` too. At first use it is compiled
 by nvcc for Hopper (sm_90a) into a shared library under
 `build/psulvsb_tpu_torch/` beside the package, named by a hash of the source
 and of every header under `csrc/` it includes, so an edited kernel or header
-is rebuilt, and loaded with ctypes; `launcher` hands out its C entry point
-with the argument types set once. Nothing is built when a module is imported.
+is rebuilt, and loaded with ctypes. Nothing is built when a module is
+imported.
+
+The kernels are named here once (`KERNELS`): each is the C entry point
+`<name>_launch` of csrc/<name>.cu, or of the library `_LIBRARY` names. Every
+launch goes through `launch`, which counts it in `LAUNCHES`. Adding a kernel
+takes its `.cu` file, its name here and the op module that calls `launch`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "psulvsb_tpu_torch"
@@ -31,7 +38,15 @@ NVCC_FLAGS = (
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
+KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree",
+           "dense_init", "local_pick", "local_accept")
+_LIBRARY = {"local_pick": "local_batch", "local_accept": "local_batch"}
+# name -> the launches made so far: every call of `launch`, a capture's too;
+# a traced plan adds those its graph's replays make (solver/fused.py).
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
 _LOADED: dict[str, ctypes.CDLL] = {}
+# name -> its C entry point, its result and argument types set
 _LAUNCHERS: dict[str, ctypes._CFuncPtr] = {}
 # name -> {"seconds": build time (0.0 when the library was already built),
 # "log": nvcc's output, including ptxas's register and shared-memory report}
@@ -107,14 +122,22 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, argtypes: list, library: str | None = None) -> ctypes._CFuncPtr:
-    """The C entry point `<name>_launch` of csrc/<library>.cu (by default
-    csrc/<name>.cu), built and loaded on first use, with its int result and
-    `argtypes` set once."""
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Launch kernel `name` of `KERNELS` on the current stream of `device`:
+    its C entry point `<name>_launch` (built, loaded and given its int result
+    and `argtypes` on first use) is called with `args` and the stream's
+    handle; a non-zero result raises, and a launch made adds one to
+    `LAUNCHES[name]`."""
+    if name not in KERNELS:
+        raise ValueError(f"{name!r} is not one of the kernels {KERNELS}")
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        fn = getattr(load_library(library or name), f"{name}_launch")
+        fn = getattr(load_library(_LIBRARY.get(name, name)), f"{name}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         _LAUNCHERS[name] = fn
-    return fn
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1

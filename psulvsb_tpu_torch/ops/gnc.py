@@ -17,13 +17,14 @@ A pair axis: with a (P, 3, 3) warm rotation and a (P,) `use_warm`, the B
 hypotheses are P pairs' B / P each, in pair order, and each takes its own
 pair's warm rotation and flag, in one launch (P = 1 is the shared warm
 start). The front door calls a PyTorch custom operator whose vmap rule
-moves the vmapped axis into that pair axis, so `torch.func.vmap` over a
-solve (solver/fused.py's batched plan) makes one launch for all its pairs,
-as `jax.vmap` over the JAX package's `gnc_batch` does.
+moves the vmapped axis into that pair axis (ops/_axis.py), so
+`torch.func.vmap` over a solve (solver/fused.py's batched plan) makes one
+launch for all its pairs, as `jax.vmap` over the JAX package's `gnc_batch`
+does.
 
 Which version runs is decided by where the tensors lie: CPU tensors take
-`gnc_batch_reference`; CUDA tensors launch the kernel or raise. Each launch
-adds one to `KERNEL_LAUNCHES`.
+`gnc_batch_reference`; CUDA tensors launch the kernel (`ops._build.launch`)
+or raise.
 
 The kernel computes each rotation by shifted power iteration and nothing
 else, as the Pallas kernel does. The exact eigenvector that
@@ -39,12 +40,12 @@ from ctypes import c_float, c_int, c_longlong, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import launcher
+from psulvsb_tpu_torch.ops._axis import check_input, register_pair_vmap
+from psulvsb_tpu_torch.ops._build import launch
 from psulvsb_tpu_torch.rotation.gnc import floor_noise_sq, gnc_tls_batched, tls_inliers
 from psulvsb_tpu_torch.utils.scalars import device_flag
 
 MAX_N = 2048  # the kernel keeps at most 8 columns per thread in registers
-KERNEL_LAUNCHES = 0
 # gnc_batch_launch: src and its (batch, coordinate) strides, dst and its
 # strides, mask and its batch stride, noise bounds and stride, warm
 # rotations and their (pair, row, column) strides, the use_warm flags'
@@ -169,29 +170,15 @@ def _gnc_batch_pairs(
                    max_iterations, gnc_factor, cost_threshold)
 
 
-@_gnc_batch_pairs.register_vmap
-def _gnc_batch_vmap(info, in_dims, src_tims_b, dst_tims_b, active_b, noise_bound_b,
-                    warm_rotation, use_warm, max_iterations, gnc_factor, cost_threshold):
-    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
-    the pair axis (n pairs of B hypotheses are n B hypotheses of n P warm
-    starts), and one launch serves every pair."""
-    n = info.batch_size
-
-    def join(t, dim):  # contiguous: the kernel reads columns at unit stride
-        t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
-        return t.flatten(0, 1).contiguous()
-
-    args = [join(t, d) for t, d in zip(
-        (src_tims_b, dst_tims_b, active_b, noise_bound_b, warm_rotation, use_warm), in_dims)]
-    rot, inliers = _gnc_batch_pairs(*args, max_iterations, gnc_factor, cost_threshold)
-    return (rot.unflatten(0, (n, -1)), inliers.unflatten(0, (n, -1))), (0, 0)
+# n pairs of B hypotheses are n B hypotheses of n P warm starts; contiguous:
+# the kernel reads columns at unit stride.
+register_pair_vmap(_gnc_batch_pairs, 6, contiguous=True)
 
 
 def _launch(src_tims_b, dst_tims_b, active_b, noise_bound_b, warm_rotation, use_warm,
             max_iterations, gnc_factor, cost_threshold):
     """One launch of csrc/gnc_batch.cu over (B, 3, N) TIMs, (P, 3, 3) warm
     rotations and (P,) flags."""
-    global KERNEL_LAUNCHES
     b, _, n = src_tims_b.shape
     p = warm_rotation.shape[0]
     dev = src_tims_b.device
@@ -201,11 +188,7 @@ def _launch(src_tims_b, dst_tims_b, active_b, noise_bound_b, warm_rotation, use_
         ("active_b", active_b, torch.bool, (b, n)), ("noise_bound_b", noise_bound_b, f32, (b,)),
         ("warm_rotation", warm_rotation, f32, (p, 3, 3)), ("use_warm", use_warm, torch.bool, (p,)),
     ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name} must be {dtype} {shape} on {dev}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}"
-            )
+        check_input(name, t, dtype, dev, shape)
     for name, t in (("src_tims_b", src_tims_b), ("dst_tims_b", dst_tims_b), ("active_b", active_b)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit column stride, got strides {t.stride()}")
@@ -213,20 +196,14 @@ def _launch(src_tims_b, dst_tims_b, active_b, noise_bound_b, warm_rotation, use_
         use_warm = use_warm.contiguous()
     rot = torch.empty((b, 3, 3), dtype=f32, device=dev)
     inliers = torch.empty((b, n), dtype=torch.bool, device=dev)
-    fn = launcher("gnc_batch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(
-            src_tims_b.data_ptr(), src_tims_b.stride(0), src_tims_b.stride(1),
-            dst_tims_b.data_ptr(), dst_tims_b.stride(0), dst_tims_b.stride(1),
-            active_b.data_ptr(), active_b.stride(0),
-            noise_bound_b.data_ptr(), noise_bound_b.stride(0),
-            warm_rotation.data_ptr(), warm_rotation.stride(0), warm_rotation.stride(1),
-            warm_rotation.stride(2), use_warm.data_ptr(), b // p, b, n, int(max_iterations),
-            float(gnc_factor),
-            float(cost_threshold), rot.data_ptr(), inliers.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gnc_batch kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    launch(
+        "gnc_batch", _ARGTYPES, dev,
+        src_tims_b.data_ptr(), src_tims_b.stride(0), src_tims_b.stride(1),
+        dst_tims_b.data_ptr(), dst_tims_b.stride(0), dst_tims_b.stride(1),
+        active_b.data_ptr(), active_b.stride(0),
+        noise_bound_b.data_ptr(), noise_bound_b.stride(0),
+        warm_rotation.data_ptr(), warm_rotation.stride(0), warm_rotation.stride(1),
+        warm_rotation.stride(2), use_warm.data_ptr(), b // p, b, n, int(max_iterations),
+        float(gnc_factor), float(cost_threshold), rot.data_ptr(), inliers.data_ptr(),
+    )
     return rot, inliers

@@ -15,13 +15,13 @@ Each front door also takes a pair axis, (P, 3, C) clouds and a (P, C)
 mask, for P pairs at once: one launch, one zero fill and each pair's result
 (its window's counts, its count, or its (peak, count, certified)). Each is
 a PyTorch custom operator with a vmap rule that moves the vmapped axis into
-that pair axis, so `torch.func.vmap` over a solve (solver/fused.py's
-batched plan) makes one launch for all its pairs, as `jax.vmap` over the
-JAX package's front doors does.
+that pair axis (ops/_axis.py), so `torch.func.vmap` over a solve
+(solver/fused.py's batched plan) makes one launch for all its pairs, as
+`jax.vmap` over the JAX package's front doors does.
 
 Which version runs is decided by where the tensors lie: CPU tensors take
-the plain versions; CUDA tensors launch the kernels or raise. Each launch
-adds one to `KERNEL_LAUNCHES[name]`.
+the plain versions; CUDA tensors launch the kernels (`ops._build.launch`)
+or raise.
 """
 
 from __future__ import annotations
@@ -30,11 +30,19 @@ from ctypes import c_float, c_int, c_longlong, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import launcher
+from psulvsb_tpu_torch.ops._axis import (
+    as_pairs,
+    check_active,
+    join_args,
+    join_pairs,
+    kernel_clouds,
+    register_pair_vmap,
+    split_pairs,
+)
+from psulvsb_tpu_torch.ops._build import launch
 
 MAX_BINS = 4096  # the histogram kernel keeps its bins in 16 KB of shared memory
 MAX_COARSE_BINS = 2048  # exact_peak_bin's coarse counts reuse that memory as int64
-KERNEL_LAUNCHES = {"pair_ratio_hist": 0, "pair_beta_count": 0}
 _FINE_CAP = float(1 << 30)  # fine bins past 2^30 fall outside every window
 _ROW_CHUNK = 1024  # rows per step of the plain versions' sweep
 # pair_ratio_hist_launch: src, dst, mask (null: all active), C,
@@ -49,32 +57,6 @@ _HIST_ARGTYPES = (
 # pair_beta_count_launch: src, dst, mask (null: all active), C, pairs, beta,
 # counts, stream.
 _BETA_ARGTYPES = [c_void_p] * 3 + [c_int, c_int, c_float, c_void_p, c_void_p]
-
-
-def _check_clouds(src: torch.Tensor, dst: torch.Tensor, pairs: bool = False) -> None:
-    want = "(P, 3, C)" if pairs else "(3, C)"
-    if (src.dim() != 2 + pairs or src.shape[-2] != 3 or tuple(dst.shape) != tuple(src.shape)
-            or (pairs and src.shape[0] == 0)):
-        raise ValueError(
-            f"src and dst must both be {want}, got {tuple(src.shape)} and {tuple(dst.shape)}"
-        )
-    if dst.device != src.device:
-        raise ValueError(f"dst is on {dst.device}, expected {src.device}")
-
-
-def _check(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None,
-           pairs: bool = False) -> torch.Tensor:
-    """Validate (3, C) inputs, or (P, 3, C) with `pairs`; return the (C,)
-    or (P, C) bool active mask."""
-    _check_clouds(src, dst, pairs)
-    shape = src.shape[:-2] + src.shape[-1:]
-    if active is None:
-        return torch.ones(shape, dtype=torch.bool, device=src.device)
-    if active.shape != shape:
-        raise ValueError(f"active must be {tuple(shape)}, got {tuple(active.shape)}")
-    if active.device != src.device:
-        raise ValueError(f"active is on {active.device}, expected {src.device}")
-    return active.to(torch.bool)
 
 
 def _pair_sweep(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor):
@@ -133,7 +115,7 @@ def pair_ratio_histogram_reference(
     """Plain PyTorch version of `pair_ratio_histogram`; (P, 3, C) clouds and
     a (P, C) mask give (P, num_bins) counts, a pair's row what its call
     alone gives (`lo_bin` one for all, or a (P,) tensor, a lo a pair)."""
-    active = _check(src, dst, active, pairs=src.dim() == 3)
+    active = check_active(src, dst, active, pairs=src.dim() == 3)
     _check_window(num_bins, stride)
     lo = torch.as_tensor(lo_bin, device=src.device).to(torch.int64)
     lo = lo.reshape(lo.shape + (1, 1))  # against (..., rows, cols)
@@ -156,27 +138,12 @@ def pair_beta_count_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of `pair_beta_count`; (P, 3, C) clouds give (P,)
     counts."""
-    active = _check(src, dst, active, pairs=src.dim() == 3)
+    active = check_active(src, dst, active, pairs=src.dim() == 3)
     beta32 = torch.full((), beta, dtype=torch.float32, device=src.device)
     total = torch.zeros(src.shape[:-2], dtype=torch.int64, device=src.device)
     for v1, v2, valid in _pair_sweep(src, dst, active):
         total = total + ((torch.abs(v1 - v2) <= beta32) & valid).sum((-2, -1))
     return total
-
-
-def _cuda_inputs(src, dst, active, pairs: bool = False):
-    """Validate (3, C) inputs for a kernel, or (P, 3, C) with `pairs`; return
-    the contiguous float32 clouds and the contiguous bool mask, whose bytes
-    the kernel reads, or None for it when every point is active (the kernel
-    then gets a null mask). No device operation when the inputs already are
-    so."""
-    f32 = torch.float32
-    if active is None:
-        _check_clouds(src, dst, pairs)
-        a = None
-    else:
-        a = _check(src, dst, active, pairs).contiguous()
-    return src.to(f32).contiguous(), dst.to(f32).contiguous(), a
 
 
 def _check_lo(lo: torch.Tensor, pairs: int) -> None:
@@ -196,7 +163,7 @@ def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clam
     (pairs, C), and each pair's counts and counter lie `row` words after the
     previous pair's; a (pairs,) `lo_bin` tensor gives each pair its lo."""
     dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active, src.dim() == 3)
+    s, d, a = kernel_clouds(src, dst, active, src.dim() == 3)
     lo_step = 0
     if isinstance(lo_bin, torch.Tensor):
         _check_lo(lo_bin, pairs)
@@ -205,18 +172,13 @@ def _launch_hist(src, dst, active, bins_per_unit, num_bins, lo_bin, stride, clam
     else:
         lo_ptr, lo_imm = None, int(lo_bin)
     done, coarse_bins, coarse_stride, out, count, cert = peak or (None, 0, 0, None, None, None)
-    fn = launcher("pair_ratio_hist", _HIST_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(
-            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1],
-            float(bins_per_unit), lo_ptr, lo_imm, lo_step, stride, num_bins,
-            int(bool(clamp_overflow)),
-            pairs, row, counts.data_ptr(), done, coarse_bins, coarse_stride, out, count, cert,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pair_ratio_hist kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES["pair_ratio_hist"] += 1
+    launch(
+        "pair_ratio_hist", _HIST_ARGTYPES, dev,
+        s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1],
+        float(bins_per_unit), lo_ptr, lo_imm, lo_step, stride, num_bins,
+        int(bool(clamp_overflow)),
+        pairs, row, counts.data_ptr(), done, coarse_bins, coarse_stride, out, count, cert,
+    )
 
 
 def pair_ratio_histogram(
@@ -243,7 +205,7 @@ def pair_ratio_histogram(
     `lo_bin`, a lo a pair (`torch.func.vmap` over the (3, C) form comes
     here too, through the operator's vmap rule)."""
     _check_window(num_bins, stride)
-    src, dst, active, single = _as_pairs(src, dst, active)
+    src, dst, active, single = as_pairs(src, dst, active)
     lo = lo_bin if isinstance(lo_bin, torch.Tensor) else None
     counts = torch.ops.psulvsb_tpu_torch.pair_ratio_histogram(
         src, dst, active, float(bins_per_unit), int(num_bins), lo,
@@ -276,21 +238,21 @@ def _pair_ratio_histogram_pairs(
 @_pair_ratio_histogram_pairs.register_vmap
 def _pair_ratio_histogram_vmap(info, in_dims, src, dst, active, bins_per_unit, num_bins, lo,
                                lo_imm, stride, clamp_overflow):
-    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
-    the pair axis, and one launch serves every pair; a vmapped lo becomes a
-    lo a pair, which the kernel reads per pair."""
-    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
+    """ops/_axis.py's rule, and a vmapped lo becomes a lo a pair, which the
+    kernel reads per pair."""
+    n = info.batch_size
+    src, dst, active = join_args((src, dst, active), in_dims, n)
     if lo is not None:
         if in_dims[5] is None:
             if lo.dim() == 1:  # a lo a pair, the same for every vmapped call
-                lo = _join_pairs(lo, None, n)
+                lo = join_pairs(lo, None, n)
         elif lo.dim() == 1:  # a lo for each vmapped call, shared by its pairs
             lo = lo[:, None].expand(n, src.shape[0] // n).flatten()
         else:
-            lo = _join_pairs(lo, in_dims[5], n)
+            lo = join_pairs(lo, in_dims[5], n)
     counts = _pair_ratio_histogram_pairs(src, dst, active, bins_per_unit, num_bins, lo, lo_imm,
                                          stride, clamp_overflow)
-    return counts.unflatten(0, (n, -1)), 0
+    return split_pairs(counts, n)
 
 
 def pair_beta_count(
@@ -308,7 +270,7 @@ def pair_beta_count(
     A pair axis: (P, 3, C) clouds and an optional (P, C) mask give (P,)
     counts from one launch and one zero fill (`torch.func.vmap` over the
     (3, C) form comes here too, through the operator's vmap rule)."""
-    src, dst, active, single = _as_pairs(src, dst, active)
+    src, dst, active, single = as_pairs(src, dst, active)
     count = torch.ops.psulvsb_tpu_torch.pair_beta_count(src, dst, active, float(beta))
     return count[0] if single else count
 
@@ -322,28 +284,16 @@ def _pair_beta_count_pairs(
     if not src.is_cuda:
         return pair_beta_count_reference(src, dst, beta, active)
     dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active, pairs=True)
+    s, d, a = kernel_clouds(src, dst, active, pairs=True)
     p = s.shape[0]
     counts = torch.zeros(p, dtype=torch.int64, device=dev)
-    fn = launcher("pair_beta_count", _BETA_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1], p,
-            float(beta), counts.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pair_beta_count kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES["pair_beta_count"] += 1
+    launch("pair_beta_count", _BETA_ARGTYPES, dev,
+           s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), s.shape[-1], p,
+           float(beta), counts.data_ptr())
     return counts
 
 
-@_pair_beta_count_pairs.register_vmap
-def _pair_beta_count_vmap(info, in_dims, src, dst, active, beta):
-    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
-    the pair axis, and one launch serves every pair."""
-    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
-    return _pair_beta_count_pairs(src, dst, active, beta).unflatten(0, (n, -1)), 0
+register_pair_vmap(_pair_beta_count_pairs, 3)
 
 
 def _check_peak_window(num_bins: int, stride: int) -> int:
@@ -422,7 +372,7 @@ def exact_peak_bin(
     (`torch.func.vmap` over the (3, C) form comes here too, through the
     operator's vmap rule)."""
     _check_peak_window(num_bins, stride)
-    src, dst, active, single = _as_pairs(src, dst, active)
+    src, dst, active, single = as_pairs(src, dst, active)
     peak, count, certified = torch.ops.psulvsb_tpu_torch.exact_peak_bin(
         src, dst, active, int(bins_per_unit), int(num_bins), int(stride))
     if single:
@@ -460,45 +410,7 @@ def _exact_peak_bin_pairs(
     return peak, count, certified
 
 
-@_exact_peak_bin_pairs.register_vmap
-def _exact_peak_bin_vmap(info, in_dims, src, dst, active, bins_per_unit, num_bins, stride):
-    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
-    the pair axis, and one call serves every pair."""
-    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
-    out = _exact_peak_bin_pairs(src, dst, active, bins_per_unit, num_bins, stride)
-    return tuple(t.unflatten(0, (n, -1)) for t in out), (0, 0, 0)
-
-
-def _as_pairs(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None):
-    """Validated (3, C) or (P, 3, C) clouds and an optional mask as the
-    pair-axis form the operators take: (src, dst, active, single), single
-    when a (3, C) pair became a pair axis of one."""
-    single = src.dim() == 2
-    if active is None:
-        _check_clouds(src, dst, pairs=not single)
-    else:
-        _check(src, dst, active, pairs=not single)
-    if single:
-        src, dst = src[None], dst[None]
-        active = None if active is None else active[None]
-    return src, dst, active, single
-
-
-def _join_clouds(info, in_dims, src, dst, active):
-    """A pair-axis operator's first three vmapped arguments (clouds and an
-    optional mask) with the vmapped axis joined to the pair axis: (n, src,
-    dst, active), n the vmapped size."""
-    n = info.batch_size
-    src, dst = (_join_pairs(t, d, n) for t, d in zip((src, dst), in_dims))
-    active = None if active is None else _join_pairs(active, in_dims[2], n)
-    return n, src, dst, active
-
-
-def _join_pairs(t: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:
-    """A vmapped (n, P, ...) argument (its vmapped axis at `dim`, or None:
-    the same for all n) as (n P, ...)."""
-    t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
-    return t.flatten(0, 1)
+register_pair_vmap(_exact_peak_bin_pairs, 3)
 
 
 def exact_peak_bin_reference(

@@ -26,12 +26,13 @@ version's top-k leaves open.
 A pair axis, as the other kernels have one: (P, 3, C) clouds, (P, C) keep,
 (P, 2) hash constants and a (P,) peak give P pools from one launch. The
 front door calls a PyTorch custom operator whose vmap rule moves the
-vmapped axis into that pair axis, so `torch.func.vmap` over the init
-(solver/fused.py's batched plan) makes one launch for all its pairs.
+vmapped axis into that pair axis (ops/_axis.py), so `torch.func.vmap` over
+the init (solver/fused.py's batched plan) makes one launch for all its
+pairs.
 
 Which version runs is decided by where the tensors lie: CPU tensors take
-the plain version; CUDA tensors launch the kernel or raise. Each launch
-adds one to `KERNEL_LAUNCHES`.
+the plain version; CUDA tensors launch the kernel (`ops._build.launch`) or
+raise.
 """
 
 from __future__ import annotations
@@ -41,13 +42,12 @@ from ctypes import c_float, c_int, c_longlong, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import launcher, load_library
-from psulvsb_tpu_torch.ops.hist import _check_clouds, _join_pairs
+from psulvsb_tpu_torch.ops._axis import check_clouds, over_pairs, register_pair_vmap
+from psulvsb_tpu_torch.ops._build import launch, load_library
 from psulvsb_tpu_torch.solver.config import DENSE_INIT_MAX_C as MAX_C
 from psulvsb_tpu_torch.solver.config import DENSE_INIT_MAX_FILL as MAX_FILL
 from psulvsb_tpu_torch.utils.precision import mm
 
-KERNEL_LAUNCHES = 0
 # dense_init_launch: src, dst, keep, ab, peak (null: known scale), C, pairs,
 # beta, bins_per_unit, num_bins, k, pool_cap, reduced_cap, workspace, its
 # words a pair, red_i, red_j, red_count, pool_count, stream.
@@ -159,7 +159,7 @@ def dense_init(
     (`torch.func.vmap` over the (3, C) form comes here too, through the
     operator's vmap rule)."""
     single = src.dim() == 2
-    _check_clouds(src, dst, pairs=not single)
+    check_clouds(src, dst, pairs=not single)
     lead = src.shape[:-2]
     if tuple(keep.shape) != tuple(lead) + (src.shape[-1],) or keep.device != src.device:
         raise ValueError(f"keep must be {tuple(lead) + (src.shape[-1],)} on {src.device}, got "
@@ -195,17 +195,12 @@ def _dense_init_pairs(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`dense_init` over P pairs: the plain version on the CPU (vmapped
     over the pairs), one launch of the kernel for the P pairs on a card."""
-    global KERNEL_LAUNCHES
     p, _, c = src.shape
     if not src.is_cuda:
         one = functools.partial(
             dense_init_reference, beta=beta, bins_per_unit=bins_per_unit, num_bins=num_bins,
             fill=fill, pool_cap=pool_cap, reduced_cap=reduced_cap)
-        if p == 1:
-            return tuple(t[None] for t in one(src[0], dst[0], keep[0], ab[0],
-                                              None if peak is None else peak[0]))
-        return torch.func.vmap(one, in_dims=(0, 0, 0, 0, None if peak is None else 0))(
-            src, dst, keep, ab, peak)
+        return over_pairs(one, p, src, dst, keep, ab, peak)
     k = pool_size(c, fill)
     if c > MAX_C or k > MAX_FILL:
         raise ValueError(f"the dense init kernel takes C <= {MAX_C} and a fill of at most "
@@ -223,31 +218,14 @@ def _dense_init_pairs(
     red_j = torch.empty((p, pool_cap), dtype=i64, device=dev)
     red_count = torch.empty(p, dtype=i64, device=dev)
     pool_count = torch.empty(p, dtype=i64, device=dev)
-    fn = launcher("dense_init", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            s.data_ptr(), d.data_ptr(), kp.data_ptr(), a.data_ptr(),
-            None if pk is None else pk.data_ptr(), c, p, float(beta), int(bins_per_unit),
-            int(num_bins), k, int(pool_cap), int(reduced_cap), ws.data_ptr(), words,
-            red_i.data_ptr(), red_j.data_ptr(), red_count.data_ptr(), pool_count.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"dense_init kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    launch(
+        "dense_init", _ARGTYPES, dev,
+        s.data_ptr(), d.data_ptr(), kp.data_ptr(), a.data_ptr(),
+        None if pk is None else pk.data_ptr(), c, p, float(beta), int(bins_per_unit),
+        int(num_bins), k, int(pool_cap), int(reduced_cap), ws.data_ptr(), words,
+        red_i.data_ptr(), red_j.data_ptr(), red_count.data_ptr(), pool_count.data_ptr(),
+    )
     return red_i, red_j, red_count, pool_count
 
 
-@_dense_init_pairs.register_vmap
-def _dense_init_vmap(info, in_dims, src, dst, keep, ab, peak, beta, bins_per_unit, num_bins,
-                     fill, pool_cap, reduced_cap):
-    """jax.vmap's batching rule, here: the vmapped axis joins the pair axis,
-    and one launch serves every pair."""
-    n = info.batch_size
-    src, dst, keep, ab = (_join_pairs(t, dim, n) for t, dim in
-                          zip((src, dst, keep, ab), in_dims[:4]))
-    peak = None if peak is None else _join_pairs(peak, in_dims[4], n)
-    out = _dense_init_pairs(src, dst, keep, ab, peak, beta, bins_per_unit, num_bins, fill,
-                            pool_cap, reduced_cap)
-    return tuple(t.unflatten(0, (n, -1)) for t in out), (0, 0, 0, 0)
+register_pair_vmap(_dense_init_pairs, 5)

@@ -31,12 +31,13 @@ conversion).
 A pair axis, as the other kernels have one: (P, B, S) keys, (P, S) sampled
 slots, (P, 3, C) clouds and a (P,) state give P pairs' batches from one
 launch each. The front doors call PyTorch custom operators whose vmap rules
-move the vmapped axis into that pair axis, so `torch.func.vmap` over a
-solve (solver/fused.py's batched plan) makes one launch for all its pairs.
+move the vmapped axis into that pair axis (ops/_axis.py), so
+`torch.func.vmap` over a solve (solver/fused.py's batched plan) makes one
+launch for all its pairs.
 
 Which version runs is decided by where the tensors lie: CPU tensors take
-the plain version; CUDA tensors launch the kernel or raise. Each launch
-adds one to its entry of `KERNEL_LAUNCHES`.
+the plain version; CUDA tensors launch the kernel (`ops._build.launch`) or
+raise.
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ import numpy as np
 import torch
 
 from psulvsb_tpu_torch.core.metrics import angular_error_rad
-from psulvsb_tpu_torch.ops._build import launcher, load_library
-from psulvsb_tpu_torch.ops.hist import _join_pairs
+from psulvsb_tpu_torch.ops._axis import check_input, over_pairs, register_pair_vmap
+from psulvsb_tpu_torch.ops._build import launch, load_library
 from psulvsb_tpu_torch.robust.scale import select_scale_inliers
 from psulvsb_tpu_torch.robust.translation import solve_translation_endpoints
 from psulvsb_tpu_torch.solver.basic import WarmState, score_transform
@@ -61,7 +62,6 @@ from psulvsb_tpu_torch.utils.scalars import pick as _pick
 _F32 = torch.float32
 _I64 = torch.int64
 UNIT_SHIFT = 62 - 24  # a draw's top 24 of its 62 bits give a float32 uniform in [0, 1)
-KERNEL_LAUNCHES = {"local_pick": 0, "local_accept": 0}
 # local_pick_launch: keys_f, keys_d, s_i, s_j, s_ok, s_count, b_rate, src,
 # dst, first_time; P, B, S, bcap, C, known; beta, noise2; b_i, b_j, sel_ok,
 # src_t, dst_t, sc_inl, noise, scale, use_warm, ticket, ws, stream.
@@ -431,16 +431,6 @@ class _State(NamedTuple):
     extras: tuple | None
 
 
-def _over_pairs(fn, p: int, *args):
-    """fn over P pairs' arguments: one call at P = 1, else torch.func.vmap
-    (None: an argument the pairs share)."""
-    if p == 1:
-        return [None if t is None else t[None] for t in
-                fn(*(None if a is None else a[0] for a in args))]
-    dims = tuple(None if a is None else 0 for a in args)
-    return torch.func.vmap(fn, in_dims=dims)(*args)
-
-
 @torch.library.custom_op("psulvsb_tpu_torch::local_pick", mutates_args=())
 def _local_pick_pairs(
     keys: torch.Tensor, s_i: torch.Tensor, s_j: torch.Tensor, s_ok: torch.Tensor,
@@ -463,19 +453,13 @@ def _local_pick_pairs(
                                    noise=torch.zeros((b, 0), device=sr.device))
             return tuple(out[:9]) + (torch.zeros((), dtype=torch.int32, device=sr.device),)
 
-        return tuple(_over_pairs(one, p, keys, s_i, s_j, s_ok, sampled_count, b_rate, src, dst,
-                                 first_time))
+        return over_pairs(one, p, keys, s_i, s_j, s_ok, sampled_count, b_rate, src, dst,
+                          first_time)
     return _launch_pick(keys, s_i, s_j, s_ok, sampled_count, b_rate, src, dst, first_time, bcap,
                         noise_bound, cbar2, known_scale)
 
 
-@_local_pick_pairs.register_vmap
-def _local_pick_vmap(info, in_dims, *args):
-    """The vmapped axis joins the pair axis: one launch serves every pair."""
-    n = info.batch_size
-    tensors = [_join_pairs(t, d, n) for t, d in zip(args[:9], in_dims[:9])]
-    out = _local_pick_pairs(*tensors, *args[9:])
-    return tuple(t.unflatten(0, (n, -1)) for t in out), (0,) * len(out)
+register_pair_vmap(_local_pick_pairs, 9)
 
 
 @torch.library.custom_op("psulvsb_tpu_torch::local_accept", mutates_args=())
@@ -512,24 +496,17 @@ def _local_accept_pairs(
                                                     for _ in range(6))
             return (*got.best[:3], *got[1:8], *extras)
 
-        return tuple(_over_pairs(one, p, src, dst, s_pts, b_i, b_j, rot_inl, rots, scale,
-                                 warm_scale, warm_rot, warm_trans, first_time, best_count,
-                                 local_r, hypotheses, escalate, extras_valid, host_r, thr,
-                                 sc_inl, ex_b_i, ex_b_j, ex_sc, ex_rot, ex_tinl, ex_tpts))
+        return over_pairs(one, p, src, dst, s_pts, b_i, b_j, rot_inl, rots, scale, warm_scale,
+                          warm_rot, warm_trans, first_time, best_count, local_r, hypotheses,
+                          escalate, extras_valid, host_r, thr, sc_inl, ex_b_i, ex_b_j, ex_sc,
+                          ex_rot, ex_tinl, ex_tpts)
     return _launch_accept(src, dst, s_pts, b_i, b_j, rot_inl, rots, scale, warm_scale, warm_rot,
                           warm_trans, first_time, best_count, local_r, hypotheses, escalate,
                           extras_valid, host_r, thr, ticket,
                           (sc_inl, ex_b_i, ex_b_j, ex_sc, ex_rot, ex_tinl, ex_tpts), rule)
 
 
-@_local_accept_pairs.register_vmap
-def _local_accept_vmap(info, in_dims, *args):
-    """The vmapped axis joins the pair axis: one launch serves every pair."""
-    n = info.batch_size
-    tensors = [None if t is None else _join_pairs(t, d, n).contiguous()
-               for t, d in zip(args[:27], in_dims[:27])]
-    out = _local_accept_pairs(*tensors, *args[27:])
-    return tuple(t.unflatten(0, (n, -1)) for t in out), (0,) * len(out)
+register_pair_vmap(_local_accept_pairs, 27, contiguous=True)
 
 
 # ---- the launches ------------------------------------------------------------------
@@ -558,9 +535,7 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _contiguous(name: str, t: torch.Tensor, dtype, dev) -> torch.Tensor:
-    if t.device != dev or t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype} on {dev}, got {t.dtype} on {t.device}")
-    return t.contiguous()
+    return check_input(name, t, dtype, dev).contiguous()
 
 
 def _launch_pick(keys, s_i, s_j, s_ok, sampled_count, b_rate, src, dst, first_time, bcap,
@@ -589,19 +564,16 @@ def _launch_pick(keys, s_i, s_j, s_ok, sampled_count, b_rate, src, dst, first_ti
     with torch.cuda.device(dev):
         per = _global_bytes("local_pick", s)
         ws = torch.empty(p * b * per, dtype=torch.uint8, device=dev) if per else None
-        err = launcher("local_pick", _PICK_ARGTYPES, "local_batch")(
-            _ptr(keys) if keys.dtype == f32 else None, _ptr(keys) if keys.dtype == i64 else None,
-            s_i.data_ptr(), s_j.data_ptr(), s_ok.data_ptr(), count.data_ptr(), rate.data_ptr(),
-            src.data_ptr(), dst.data_ptr(), flag.data_ptr(), p, b, s, int(bcap), c,
-            int(known_scale), _beta(noise_bound, cbar2, 2.0), float(np.float32(noise_bound) * 2),
-            b_i.data_ptr(), b_j.data_ptr(), sel_ok.data_ptr(), src_t.data_ptr(), dst_t.data_ptr(),
-            _ptr(sc_inl) if known_scale else None, _ptr(noise) if known_scale else None,
-            _ptr(scale) if known_scale else None, use_warm.data_ptr(), ticket.data_ptr(),
-            _ptr(ws), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"local_pick kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES["local_pick"] += 1
+    launch(
+        "local_pick", _PICK_ARGTYPES, dev,
+        _ptr(keys) if keys.dtype == f32 else None, _ptr(keys) if keys.dtype == i64 else None,
+        s_i.data_ptr(), s_j.data_ptr(), s_ok.data_ptr(), count.data_ptr(), rate.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), flag.data_ptr(), p, b, s, int(bcap), c,
+        int(known_scale), _beta(noise_bound, cbar2, 2.0), float(np.float32(noise_bound) * 2),
+        b_i.data_ptr(), b_j.data_ptr(), sel_ok.data_ptr(), src_t.data_ptr(), dst_t.data_ptr(),
+        _ptr(sc_inl) if known_scale else None, _ptr(noise) if known_scale else None,
+        _ptr(scale) if known_scale else None, use_warm.data_ptr(), ticket.data_ptr(), _ptr(ws),
+    )
     return b_i, b_j, sel_ok, src_t, dst_t, scale, sc_inl, noise, use_warm, ticket
 
 
@@ -641,16 +613,13 @@ def _launch_accept(src, dst, s_pts, b_i, b_j, rot_inl, rots, scale, warm_scale, 
     with torch.cuda.device(dev):
         per = _global_bytes("local_accept", bcap, c)
         scratch = torch.empty(p * b * per, dtype=torch.uint8, device=dev) if per else None
-        err = launcher("local_accept", _ACCEPT_ARGTYPES, "local_batch")(
-            *(t.data_ptr() for t in ins), *(_ptr(t) for t in masks), p, b, bcap, c,
-            _beta(rule.noise_bound, rule.cbar2, 1.0), rule.scale_noise, rule.trans_noise,
-            rule.rotation_similar, rule.stagnation_min_pro_local, rule.local_confidence,
-            int(rule.local_max_iter), ticket.data_ptr(), ws_count.data_ptr(), ws_sim.data_ptr(),
-            ws_trans.data_ptr(), ws_base.data_ptr(), *(_ptr(t) for t in ws_masks), _ptr(scratch),
-            *((t.data_ptr() if t.numel() else None) for t in outs),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"local_accept kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES["local_accept"] += 1
+    launch(
+        "local_accept", _ACCEPT_ARGTYPES, dev,
+        *(t.data_ptr() for t in ins), *(_ptr(t) for t in masks), p, b, bcap, c,
+        _beta(rule.noise_bound, rule.cbar2, 1.0), rule.scale_noise, rule.trans_noise,
+        rule.rotation_similar, rule.stagnation_min_pro_local, rule.local_confidence,
+        int(rule.local_max_iter), ticket.data_ptr(), ws_count.data_ptr(), ws_sim.data_ptr(),
+        ws_trans.data_ptr(), ws_base.data_ptr(), *(_ptr(t) for t in ws_masks), _ptr(scratch),
+        *((t.data_ptr() if t.numel() else None) for t in outs),
+    )
     return tuple(outs)

@@ -12,13 +12,14 @@ takes |a|^2 + |b|^2 - 2ab, which can move a pair at the window's edge).
 A pair axis, as `ops.hist.exact_peak_bin` has one: (P, 3, C) clouds and a
 (P, C) mask give (P, C) degrees, each pair's what its call alone gives, from
 one launch. The front door calls a PyTorch custom operator whose vmap rule
-moves the vmapped axis into that pair axis, so `torch.func.vmap` over GROR
-(solver/fused.py's batched plan) makes one launch for all its pairs, as
-`jax.vmap` over the JAX package's front door does.
+moves the vmapped axis into that pair axis (ops/_axis.py), so
+`torch.func.vmap` over GROR (solver/fused.py's batched plan) makes one
+launch for all its pairs, as `jax.vmap` over the JAX package's front door
+does.
 
 Which version runs is decided by where the tensors lie: CPU tensors take
-the plain version; CUDA tensors launch the kernel or raise. Each launch
-adds one to `KERNEL_LAUNCHES`.
+the plain version; CUDA tensors launch the kernel (`ops._build.launch`) or
+raise.
 """
 
 from __future__ import annotations
@@ -27,10 +28,9 @@ from ctypes import c_float, c_int, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import launcher
-from psulvsb_tpu_torch.ops.hist import _as_pairs, _check, _cuda_inputs, _join_clouds
+from psulvsb_tpu_torch.ops._axis import as_pairs, check_active, kernel_clouds, register_pair_vmap
+from psulvsb_tpu_torch.ops._build import launch
 
-KERNEL_LAUNCHES = 0
 # consistency_degree_launch: src, dst, mask (null: all active), C, pairs,
 # tau, degrees, stream.
 _ARGTYPES = [c_void_p] * 3 + [c_int, c_int, c_float, c_void_p, c_void_p]
@@ -50,7 +50,7 @@ def consistency_degree_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of `consistency_degree`, (3, C) or (P, 3, C)."""
     _check_nonempty(src)
-    active = _check(src, dst, active, pairs=src.dim() == 3)
+    active = check_active(src, dst, active, pairs=src.dim() == 3)
     c = src.shape[-1]
     s = src.to(torch.float32)
     d = dst.to(torch.float32)
@@ -87,7 +87,7 @@ def consistency_degree(
     degrees from one launch (`torch.func.vmap` over the (3, C) form comes
     here too, through the operator's vmap rule)."""
     _check_nonempty(src)
-    src, dst, active, single = _as_pairs(src, dst, active)
+    src, dst, active, single = as_pairs(src, dst, active)
     deg = torch.ops.psulvsb_tpu_torch.consistency_degree(src, dst, active, float(tau))
     return deg[0] if single else deg
 
@@ -98,29 +98,16 @@ def _consistency_degree_pairs(
 ) -> torch.Tensor:
     """`consistency_degree` over (P, 3, C) clouds: the plain version on the
     CPU, one launch of the kernel for the P pairs on a card."""
-    global KERNEL_LAUNCHES
     if not src.is_cuda:
         return consistency_degree_reference(src, dst, tau, active)
     dev = src.device
-    s, d, a = _cuda_inputs(src, dst, active, pairs=True)
+    s, d, a = kernel_clouds(src, dst, active, pairs=True)
     p, _, c = s.shape
     deg = torch.empty((p, c), dtype=torch.int32, device=dev)
-    fn = launcher("consistency_degree", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), c, p, float(tau),
-            deg.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"consistency_degree kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    launch("consistency_degree", _ARGTYPES, dev,
+           s.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(), c, p, float(tau),
+           deg.data_ptr())
     return deg
 
 
-@_consistency_degree_pairs.register_vmap
-def _consistency_degree_vmap(info, in_dims, src, dst, active, tau):
-    """jax.vmap's batching rule for pallas_call, here: the vmapped axis joins
-    the pair axis, and one launch serves every pair."""
-    n, src, dst, active = _join_clouds(info, in_dims, src, dst, active)
-    return _consistency_degree_pairs(src, dst, active, tau).unflatten(0, (n, -1)), 0
+register_pair_vmap(_consistency_degree_pairs, 3)

@@ -24,25 +24,25 @@ that puts its largest bodies in one slot holds the largest of them only. A tenso
 the graph reads must live outside the body (a plan buffer, written with
 `copy_`), since an untaken body writes nothing.
 
-Kernel launches are counted where they run, in a traced plan: the kernels'
-wrappers add to their host counts when a capture calls them, and the control
-turns what a region of the graph captured into an addition to a counter on
-the device, captured in that region, so a replay counts the launches it
-really makes. A traced plan also captures the program's clock
-(`GraphControl.stamp`, utils/timing.py): a one-thread kernel that reads the
-card's nanosecond clock, the one source of time that works inside IF and
-WHILE bodies. An untraced plan captures neither.
+Kernel launches are counted where they run, in a traced plan:
+`ops._build.launch` adds to the host counts (`LAUNCHES`) when a capture
+calls it, and the control turns what a region of the graph captured into
+an addition to a counter on the device, captured in that region, so a
+replay counts the launches it really makes. A traced plan also captures the
+program's clock (`GraphControl.stamp`, `utils.timing.launch_stamp`): a
+one-thread kernel that reads the card's nanosecond clock, the one source of
+time that works inside IF and WHILE bodies. An untraced plan captures
+neither.
 """
 
 from __future__ import annotations
 
 import contextlib
-from ctypes import byref, c_char_p, c_int, c_longlong, c_ulonglong, c_void_p
+from ctypes import byref, c_char_p, c_int, c_ulonglong, c_void_p
 
 import torch
 
-from psulvsb_tpu_torch.ops._build import load_library
-from psulvsb_tpu_torch.utils.timing import RECORD_HEAD, STAMP_COUNTERS
+from psulvsb_tpu_torch.ops._build import KERNELS, LAUNCHES, load_library
 
 IF, WHILE = 0, 1
 _FUNCS = None
@@ -59,14 +59,11 @@ def _lib():
         lib.graph_cond_capture_nodes.argtypes = [c_void_p, c_void_p]
         lib.graph_cond_stream_create.argtypes = [c_void_p]
         lib.graph_cond_stream_destroy.argtypes = [c_void_p]
-        lib.graph_cond_stamp.argtypes = [c_void_p, c_int, c_int, c_int, c_longlong,
-                                         c_longlong, c_void_p, c_void_p, c_void_p, c_void_p,
-                                         c_longlong, c_int, c_int, c_int, c_void_p]
         lib.graph_cond_error.argtypes = [c_int]
         lib.graph_cond_error.restype = c_char_p
         for fn in (lib.graph_cond_set, lib.graph_cond_begin, lib.graph_cond_end,
                    lib.graph_cond_capture_nodes, lib.graph_cond_stream_create,
-                   lib.graph_cond_stream_destroy, lib.graph_cond_stamp):
+                   lib.graph_cond_stream_destroy):
             fn.restype = c_int
         _FUNCS = lib
     return _FUNCS
@@ -85,46 +82,6 @@ def _new_stream(device: torch.device) -> torch.cuda.ExternalStream:
     return torch.cuda.ExternalStream(raw.value, device=device)
 
 
-def launch_stamp(rec: torch.Tensor, slot: int, end: bool, slots: int, cap: int = 0,
-                 log_cap: int = 0, rounds: torch.Tensor | None = None,
-                 batches: torch.Tensor | None = None, pairs: int = 0,
-                 values: torch.Tensor | None = None, fill: int = 0, counter: int = 0,
-                 other: torch.Tensor | None = None) -> None:
-    """Launch, or capture, on the current stream of `rec`'s card the kernel
-    that stamps the card's clock into the int64 record `rec` (layout:
-    `utils.timing.SpanRecord`; `csrc/graph_cond.cu`). A closing stamp given
-    the pairs' `values` adds to the counter `STAMP_COUNTERS[counter]` the
-    pairs whose value is above `fill` (int64), other than `other`'s (int64,
-    with `other`) or false (bool)."""
-    if rec.dtype != torch.int64 or rec.device.type != "cuda" or not rec.is_contiguous():
-        raise ValueError(f"a stamp record is contiguous int64 on the card, got {rec.dtype} "
-                         f"on {rec.device}")
-    if not 0 <= slot < slots or rec.numel() < 3 * slots + RECORD_HEAD + 2 * (cap + log_cap):
-        raise ValueError(f"slot {slot} of {slots}, rings {cap} and {log_cap}, do not fit a "
-                         f"record of {rec.numel()}")
-    if not 0 <= counter < len(STAMP_COUNTERS):
-        raise ValueError(f"counter {counter} is not one of the {len(STAMP_COUNTERS)} counters")
-    flags = values is not None and values.dtype == torch.bool
-    kind = 2 if flags else 1 if other is not None else 0
-    for tensor in (rounds, batches, values, other):
-        if tensor is not None and (tensor.dtype != (torch.bool if tensor is values and flags
-                                                    else torch.int64)
-                                   or tensor.numel() < pairs or tensor.device != rec.device
-                                   or not tensor.is_contiguous()):
-            raise ValueError("the solve's counters are contiguous int64 (or bool flags) on the "
-                             "record's card, one a pair")
-    stream = torch.cuda.current_stream(rec.device)
-
-    def pointer(tensor):
-        return None if tensor is None else tensor.data_ptr()
-
-    _check(_lib().graph_cond_stamp(
-        rec.data_ptr(), slot, int(bool(end)), slots, cap, log_cap, pointer(rounds),
-        pointer(batches), pointer(values), pointer(other), int(fill), int(counter), kind, pairs,
-        stream.cuda_stream),
-        "launching a stamp")
-
-
 def _flag_pointer(flag: torch.Tensor) -> int:
     if flag.dtype != torch.bool or flag.numel() != 1 or flag.device.type != "cuda":
         raise ValueError(f"a condition is one bool on the card, got {flag.dtype} "
@@ -135,25 +92,23 @@ def _flag_pointer(flag: torch.Tensor) -> int:
 class GraphControl:
     """The conditional nodes of one capture on `device`.
 
-    `counts()` gives the kernels' host launch counts (a dict), and
-    `launches` is the device counter, one int64 entry per name in the same
-    order, that replays add to. `trace`, a traced plan's
+    `launches` is the device counter, one int64 entry per name of
+    `ops._build.KERNELS` in that order, that replays add to. `trace`, a
+    traced plan's
     `utils.timing.SpanRecord`, turns on the launch marks and the stamps;
     without it neither is captured. `stamps` and `marks` count the kernel
     nodes each captured. Capture on `capture_stream`; call `close()` once
     the capture has ended; the pools then hold the bodies' memory and the
     streams stay until `release()`."""
 
-    def __init__(self, device: torch.device, counts, launches: torch.Tensor, trace=None):
+    def __init__(self, device: torch.device, launches: torch.Tensor, trace=None):
         self.device = device
         self.index = device.index if device.index is not None else torch.cuda.current_device()
-        self.counts = counts
         self.launches = launches
         self.trace = trace
         self.stamps = 0
         self.marks = 0
-        self.names = list(counts())
-        self.marked = counts()
+        self.marked = dict(LAUNCHES)
         self.depth = 0
         self.open: set[int] = set()  # the slots of the bodies open now
         self.nodes = 0  # nodes inside bodies
@@ -193,8 +148,8 @@ class GraphControl:
         plans only)."""
         if self.trace is None:
             return
-        now = self.counts()
-        for i, name in enumerate(self.names):
+        now = dict(LAUNCHES)
+        for i, name in enumerate(KERNELS):
             added = now[name] - self.marked[name]
             if added:
                 self.launches[i].add_(added)

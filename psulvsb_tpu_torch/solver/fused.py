@@ -31,8 +31,8 @@ A solve stages its inputs and its draws (one call on the caller's generator
 into the plan's buffer, `solver.psulvsb.DrawLayout`) and launches the graph
 once; the host reads nothing until the caller reads the solution. In a
 traced plan the kernel launches a replay makes are counted on the device and
-added to the kernels' counts when the plan's `stats` or
-`flush_launch_counts` read them.
+added to the kernels' counts (`ops._build.LAUNCHES`) when the plan's `stats`
+or `flush_launch_counts` read them.
 
 The plain version of this module (`graphs=False`, and any CPU device) runs
 the same description eagerly: each IF is decided on the host from the words
@@ -103,11 +103,7 @@ from psulvsb_tpu_torch.clique.kcore import (
     triangle_scores,
 )
 from psulvsb_tpu_torch.gror.gror import _gror_core
-from psulvsb_tpu_torch.ops import gnc as _gnc_ops
-from psulvsb_tpu_torch.ops import hist as _hist_ops
-from psulvsb_tpu_torch.ops import init as _init_ops
-from psulvsb_tpu_torch.ops import local as _local_ops
-from psulvsb_tpu_torch.ops import pairs as _pairs_ops
+from psulvsb_tpu_torch.ops._build import KERNELS, LAUNCHES
 from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.config import (
     RATE_SCHEDULE,
@@ -207,30 +203,6 @@ def _any_pair_live_vmap(info, in_dims, flag, mask):
     flag = flag.movedim(in_dims[0], 0) if in_dims[0] is not None else flag.expand(n, *flag.shape)
     mask = mask.movedim(in_dims[1], 0) if in_dims[1] is not None else mask
     return _any_pair_live(flag, mask), None
-
-
-# -----------------------------------------------------------------------------
-# Kernel launch counts
-# -----------------------------------------------------------------------------
-
-
-def _launch_counts() -> dict[str, int]:
-    return {
-        "gnc_batch": _gnc_ops.KERNEL_LAUNCHES,
-        "consistency_degree": _pairs_ops.KERNEL_LAUNCHES,
-        **_hist_ops.KERNEL_LAUNCHES,
-        "dense_init": _init_ops.KERNEL_LAUNCHES,
-        **_local_ops.KERNEL_LAUNCHES,
-    }
-
-
-def _set_launch_counts(counts: dict[str, int]) -> None:
-    _gnc_ops.KERNEL_LAUNCHES = counts["gnc_batch"]
-    _pairs_ops.KERNEL_LAUNCHES = counts["consistency_degree"]
-    _init_ops.KERNEL_LAUNCHES = counts["dense_init"]
-    for table in (_hist_ops.KERNEL_LAUNCHES, _local_ops.KERNEL_LAUNCHES):
-        for name in table:
-            table[name] = counts[name]
 
 
 # -----------------------------------------------------------------------------
@@ -486,7 +458,7 @@ class ReplayPlan:
             "draws": torch.zeros(lead + (self.layout.size,), dtype=_I64, device=dev),
             "l_rates": torch.tensor([r[0] for r in RATE_SCHEDULE], dtype=_F32).to(dev),
             "b_rates": torch.tensor([r[1] for r in RATE_SCHEDULE], dtype=_F32).to(dev),
-            "launches": torch.zeros(len(_launch_counts()), dtype=_I64, device=dev),
+            "launches": torch.zeros(len(KERNELS), dtype=_I64, device=dev),
             "carry.seeded": torch.zeros(lead, dtype=torch.bool, device=dev),
             "flag.always": torch.ones(lead, dtype=torch.bool, device=dev),
             "loop.index": torch.zeros((), dtype=_I64, device=dev),
@@ -908,12 +880,12 @@ class ReplayPlan:
         dev = self.device
         t0 = time.perf_counter()
         self._solve(_Eager(self.bufs, host_loops=True))
-        control = GraphControl(dev, _launch_counts, self.bufs["launches"], self.trace)
+        control = GraphControl(dev, self.bufs["launches"], self.trace)
         control.warm(HEAVY + 2, lambda: _warm_libraries(dev))
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        before = _launch_counts()
+        before = dict(LAUNCHES)
         try:
             graph, separate = torch.cuda.CUDAGraph(keep_graph=True), True
         except TypeError:  # a release without keep_graph instantiates at capture_end
@@ -921,13 +893,13 @@ class ReplayPlan:
         t_capture = time.perf_counter()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=control.capture_stream):
-                control.marked = _launch_counts()
+                control.marked = dict(LAUNCHES)
                 self._solve(_Captured(self.bufs, control))
                 control.mark()
                 top = control.top_nodes()
         finally:
             control.close()
-            _set_launch_counts(before)  # a capture launches nothing
+            LAUNCHES.update(before)  # a capture launches nothing
         t1 = time.perf_counter()
         self.capture_s = t1 - t_capture
         if separate:
@@ -996,8 +968,8 @@ class ReplayPlan:
         with self._on_stream():
             launches = self.bufs["launches"].tolist()
             self.bufs["launches"].zero_()
-        _set_launch_counts({name: n + added for (name, n), added
-                            in zip(_launch_counts().items(), launches)})
+        for name, added in zip(KERNELS, launches):
+            LAUNCHES[name] += added
 
     @property
     def stats(self) -> dict:

@@ -38,14 +38,18 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import functools
 import json
 import logging
 import os
 import statistics
 import time
 import weakref
+from ctypes import c_char_p, c_int, c_longlong, c_void_p
 
 import torch
+
+from psulvsb_tpu_torch.ops._build import load_library
 
 logger = logging.getLogger("psulvsb_tpu")
 if os.environ.get("PSULVSB_DIAG", "0") == "1":
@@ -237,12 +241,61 @@ def current_request() -> int | None:
     return _REC.stack[-1][5] if _REC.stack else None
 
 
-def _stamp_lib(rec, slot, end, slots, cap=0, log_cap=0, rounds=None, batches=None, pairs=0,
-               values=None, fill=0, counter=0, other=None):
-    from psulvsb_tpu_torch.solver.conditional import launch_stamp
+@functools.cache
+def _stamp_lib():
+    """csrc/graph_cond.cu, built and loaded on first use, with the stamp's
+    and the error text's types set."""
+    lib = load_library("graph_cond")
+    lib.graph_cond_stamp.argtypes = [c_void_p, c_int, c_int, c_int, c_longlong, c_longlong,
+                                     c_void_p, c_void_p, c_void_p, c_void_p, c_longlong, c_int,
+                                     c_int, c_int, c_void_p]
+    lib.graph_cond_stamp.restype = c_int
+    lib.graph_cond_error.argtypes = [c_int]
+    lib.graph_cond_error.restype = c_char_p
+    return lib
 
-    launch_stamp(rec, slot, end, slots, cap, log_cap, rounds, batches, pairs, values, fill,
-                 counter, other)
+
+def launch_stamp(rec: torch.Tensor, slot: int, end: bool, slots: int, cap: int = 0,
+                 log_cap: int = 0, rounds: torch.Tensor | None = None,
+                 batches: torch.Tensor | None = None, pairs: int = 0,
+                 values: torch.Tensor | None = None, fill: int = 0, counter: int = 0,
+                 other: torch.Tensor | None = None) -> None:
+    """Launch, or capture, on the current stream of `rec`'s card the kernel
+    that stamps the card's clock into the int64 record `rec` (layout:
+    `SpanRecord`; `csrc/graph_cond.cu`). A closing stamp given the pairs'
+    `values` adds to the counter `STAMP_COUNTERS[counter]` the pairs whose
+    value is above `fill` (int64), other than `other`'s (int64, with
+    `other`) or false (bool)."""
+    if rec.dtype != torch.int64 or rec.device.type != "cuda" or not rec.is_contiguous():
+        raise ValueError(f"a stamp record is contiguous int64 on the card, got {rec.dtype} "
+                         f"on {rec.device}")
+    if not 0 <= slot < slots or rec.numel() < 3 * slots + RECORD_HEAD + 2 * (cap + log_cap):
+        raise ValueError(f"slot {slot} of {slots}, rings {cap} and {log_cap}, do not fit a "
+                         f"record of {rec.numel()}")
+    if not 0 <= counter < len(STAMP_COUNTERS):
+        raise ValueError(f"counter {counter} is not one of the {len(STAMP_COUNTERS)} counters")
+    flags = values is not None and values.dtype == torch.bool
+    kind = 2 if flags else 1 if other is not None else 0
+    for tensor in (rounds, batches, values, other):
+        if tensor is not None and (tensor.dtype != (torch.bool if tensor is values and flags
+                                                    else torch.int64)
+                                   or tensor.numel() < pairs or tensor.device != rec.device
+                                   or not tensor.is_contiguous()):
+            raise ValueError("the solve's counters are contiguous int64 (or bool flags) on the "
+                             "record's card, one a pair")
+    stream = torch.cuda.current_stream(rec.device)
+
+    def pointer(tensor):
+        return None if tensor is None else tensor.data_ptr()
+
+    lib = _stamp_lib()
+    code = lib.graph_cond_stamp(
+        rec.data_ptr(), slot, int(bool(end)), slots, cap, log_cap, pointer(rounds),
+        pointer(batches), pointer(values), pointer(other), int(fill), int(counter), kind, pairs,
+        stream.cuda_stream)
+    if code:
+        raise RuntimeError(f"launching a stamp failed: {lib.graph_cond_error(code).decode()} "
+                           f"({code})")
 
 
 class _StampLog:
@@ -256,7 +309,7 @@ class _StampLog:
     def stamp(self, name: str, end: bool, request) -> None:
         if len(self.labels) == STAMP_LOG:
             self.fold()
-        _stamp_lib(self.buf, len(self.labels), False, STAMP_LOG)
+        launch_stamp(self.buf, len(self.labels), False, STAMP_LOG)
         self.labels.append((name, request, end))
 
     def fold(self) -> None:
@@ -340,7 +393,7 @@ class SpanRecord:
         pairs whose value is above `fill` (int64), other than `other`'s
         (int64, with `other`) or false (bool)."""
         if self.cuda:
-            _stamp_lib(self.rec, slot, end, len(self.names), SOLVE_RING, EVENT_LOG,
+            launch_stamp(self.rec, slot, end, len(self.names), SOLVE_RING, EVENT_LOG,
                        self.rounds, self.batches, self.pairs, values, fill, counter, other)
             return
         now = time.perf_counter_ns()
@@ -451,7 +504,7 @@ def calibrate(device=None, tries: int = CALIBRATION_TRIES) -> dict:
     for k in range(tries):
         torch.cuda.synchronize(device)
         h0 = time.perf_counter_ns()
-        _stamp_lib(buf, k, False, tries)
+        launch_stamp(buf, k, False, tries)
         torch.cuda.synchronize(device)
         hosts.append((h0, time.perf_counter_ns()))
     stamps = buf[:tries].tolist()

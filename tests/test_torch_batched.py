@@ -40,6 +40,7 @@ from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 from psulvsb_tpu_torch.clique import pmc
 from psulvsb_tpu_torch.ops import gnc, hist
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 from psulvsb_tpu_torch.solver import fused
 from psulvsb_tpu_torch.solver.config import InlierSelectionMode, RotationEstimationAlgorithm
 from psulvsb_tpu_torch.solver.psulvsb import init_route
@@ -460,10 +461,10 @@ def _batched_graph_equals_each_pair_alone(name):
     sols = plan.solution()
     assert plan.stats["graph_launches"] == 1 and plan.stats["host_reads"] == 0
     kernel = {"gror": "consistency_degree", "wide_known": "pair_beta_count"}.get(name, "dense_init")
-    before = fused._launch_counts()[kernel]
+    before = LAUNCHES[kernel]
     plan.solve(src, dst, keep, [torch.Generator("cuda").manual_seed(s) for s in seeds])
     assert plan.stats["graph_launches"] == 1
-    assert fused._launch_counts()[kernel] == before + 1
+    assert LAUNCHES[kernel] == before + 1
     for i in range(src.shape[0]):
         alone = psulvsb_register(src[i], dst[i], keep[i], seeds[i], params)
         assert bool(sols.valid[i]) == bool(alone.valid)

@@ -5,9 +5,11 @@ cover every file under csrc/ that the source includes, directly or through
 another header, or an edited header would leave a stale library in build/;
 and it must not move when an unrelated file under csrc/ changes, or every
 edit would rebuild every kernel. Nothing is built, and nvcc is not looked
-for, when the modules are imported or a launcher is only named.
+for, when the modules are imported. `KERNELS` names every C entry point
+`<name>_launch` under csrc/, and `launch` takes no other name.
 """
 
+import re
 import shutil
 
 import pytest
@@ -75,7 +77,8 @@ def test_system_includes_are_not_followed(csrc_copy):
 
 def test_nothing_is_built_at_import():
     """A fresh interpreter imports every module of ops/ with nvcc out of
-    reach, and has loaded no library and named no launcher."""
+    reach, and has loaded no library, looked up no entry point and counted
+    no launch."""
     import subprocess
     import sys
 
@@ -83,10 +86,29 @@ def test_nothing_is_built_at_import():
         "import shutil, subprocess\n"
         "def no_build(*a, **k): raise AssertionError('built at import')\n"
         "subprocess.run = no_build; shutil.which = lambda name: None\n"
-        "from psulvsb_tpu_torch.ops import _build, gnc, hist, pairs\n"
+        "from psulvsb_tpu_torch.ops import _build, gnc, hist, init, local, pairs\n"
         "import psulvsb_tpu_torch\n"
         "assert _build._LOADED == {} and _build._LAUNCHERS == {} and _build.BUILD_INFO == {}\n"
-        "assert callable(_build.launcher)\n"
+        "assert callable(_build.launch)\n"
+        "assert _build.LAUNCHES == dict.fromkeys(_build.KERNELS, 0)\n"
     )
     done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
     assert done.returncode == 0, done.stderr
+
+
+def test_kernels_are_the_entry_points_under_csrc():
+    """`KERNELS` is the set of `<name>_launch` entry points of csrc/*.cu,
+    read as text, each in the library `launch` loads for it; `launch`
+    refuses any other name before it builds or loads anything."""
+    found = {}
+    for path in _build.CSRC_DIR.glob("*.cu"):
+        for name in re.findall(r'extern\s+"C"\s+int\s+(\w+)_launch\s*\(', path.read_text()):
+            found[name] = path.stem
+    assert sorted(found) == sorted(_build.KERNELS)
+    assert len(set(_build.KERNELS)) == len(_build.KERNELS)
+    assert found == {name: _build._LIBRARY.get(name, name) for name in _build.KERNELS}
+    assert set(_build.LAUNCHES) == set(_build.KERNELS)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="not one of the kernels"):
+        _build.launch("graph_cond_stamp", [], "cpu")
+    assert _build.LAUNCHES == before and "graph_cond_stamp" not in _build._LAUNCHERS

@@ -29,6 +29,7 @@ import torch
 from psulvsb_tpu_torch import SolverParams, psulvsb_register
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 from psulvsb_tpu_torch.ops import init
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 from psulvsb_tpu_torch.ops.hist import exact_peak_bin
 from psulvsb_tpu_torch.solver import fused
 from psulvsb_tpu_torch.utils import timing
@@ -124,11 +125,11 @@ def _check_contract(out, members, c, ab, fill, pool_cap, reduced_cap):
 def test_cpu_tensors_take_the_plain_version():
     src, dst = _cloud_pair(96, 1)
     keep, ab = _keep(96, np.random.default_rng(0)), _ab(1)
-    before = init.KERNEL_LAUNCHES
+    before = LAUNCHES["dense_init"]
     got = _run(src, dst, keep, ab)
     want = init.dense_init_reference(src, dst, keep, ab, None, BETA_3DMATCH, BINS_PER_UNIT,
                                      NUM_BINS, FILL, POOL_CAP, REDUCED_CAP)
-    assert init.KERNEL_LAUNCHES == before
+    assert LAUNCHES["dense_init"] == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -396,9 +397,9 @@ def test_cuda_kernel_matches_plain(cuda_device, c, active, scale):
     peak = None
     if scale == "estimated":
         peak, _, _ = exact_peak_bin(src, dst, keep == 1, bins_per_unit=BINS_PER_UNIT)
-    before = init.KERNEL_LAUNCHES
+    before = LAUNCHES["dense_init"]
     got = _run(src, dst, keep, ab, peak=peak)
-    assert init.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["dense_init"] == before + 1
     want = init.dense_init_reference(src, dst, keep, ab, peak, BETA_3DMATCH, BINS_PER_UNIT,
                                      NUM_BINS, FILL, POOL_CAP, REDUCED_CAP)
     if scale == "known":
@@ -427,10 +428,10 @@ def test_cuda_pair_axis_through_vmap_equals_single_launches(cuda_device, p):
     c = 4096
     src, dst, keep, ab = _on(cuda_device, *_batch(p, c, 13))
     args = (BETA_3DMATCH, BINS_PER_UNIT, NUM_BINS, FILL, POOL_CAP, REDUCED_CAP)
-    before = init.KERNEL_LAUNCHES
+    before = LAUNCHES["dense_init"]
     got = torch.func.vmap(lambda s, d, k, a: init.dense_init(s, d, k, a, None, *args))(
         src, dst, keep, ab)
-    assert init.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["dense_init"] == before + 1
     for q in range(p):
         one = init.dense_init(src[q], dst[q], keep[q], ab[q], None, *args)
         assert all(torch.equal(a[q], b) for a, b in zip(got, one))

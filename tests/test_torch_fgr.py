@@ -28,7 +28,7 @@ from psulvsb_tpu.solver import basic as jbasic
 from psulvsb_tpu.solver.config import RotationEstimationAlgorithm, SolverParams as JParams
 from psulvsb_tpu_torch.convert import params_from_jax
 from psulvsb_tpu_torch.core.metrics import calculate_diameter
-from psulvsb_tpu_torch.ops import gnc as gnc_ops
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 from psulvsb_tpu_torch.rotation.fgr import (
     FastGlobalRegistrationSolver,
     fgr_batched,
@@ -149,9 +149,9 @@ def test_gnc_batch_eigh_takes_the_plain_route_and_counts_it():
                 inner_rotation_cost_threshold=0.005)
     eigh = params_from_jax(JParams.preset_artificial(gnc_rot_method="eigh", **loop))
     args = (src, dst, act, nb, torch.eye(3), False)
-    calls, launches = tbasic.PLAIN_ROUTE_CALLS, gnc_ops.KERNEL_LAUNCHES
+    calls, launches = tbasic.PLAIN_ROUTE_CALLS, LAUNCHES["gnc_batch"]
     rots, inl = tbasic.rotation_batch(*args, eigh)
-    assert tbasic.PLAIN_ROUTE_CALLS == calls + 1 and gnc_ops.KERNEL_LAUNCHES == launches
+    assert tbasic.PLAIN_ROUTE_CALLS == calls + 1 and LAUNCHES["gnc_batch"] == launches
     free, inl_f = tbasic.rotation_batch(*args, eigh, sync_free=True)
     assert tbasic.PLAIN_ROUTE_CALLS == calls + 2
     np.testing.assert_allclose(free.numpy(), rots.numpy(), atol=ROT_TOL)

@@ -31,6 +31,7 @@ from psulvsb_tpu_torch.convert import params_from_jax
 from psulvsb_tpu_torch.core.linalg import rot_from_correlation
 from psulvsb_tpu_torch.core.metrics import angular_error_deg_np
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 from psulvsb_tpu_torch.solver import fused
 from psulvsb_tpu_torch.solver.basic import WarmState
 from psulvsb_tpu_torch.solver.psulvsb import (
@@ -455,27 +456,26 @@ def test_cuda_replay_equals_eager_segments(name):
     on)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
-    from psulvsb_tpu_torch.ops import gnc
     from psulvsb_tpu_torch.utils import timing
 
     params, pair, seed = _case(name)
     timing.enable(True)
     try:
-        _replay_equals_eager(params, pair, seed, gnc)
+        _replay_equals_eager(params, pair, seed)
     finally:
         timing.enable(False)
         fused.clear_plan_cache()
 
 
-def _replay_equals_eager(params, pair, seed, gnc):
+def _replay_equals_eager(params, pair, seed):
     for k in range(2):
         src, dst, keep = _tensors(pair)
         src, dst = src.roll(k, 1), dst.roll(k, 1)
         fused.flush_launch_counts()
-        before = gnc.KERNEL_LAUNCHES
+        before = LAUNCHES["gnc_batch"]
         replayed = psulvsb_register(src, dst, keep, seed + k, params)
         stats = fused.plan_for(params, src.shape[1], "cuda").stats
-        launched = gnc.KERNEL_LAUNCHES - before
+        launched = LAUNCHES["gnc_batch"] - before
         assert stats["graph_launches"] == 1 and stats["host_reads"] == 0
         eager = psulvsb_register(src, dst, keep, seed + k, params, graphs=False)
         assert launched >= stats["local_batches"]

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from psulvsb_tpu_torch.core.linalg import _quat_to_rot
+from psulvsb_tpu_torch.ops import _build
 from psulvsb_tpu_torch.ops import gnc as tops
 from psulvsb_tpu_torch.rotation.gnc import gnc_tls_rotation
 
@@ -233,10 +234,10 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, n, use_warm):
         torch.as_tensor(act, device=cuda_device), torch.full((b,), 0.1, device=cuda_device),
         torch.as_tensor(rots[0], device=cuda_device), use_warm,
     ]
-    before = tops.KERNEL_LAUNCHES
+    before = _build.LAUNCHES["gnc_batch"]
     rk, ik = tops.gnc_batch(*args, **LOOP)
     torch.cuda.synchronize()
-    assert tops.KERNEL_LAUNCHES == before + 1
+    assert _build.LAUNCHES["gnc_batch"] == before + 1
     rr, ir = tops.gnc_batch_reference(*args, **LOOP)
     _assert_agree(rr.cpu().numpy(), ir.cpu().numpy(), rk.cpu().numpy(), ik.cpu().numpy(), act)
 
@@ -350,9 +351,9 @@ def test_cuda_pair_axis_equals_single_launches(cuda_device, p, h, n):
     nb = torch.full((p * h,), 0.1, device=cuda_device)
     warm = torch.as_tensor(rots[::h], device=cuda_device)
     flags = torch.as_tensor(np.arange(p) % 2 == 0, device=cuda_device)
-    before = tops.KERNEL_LAUNCHES
+    before = _build.LAUNCHES["gnc_batch"]
     rk, ik = tops.gnc_batch(*t, nb, warm, flags, **LOOP)
-    assert tops.KERNEL_LAUNCHES == before + 1
+    assert _build.LAUNCHES["gnc_batch"] == before + 1
     for q in range(p):
         rows = slice(q * h, (q + 1) * h)
         rq, iq = tops.gnc_batch(*(x[rows] for x in t), nb[rows], warm[q], flags[q], **LOOP)

@@ -31,6 +31,7 @@ import torch
 
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 from psulvsb_tpu_torch.ops import hist
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 
 FLIPS = 2
 EDGE_SIZES = [1, 2, 31, 32, 33, 129, 257]
@@ -330,16 +331,16 @@ def test_bad_shapes_raise():
 def test_cuda_kernels_match_plain_versions(cuda_device, c):
     src, dst, act = (torch.as_tensor(x, device=cuda_device) for x in _inputs(c, c))
     for kw in WINDOWS.values():
-        before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+        before = LAUNCHES["pair_ratio_hist"]
         got = hist.pair_ratio_histogram(src, dst, act, **kw)
         torch.cuda.synchronize()
-        assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+        assert LAUNCHES["pair_ratio_hist"] == before + 1
         want = hist.pair_ratio_histogram_reference(src, dst, act, **kw)
         _assert_close_counts(got.cpu().numpy(), want.cpu().numpy(), kw["clamp_overflow"])
     for beta in (0.02, 0.1):
-        before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+        before = LAUNCHES["pair_beta_count"]
         got = int(hist.pair_beta_count(src, dst / 3.7, beta, act))
-        assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
+        assert LAUNCHES["pair_beta_count"] == before + 1
         assert got == int(hist.pair_beta_count_reference(src, dst / 3.7, beta, act))
     k = [int(x) for x in hist.exact_peak_bin(src, dst, act)]
     p = [int(x) for x in hist.exact_peak_bin_reference(src, dst, act)]
@@ -357,9 +358,9 @@ def test_cuda_beta_count_equals_plain_at_tile_edges(cuda_device, c, mask):
     src, dst = torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device)
     act = None if act is None else torch.as_tensor(act, device=cuda_device)
     for beta in BETAS:
-        before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+        before = LAUNCHES["pair_beta_count"]
         got = int(hist.pair_beta_count(src, dst, beta, act))
-        assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
+        assert LAUNCHES["pair_beta_count"] == before + 1
         assert got == int(hist.pair_beta_count_reference(src, dst, beta, act))
 
 
@@ -406,9 +407,9 @@ def test_cuda_histogram_equals_plain(cuda_device, c):
         want = hist.pair_ratio_histogram_reference(src, dst, act, **kw)
         assert torch.equal(got.cpu(), want.cpu()), name
     for a in (act, None, torch.zeros_like(act)):
-        before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+        before = LAUNCHES["pair_ratio_hist"]
         k = [int(x) for x in hist.exact_peak_bin(src, dst, a)]
-        assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+        assert LAUNCHES["pair_ratio_hist"] == before + 1
         assert k == [int(x) for x in hist.exact_peak_bin_reference(src, dst, a)]
 
 
@@ -421,9 +422,9 @@ def test_cuda_exact_peak_bin_pair_axis(cuda_device, p, c):
     inputs = [tuple(torch.as_tensor(x, device=cuda_device) for x in _inputs(c, c + q))
               for q in range(p)]
     src, dst, act = (torch.stack(x) for x in zip(*inputs))
-    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    before = LAUNCHES["pair_ratio_hist"]
     got = [x.tolist() for x in hist.exact_peak_bin(src, dst, act)]
-    assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+    assert LAUNCHES["pair_ratio_hist"] == before + 1
     alone = [[hist.exact_peak_bin(*x)[k].item() for x in inputs] for k in range(3)]
     full = hist.pair_ratio_histogram_reference(src, dst, act, num_bins=(128 + 1) * 16 + 1)
     plain = [x.tolist() for x in hist.peak_from_full_histogram(full, 128, 16)]
@@ -493,21 +494,21 @@ def test_cuda_pair_axes_equal_single_launches_and_plain(cuda_device):
     P single launches and the plain version; vmap comes to the same launch."""
     p = 8
     src, dst, act = (x.to(cuda_device) for x in _pair_axis_inputs(12000, p, 800, 1.0))
-    before = hist.KERNEL_LAUNCHES["pair_beta_count"]
+    before = LAUNCHES["pair_beta_count"]
     got = hist.pair_beta_count(src, dst, 0.1, act)
     torch.cuda.synchronize()
-    assert hist.KERNEL_LAUNCHES["pair_beta_count"] == before + 1
+    assert LAUNCHES["pair_beta_count"] == before + 1
     assert torch.equal(got, hist.pair_beta_count_reference(src, dst, 0.1, act))
     assert torch.equal(got, torch.stack([hist.pair_beta_count(src[q], dst[q], 0.1, act[q])
                                          for q in range(p)]))
     src, dst, act = (x.to(cuda_device) for x in _pair_axis_inputs(1889, p, 900))
     lo = torch.arange(40, 40 + 2 * p, 2, device=cuda_device)
     kw = dict(num_bins=48, stride=1, clamp_overflow=False)
-    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    before = LAUNCHES["pair_ratio_hist"]
     got = torch.func.vmap(lambda s, d, a, lo_q: hist.pair_ratio_histogram(
         s, d, a, lo_bin=lo_q, **kw))(src, dst, act, lo)
     torch.cuda.synchronize()
-    assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before + 1
+    assert LAUNCHES["pair_ratio_hist"] == before + 1
     assert torch.equal(got, hist.pair_ratio_histogram_reference(src, dst, act, lo_bin=lo, **kw))
     for q in range(p):
         assert torch.equal(got[q], hist.pair_ratio_histogram(src[q], dst[q], act[q],
@@ -532,7 +533,7 @@ def test_cuda_lo_of_the_wrong_shape_raises(cuda_device, shape):
     launch: the kernel reads one lo a pair and would read past it."""
     src, dst, act = (x.to(cuda_device) for x in _pair_axis_inputs(1889, 8, 960))
     lo = torch.full(shape, 40, dtype=torch.int64, device=cuda_device)
-    before = hist.KERNEL_LAUNCHES["pair_ratio_hist"]
+    before = LAUNCHES["pair_ratio_hist"]
     with pytest.raises(ValueError, match="lo_bin"):
         hist.pair_ratio_histogram(src, dst, act, num_bins=32, lo_bin=lo, clamp_overflow=False)
-    assert hist.KERNEL_LAUNCHES["pair_ratio_hist"] == before
+    assert LAUNCHES["pair_ratio_hist"] == before

@@ -37,6 +37,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from psulvsb_tpu_torch import SolverParams, psulvsb_register
 from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
 from psulvsb_tpu_torch.ops import local
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 from psulvsb_tpu_torch.solver import fused
 from psulvsb_tpu_torch.solver import psulvsb as ps
 from psulvsb_tpu_torch.solver.basic import WarmState, rotation_batch
@@ -339,13 +340,13 @@ def test_the_route_takes_the_endpoint_batches_only(steps, monkeypatch, case):
         rec = dict(rec, src=rec["src"][:, :100], dst=rec["dst"][:, :100],
                    s_pts=rec["s_pts"][:100], s_i=rec["s_i"] % 100, s_j=rec["s_j"] % 100)
     b_one = case == "b_rate_one"
-    before = dict(local.KERNEL_LAUNCHES)
+    before = dict(LAUNCHES)
     state, step = ps._local_round(rec["src"], rec["dst"], rec["s_i"], rec["s_j"], rec["s_ok"],
                                   rec["s_count"], rec["s_pts"], 1.0 if b_one else 0.5, b_one,
                                   rec["host_r"], warm, rec["thr"], params)
     step(state._replace(best=warm), batches[0][0], None)
     assert calls == (["local_pick", "local_accept"] if case == "endpoints" else [])
-    assert local.KERNEL_LAUNCHES == before
+    assert LAUNCHES == before
 
 
 # ---- on the card ------------------------------------------------------------
@@ -456,7 +457,7 @@ CUDA_BUCKETS = [2048, 4096, 6144, 8192]
 def test_cuda_kernels_match_plain(cuda_device, c, scaled):
     params, src, dst, s, warm, thr = _card_batch(c, cuda_device, scaled)
     gen = torch.Generator(device=cuda_device).manual_seed(c)
-    before = dict(local.KERNEL_LAUNCHES)
+    before = dict(LAUNCHES)
     near, batches = 0, 12
     for k in range(batches):
         g = torch.randint(0, ps.DRAW_SPAN, (params.hypothesis_batch, s[0].shape[0]),
@@ -471,8 +472,8 @@ def test_cuda_kernels_match_plain(cuda_device, c, scaled):
             assert torch.equal(pk.scale, pp.scale) and torch.equal(pk.noise, pp.noise)
             assert int((pk.sc_inl != pp.sc_inl).sum()) <= 1
         near += _agree(got, want, src, dst, s[4], thr, rots, scale, w)
-    assert local.KERNEL_LAUNCHES["local_pick"] == before["local_pick"] + batches
-    assert local.KERNEL_LAUNCHES["local_accept"] == before["local_accept"] + batches
+    assert LAUNCHES["local_pick"] == before["local_pick"] + batches
+    assert LAUNCHES["local_accept"] == before["local_accept"] + batches
     print(f"C={c} scaled={scaled}: {near} of {batches} batches decided by a point within "
           "float32 rounding of the threshold")
     assert near <= 2
@@ -511,9 +512,9 @@ def test_cuda_pair_axis_through_vmap_equals_single_launches(cuda_device, p):
                                       params.inner_noise_bound, params.inner_cbar2, True))
 
     args = (g, stack(3, 0), stack(3, 1), stack(3, 2), stack(3, 3), stack(1), stack(2), ft)
-    before = dict(local.KERNEL_LAUNCHES)
+    before = dict(LAUNCHES)
     batched = torch.func.vmap(pick)(*args)
-    assert local.KERNEL_LAUNCHES["local_pick"] == before["local_pick"] + 1
+    assert LAUNCHES["local_pick"] == before["local_pick"] + 1
     singles = [pick(*(a[q] for a in args)) for q in range(p)]
     for q in range(p):
         for x, y in zip(batched[:9], singles[q][:9]):
@@ -535,9 +536,9 @@ def test_cuda_pair_axis_through_vmap_equals_single_launches(cuda_device, p):
            torch.stack([r[0] for r in rots]), torch.stack([pk[5] for pk in singles]),
            torch.stack([c[4].scale for c in cases]), torch.stack([c[4].rotation for c in cases]),
            torch.stack([c[4].translation for c in cases]), ft, stack(5))
-    before = dict(local.KERNEL_LAUNCHES)
+    before = dict(LAUNCHES)
     batched = torch.func.vmap(accept)(*acc)
-    assert local.KERNEL_LAUNCHES["local_accept"] == before["local_accept"] + 1
+    assert LAUNCHES["local_accept"] == before["local_accept"] + 1
     for q in range(p):
         for x, y in zip(batched, accept(*(a[q] for a in acc))):
             assert torch.equal(x[q], y)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from psulvsb_tpu_torch.ops import pairs
+from psulvsb_tpu_torch.ops._build import LAUNCHES
 
 FLIPS = 2
 EDGE_SIZES = [1, 2, 31, 32, 33, 129, 257]
@@ -126,10 +127,10 @@ def test_cuda_kernel_equals_plain_at_tile_edges(cuda_device, c, mask):
     act = _masked(mask, act, c)
     src, dst = torch.as_tensor(src, device=cuda_device), torch.as_tensor(dst, device=cuda_device)
     act = None if act is None else torch.as_tensor(act, device=cuda_device)
-    before = pairs.KERNEL_LAUNCHES
+    before = LAUNCHES["consistency_degree"]
     got = pairs.consistency_degree(src, dst, tau, act)
     torch.cuda.synchronize()
-    assert pairs.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["consistency_degree"] == before + 1
     assert torch.equal(got, pairs.consistency_degree_reference(src, dst, tau, act))
 
 
@@ -138,10 +139,10 @@ def test_cuda_kernel_equals_plain_at_tile_edges(cuda_device, c, mask):
 @pytest.mark.parametrize("tau", [0.1, 0.2])
 def test_cuda_kernel_equals_plain(cuda_device, c, tau):
     src, dst, act = (torch.as_tensor(x, device=cuda_device) for x in _inputs(c, c, tau))
-    before = pairs.KERNEL_LAUNCHES
+    before = LAUNCHES["consistency_degree"]
     got = pairs.consistency_degree(src, dst, tau, act)
     torch.cuda.synchronize()
-    assert pairs.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["consistency_degree"] == before + 1
     want = pairs.consistency_degree_reference(src, dst, tau, act)
     assert torch.equal(got, want)
 
@@ -199,14 +200,14 @@ def test_cuda_pair_axis_equals_single_launches_and_plain(cuda_device):
     tau, p = 0.1, 8
     src, dst, act = (torch.as_tensor(x, device=cuda_device)
                      for x in _pair_axis_inputs(1889, p, 500, tau))
-    before = pairs.KERNEL_LAUNCHES
+    before = LAUNCHES["consistency_degree"]
     got = pairs.consistency_degree(src, dst, tau, act)
     torch.cuda.synchronize()
-    assert pairs.KERNEL_LAUNCHES == before + 1
+    assert LAUNCHES["consistency_degree"] == before + 1
     assert torch.equal(got, pairs.consistency_degree_reference(src, dst, tau, act))
     alone = torch.stack([pairs.consistency_degree(src[q], dst[q], tau, act[q]) for q in range(p)])
     assert torch.equal(got, alone)
-    before = pairs.KERNEL_LAUNCHES
+    before = LAUNCHES["consistency_degree"]
     via_vmap = torch.func.vmap(lambda s, d, a: pairs.consistency_degree(s, d, tau, a))(
         src, dst, act)
-    assert pairs.KERNEL_LAUNCHES == before + 1 and torch.equal(via_vmap, got)
+    assert LAUNCHES["consistency_degree"] == before + 1 and torch.equal(via_vmap, got)

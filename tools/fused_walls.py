@@ -211,7 +211,7 @@ def conditional_nodes(device, card) -> None:
 
     for name, build in (("flat", flat), ("30 taken IFs", in_ifs),
                         ("20 untaken IFs", untaken(20)), ("200 untaken IFs", untaken(200))):
-        ctl = GraphControl(device, lambda: {}, torch.zeros(1, dtype=torch.int64, device=device))
+        ctl = GraphControl(device, torch.zeros(1, dtype=torch.int64, device=device))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             build(ctl)

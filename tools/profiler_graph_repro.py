@@ -73,7 +73,7 @@ def toy_call(device, outer: int, inner: int | None):
     x = torch.zeros(1 << 16, device=device)
     i = torch.zeros((), dtype=torch.int64, device=device)
     j = torch.zeros((), dtype=torch.int64, device=device)
-    control = GraphControl(device, dict, torch.zeros(0, dtype=torch.int64, device=device))
+    control = GraphControl(device, torch.zeros(0, dtype=torch.int64, device=device))
     control.warm(2, lambda: None)
 
     def kernels():

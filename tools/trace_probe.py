@@ -5,7 +5,7 @@ its clock, what it costs, and what it shows.
     python3 tools/trace_probe.py cost --cells kitti.online,kitti.inorder --seeds 1,2,3 --seconds 20
     python3 tools/trace_probe.py modes --builds 8 --seconds 6
     python3 tools/trace_probe.py export --seconds 2
-    python3 tools/trace_probe.py nodes
+    python3 tools/trace_probe.py nodes --cells 3dmatch.inorder,kitti.inorder --seed 1
     python3 tools/trace_probe.py setup --cell kitti.online --seed 1
     python3 tools/trace_probe.py share --cells kitti.online,3dmatch.inorder --seconds 10
 
@@ -26,9 +26,10 @@ writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
   two speeds apart by stage;
 - export: `timing.trace` over a window of kitti.online's requests, the
   Chrome trace kept under <out>/export/;
-- nodes: graph nodes of untraced and traced plans at the cells' (params,
-  C, P), with the stamps and launch marks a traced plan captures (on a
-  program without tracing: the untraced count alone);
+- nodes: graph nodes of the untraced and traced plans that each cell's
+  traffic builds in its set-up (`--cells`, `--seed`), with the conditional
+  nodes, the stamps and the launch marks a traced plan captures (on a
+  program without tracing: the untraced plans alone);
 - setup: one cell's set-up in this process, as cardbench/run.py times it
   from the process's start, split: the imports, the pool, each warm-up
   call of a traffic that makes them one by one (kitti.online; the first
@@ -74,8 +75,8 @@ def _timing():
 def clock(args) -> None:
     import torch
 
-    from psulvsb_tpu_torch.solver.conditional import launch_stamp
     from psulvsb_tpu_torch.utils import timing
+    from psulvsb_tpu_torch.utils.timing import launch_stamp
 
     dev = torch.device("cuda", 0)
     n = 1024
@@ -161,10 +162,11 @@ def _traced_turn(cell, seed: int, seconds: float, timing):
 
 def _launches() -> dict:
     """The kernels' launch counts, the traced plans' device counts added."""
+    from psulvsb_tpu_torch.ops._build import LAUNCHES
     from psulvsb_tpu_torch.solver import fused
 
     fused.flush_launch_counts()
-    return dict(fused._launch_counts())
+    return dict(LAUNCHES)
 
 
 def fused_route(snap) -> dict:
@@ -288,43 +290,33 @@ def export(args) -> None:
 
 
 def nodes(args) -> None:
-    import numpy as np
     import torch
 
-    from cardbench.harness import solver_params
-    from psulvsb_tpu_torch.parallel.pairs import register_batch
-    from psulvsb_tpu_torch.solver import fused
+    from cardbench import harness
 
     timing = _timing()
-    dev = _device()
-    cases = [("kitti.inorder", 2048, None), ("kitti.inorder", 4096, None),
-             ("3dmatch.inorder", 6144, None), ("3dmatch.vectorized", 6144, 8)]
-    rng = np.random.default_rng(0)
-    for name, c, pairs in cases:
-        params = solver_params(_cell(name).config)
-        b = pairs or 1
-        src = rng.normal(size=(b, 3, c)).astype(np.float32)
-        dst = src + 0.01 * rng.normal(size=src.shape).astype(np.float32)
-        keep = np.ones((b, c), np.int64)
+    for name in args.cells.split(","):
+        cell = _cell(name)
         for traced in ((False, True) if timing is not None else (False,)):
+            run = harness.Run(cell, args.seed, _device(), False)
+            traffic = run.traffic = cell.traffic_class()(run)
             if timing is not None:
                 timing.enable(traced)
             try:
-                register_batch(src, dst, keep, list(range(b)), params, vectorized=bool(pairs),
-                               device=dev)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                plan = fused.plan_for(params, c, dev, pairs=pairs)
-                emit("nodes", {"cell": name, "c": c, "pairs": pairs, "traced": traced,
-                               "graph_nodes": plan.graph_nodes,
-                               "conditional_nodes": plan.conditional_nodes,
-                               "stamp_nodes": getattr(plan, "stamp_nodes", None),
-                               "mark_nodes": getattr(plan, "mark_nodes", None),
-                               "tree": args.tree})
+                traffic.setup()
+                if run.cuda:
+                    torch.cuda.synchronize()
+                for plan in traffic.plans():
+                    emit("nodes", {"cell": name, "c": plan.c, "pairs": plan.pairs,
+                                   "traced": traced, "graph_nodes": plan.graph_nodes,
+                                   "conditional_nodes": plan.conditional_nodes,
+                                   "stamp_nodes": getattr(plan, "stamp_nodes", None),
+                                   "mark_nodes": getattr(plan, "mark_nodes", None),
+                                   "tree": args.tree})
             finally:
                 if timing is not None:
                     timing.enable(False)
-            fused.clear_plan_cache()
+                traffic.release()
 
 
 def setup(args) -> None:
