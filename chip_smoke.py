@@ -315,7 +315,7 @@ LOOP = dict(max_iterations=100, gnc_factor=1.4, cost_threshold=0.005)
 ANCHOR_C = 1889
 N_TIMED_SOLVES = 5
 KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree", "dense_init",
-           "local_batch")
+           "local_batch", "finalize_fit")
 CAPS = dict(sampled_cap=2048, basic_cap=256, hypothesis_batch=4)  # bench.py:95
 DEGREE_SIZES = [197, 1250, 1889, 5000, 8192]
 DEGREE_TIMED_SIZES = [1250, 1889, 8192]  # the front end's C, the anchor's, the dense limit
@@ -1606,6 +1606,161 @@ def phase_local_batch(device, card: str) -> dict:
         raise AssertionError(f"the fused main path must launch both kernels once a batch: "
                              f"{launched}")
     out["fused_launches"] = launched["local_accept"]
+    return out
+
+
+# Operations a column of the finalize's three passes (the sampled best's transform twice, the
+# weighted sums, the centred products, two squared errors, the refit's residual and test) and
+# bytes a column (two float32 triples and three int64 words).
+FINALIZE_OPS = 120
+FINALIZE_BYTES = 48
+
+
+def finalize_inputs(c, active, seed, device, scaled=False, closed=False):
+    """A host state as a solve leaves it on a 3DMatch-protocol pair of
+    `active` points padded to C (keep -2; about 5% of the real points at 0
+    or -1), the target stretched by a scale in [1, 5) with `scaled`: the
+    sampled and host bests near the truth, hit counts on the sampled best's
+    inliers, the host best's inliers as the final inliers (with `closed`,
+    the three columns the sampled best fits best, where its RMSE tends to
+    beat the refit); `ops.finalize.finalize_fit`'s arguments."""
+    from psulvsb_tpu_torch.eval.synthetic import make_synthetic_pair, synthetic_cloud
+    from psulvsb_tpu_torch.solver.basic import WarmState
+
+    rng = np.random.default_rng(seed)
+    sigma = 1.0 + 4.0 * rng.uniform() if scaled else 1.0
+    pair = make_synthetic_pair(rng, synthetic_cloud(active, seed=seed), 0.01, 0.85,
+                               max_translation=2.0, test_scale=sigma)
+    src = np.zeros((3, c), np.float32)
+    dst = np.zeros((3, c), np.float32)
+    src[:, :active], dst[:, :active] = pair.src, pair.dst
+    keep = np.full(c, -2, np.int64)
+    keep[:active] = np.where(rng.uniform(size=active) < 0.05, rng.choice([0, -1], active), 1)
+    gt = pair.transform
+
+    def near(deg, shift, ds):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        a = np.radians(deg)
+        turn = np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+        return (np.float32(gt.scale * (1 + ds)), (turn @ gt.rotation).astype(np.float32),
+                (gt.translation + rng.uniform(-shift, shift, 3)).astype(np.float32))
+
+    def residual(sc, r, t):
+        return np.linalg.norm(dst - sc * (r @ src + t[:, None]), axis=0)
+
+    sampled, host = near(0.3, 0.004, 0.002), near(0.2, 0.003, -0.001)
+    thr = np.float32(0.03 * sigma)
+    real = keep > -2
+    counter = np.where((residual(*sampled) <= 2 * thr) & real, rng.integers(1, 6, c), 0)
+    final = ((residual(*host) <= thr) & real).astype(np.int64)
+    if closed:
+        final = np.zeros(c, np.int64)
+        final[np.argsort(np.where(real, residual(*sampled), np.inf))[:3]] = 1
+    best_count = int(((residual(*host) <= thr) & real).sum())
+
+    def t(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x), device=device).to(dt)
+
+    false = torch.zeros((), dtype=torch.bool, device=device)
+    warm = [WarmState(t(sc), t(r), t(tr), false) for sc, r, tr in (sampled, host)]
+    i64 = torch.int64
+    return (t(src), t(dst), t(counter, i64), t(final, i64), t(keep, i64), warm[0], warm[1],
+            t(best_count, i64), t(thr))
+
+
+def phase_finalize_fit(device, card: str) -> dict:
+    """The finalize kernel (csrc/finalize_fit.cu) against its plain chain
+    at the cells' buckets, one pair and PAIR_AXIS_P through vmap, known and
+    estimated scale: the pose within 1e-6 (translation relative), the gate
+    and count equal but where the RMSEs or a residual lie within float32
+    rounding (counted); device time a launch of a captured graph of 20
+    beside the chain's (a captured graph of 20 chains) and the bound; then
+    the fused main path: one launch a refined solve."""
+    from psulvsb_tpu_torch import SolverParams, psulvsb_register
+    from psulvsb_tpu_torch.ops import finalize
+    from psulvsb_tpu_torch.solver.basic import WarmState
+    from psulvsb_tpu_torch.utils import timing
+
+    def flat(case):
+        return [a for x in case for a in (x[:3] if isinstance(x, WarmState) else (x,))]
+
+    def fit(fn):
+        def call(s, d, cnt, fin, kp, ss, sr, st, bs, br, bt, bc, th):
+            false = torch.zeros((), dtype=torch.bool, device=s.device)
+            return tuple(fn(s, d, cnt, fin, kp, WarmState(ss, sr, st, false),
+                            WarmState(bs, br, bt, false), bc, th))
+        return call
+
+    kernel, plain = fit(finalize.finalize_fit), fit(finalize.finalize_fit_reference)
+    out = {"times": {}, "max_rot_err": 0.0, "max_trans_err": 0.0, "near": 0, "refined": 0,
+           "pairs": 0}
+    for c, active in LOCAL_BUCKETS:
+        for p in (1, PAIR_AXIS_P):
+            for scaled in (False, True):
+                cases = [finalize_inputs(c, active, 40 + 10 * q + c, device, scaled,
+                                         closed=q % 4 == 3) for q in range(p)]
+                args = [torch.stack(col) for col in zip(*map(flat, cases))]
+                got = torch.func.vmap(kernel)(*args) if p > 1 else kernel(*flat(cases[0]))
+                for q in range(p):
+                    g = [t[q] for t in got] if p > 1 else list(got)
+                    w = plain(*flat(cases[q]))
+                    if bool(g[3]) != bool(w[3]) or int(g[2]) != int(w[2]):
+                        out["near"] += 1
+                        print(f"[finalize_fit] C={c} P={p} scaled={scaled} pair {q}: gate "
+                              f"{bool(g[3])} vs {bool(w[3])}, count {int(g[2])} vs {int(w[2])}")
+                        continue
+                    rot = float((g[0] - w[0]).abs().max())
+                    trans = float((g[1] - w[1]).abs().max()) / max(1.0,
+                                                                   float(w[1].abs().max()))
+                    if rot > 1e-6 or trans > 1e-6:
+                        raise AssertionError(f"finalize_fit differs from its plain chain at C={c}"
+                                             f" P={p}: rotation {rot:.2e}, translation {trans:.2e}")
+                    out["max_rot_err"] = max(out["max_rot_err"], rot)
+                    out["max_trans_err"] = max(out["max_trans_err"], trans)
+                    out["refined"] += bool(w[3])
+                    out["pairs"] += 1
+                if scaled:
+                    continue
+                if p > 1:
+                    kernel_ms = graph_ms(lambda: torch.func.vmap(kernel)(*args))
+                    plain_ms = graph_ms(lambda: torch.func.vmap(plain)(*args))
+                else:
+                    one = flat(cases[0])
+                    kernel_ms = graph_ms(lambda: kernel(*one))
+                    plain_ms = graph_ms(lambda: plain(*one))
+                bound = bound_ms(p * (c * FINALIZE_BYTES + 160), p * c * FINALIZE_OPS)
+                out["times"][(c, p)] = (kernel_ms, plain_ms, bound)
+                print(f"[finalize_fit] C={c} ({active} real) P={p}: kernel {kernel_ms * 1e3:.2f} "
+                      f"us a launch, plain chain {plain_ms * 1e3:.2f} us (device, graphs of 20); "
+                      f"bound {bound[0] * 1e3:.4f} us by {bound[1]}, roofline "
+                      f"{100 * bound[0] / kernel_ms:.2f}%; card: {card}")
+    if out["near"] > 4 or 2 * out["refined"] < out["pairs"]:
+        raise AssertionError(f"{out['near']} gates or counts off the plain chain, "
+                             f"{out['refined']} of {out['pairs']} refits kept")
+    print(f"[finalize_fit] pose errors: rotation {out['max_rot_err']:.3e}, translation "
+          f"{out['max_trans_err']:.3e} relative, over {out['pairs']} pairs ({out['refined']} "
+          f"refits kept); {out['near']} gates or counts decided within rounding")
+
+    params = SolverParams.preset_3dmatch(**CAPS)
+    src, dst, keep, _ = dense_inputs(4096, 3500, 78, device)
+    traced = timing.enabled()
+    timing.enable(True)  # a traced plan counts its graph's launches on the device
+    try:
+        psulvsb_register(src, dst, keep, 0, params, device=device)  # builds the plan
+        reset_launches()
+        refined = sum(bool(psulvsb_register(src, dst, keep, seed, params, device=device).valid)
+                      for seed in range(1, 4))
+        launched = read_launches()
+    finally:
+        timing.enable(traced)
+    print(f"[finalize_fit] fused main path (preset_3dmatch, C=4096 with 3500 real): 3 solves, "
+          f"{refined} refined, finalize_fit {launched['finalize_fit']} launches; card: {card}")
+    if launched["finalize_fit"] != refined:
+        raise AssertionError(f"the fused main path must launch finalize_fit once a refined "
+                             f"solve: {launched}")
+    out["fused_launches"] = launched["finalize_fit"]
     return out
 
 
@@ -3307,6 +3462,7 @@ def main() -> int:
     degree = timed_phase("phase_degree_kernel", phase_degree_kernel, device)
     dense = timed_phase("phase_dense_init", phase_dense_init, device, card)
     batch_kernels = timed_phase("phase_local_batch", phase_local_batch, device, card)
+    fin = timed_phase("phase_finalize_fit", phase_finalize_fit, device, card)
     gror = timed_phase("phase_gror_slice", phase_gror_slice, device, card)
     timed_phase("phase_frontend", phase_frontend, device, card)
     timed_phase("phase_clique", phase_clique, device, card)
@@ -3386,6 +3542,12 @@ def main() -> int:
               "anchor", sl[name], batch_kernels["max_err"], (times[k], times[2], times[3 + k]))
           for k, name in enumerate(("local_pick", "local_accept"))
           for times in [batch_kernels["times"][(6144, 1)]]),
+        {"name": "finalize_fit", "route": "cuda", "source": "psulvsb_tpu_torch/csrc/finalize_fit.cu",
+         "replaces": "psulvsb_tpu/solver/psulvsb.py:1433 (XLA, no Pallas)",
+         "launches": fin["fused_launches"], "path": "fused preset_3dmatch C=4096",
+         "max_abs_err": fin["max_rot_err"], "ms": fin["times"][(6144, 1)][0],
+         "plain_ms": fin["times"][(6144, 1)][1], "bound_ms": fin["times"][(6144, 1)][2][0],
+         "bound_by": fin["times"][(6144, 1)][2][1], "library_ms": None},
         pair_row("gnc_batch", "gnc_batch.cu", "psulvsb_tpu/ops/pallas_gnc.py:235",
                  ("anchor", 8), kern["pair_axis"]),
         pair_row("pair_ratio_hist", "pair_ratio_hist.cu", "psulvsb_tpu/ops/pallas_hist.py:120",

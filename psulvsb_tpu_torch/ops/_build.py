@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree",
-           "dense_init", "local_pick", "local_accept")
+           "dense_init", "local_pick", "local_accept", "finalize_fit")
 _LIBRARY = {"local_pick": "local_batch", "local_accept": "local_batch"}
 # name -> the launches made so far: every call of `launch`, a capture's too;
 # a traced plan adds those its graph's replays make (solver/fused.py).

@@ -24,7 +24,8 @@ control flow is conditional nodes (solver/conditional.py), IF for a
         IF this round escalated, no seed ran and not done: the lazy seed
             (its greedy clique a WHILE node, chunks while candidates are left)
     the solution (the host best), and IF the best count is not 0: finalize
-        (the refinement, and the count of the pose it returns)
+        (the refinement, and the count of the pose it returns: one launch
+        of ops/finalize.py's kernel unless the translation rescue is on)
     a stats word: rounds, local batches, whether a seed ran, greedy steps
 
 A solve stages its inputs and its draws (one call on the caller's generator
@@ -116,7 +117,7 @@ from psulvsb_tpu_torch.solver.psulvsb import (
     InitPeak,
     LocalState,
     _clique_seed_stage,
-    _finalize_counted,
+    _finalize_pose,
     _host_stage,
     _init_peak,
     _init_stage,
@@ -430,6 +431,7 @@ class ReplayPlan:
         self.conditional_nodes = 0
         self.stamp_nodes = 0  # the graph's stamp kernels (traced plans)
         self.mark_nodes = 0  # the graph's launch-count additions (traced plans)
+        self.captured_launches: dict[str, int] = {}  # kernel -> its launches in the graph
         self.solves = 0
         self.graph_launches = 0  # replays of the graph, every solve so far
         self._stats: dict = {}
@@ -688,8 +690,10 @@ class ReplayPlan:
                 "sol.count": b["hs.best_count"]}
 
     def _finalize(self, b: dict) -> dict:
-        """The refinement, and the count of the pose it returns."""
-        rotation, translation, count, _, _ = _finalize_counted(
+        """The refinement, and the count of the pose it returns: on a card
+        one launch of the finalize kernel unless the translation rescue is
+        on (`solver.psulvsb._finalize_pose`)."""
+        rotation, translation, count = _finalize_pose(
             b["src"], b["dst"], _load(HostState, "hs", b), _load(WarmState, "best_sampled", b),
             b["thr"], self.params, rot_method=self.rot_method,
         )
@@ -899,6 +903,8 @@ class ReplayPlan:
                 top = control.top_nodes()
         finally:
             control.close()
+            self.captured_launches = {k: LAUNCHES[k] - before[k] for k in KERNELS
+                                      if LAUNCHES[k] > before[k]}
             LAUNCHES.update(before)  # a capture launches nothing
         t1 = time.perf_counter()
         self.capture_s = t1 - t_capture

@@ -3,7 +3,7 @@ of the PyTorch/CUDA port, `psulvsb_tpu_torch`.
 
 The sections mirror tools/gen_api_docs.py's over the JAX package, module
 for module; the kernel sections name the CUDA front doors (`ops/gnc.py`,
-`ops/hist.py`, `ops/pairs.py`, `ops/local.py`) in place of the Pallas
+`ops/hist.py`, `ops/pairs.py`, `ops/local.py`, `ops/finalize.py`) in place of the Pallas
 modules. Signatures
 and first-paragraph docstrings come from the code. It imports the port only
 (no JAX). Regenerate after API changes:
@@ -69,6 +69,8 @@ SECTIONS: list[tuple[str, str, list[str] | None]] = [
      "psulvsb_tpu_torch.ops.pairs", None),
     ("CUDA kernel front doors: the local batch's pick and accept (csrc/local_batch.cu)",
      "psulvsb_tpu_torch.ops.local", None),
+    ("CUDA kernel front door: the finalize (csrc/finalize_fit.cu)",
+     "psulvsb_tpu_torch.ops.finalize", None),
     ("Batched dataset harness", "psulvsb_tpu_torch.eval.batch_harness", None),
     ("Serial dataset harness", "psulvsb_tpu_torch.eval.realdata", None),
     ("Dataset generator", "psulvsb_tpu_torch.eval.make_dataset", None),

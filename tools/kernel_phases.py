@@ -10,7 +10,9 @@ kernels, runs chip_smoke's phase 3 (GNC kernel vs plain), phase 5
 (pair-grid kernels vs plain), phase 8 (consistency degree vs plain) and,
 where ROOT's chip_smoke has it, the local batch's phase (the pick and
 accept kernels of csrc/local_batch.cu against their plain chain at the
-cells' buckets, P = 1 and 8), then times, at the solve paths' shapes:
+cells' buckets, P = 1 and 8) and the finalize's phase (the finalize_fit
+kernel of csrc/finalize_fit.cu against its plain chain, the same buckets
+and pair counts), then times, at the solve paths' shapes:
 
 - ops.gnc.gnc_batch at (B, N) = (4, 256) (the anchor's batch) and
   (16, 1024), on chip_smoke's gnc_problem inputs;
@@ -154,6 +156,8 @@ def main() -> int:
     cs.phase_degree_kernel(device)
     if hasattr(cs, "phase_local_batch"):
         cs.phase_local_batch(device, card)
+    if hasattr(cs, "phase_finalize_fit"):
+        cs.phase_finalize_fit(device, card)
 
     rng = np.random.default_rng(0)
     for b, n in ((4, 256), (16, 1024)):

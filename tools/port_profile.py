@@ -81,7 +81,7 @@ from psulvsb_tpu_torch import (  # noqa: E402
 # The port's kernels counted by launch whose device symbol is `<name>_kernel`
 # (dense_init's passes carry names of their own, dense_count_kernel and so on).
 KERNELS = ("gnc_batch", "pair_ratio_hist", "pair_beta_count", "consistency_degree",
-           "local_pick", "local_accept")
+           "local_pick", "local_accept", "finalize_fit")
 
 
 N_SOLVES = 5

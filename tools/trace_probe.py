@@ -29,7 +29,9 @@ writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
 - nodes: graph nodes of the untraced and traced plans that each cell's
   traffic builds in its set-up (`--cells`, `--seed`), with the conditional
   nodes, the stamps and the launch marks a traced plan captures (on a
-  program without tracing: the untraced plans alone);
+  program without tracing: the untraced plans alone), and the launches of
+  each kernel the graph holds (`captured_launches`, where the program
+  keeps them: finalize_fit once a plan);
 - setup: one cell's set-up in this process, as cardbench/run.py times it
   from the process's start, split: the imports, the pool, each warm-up
   call of a traffic that makes them one by one (kitti.online; the first
@@ -39,7 +41,9 @@ writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
   traced turn's) with the fused-route share of its local batches: the
   local batch kernels' launches in the window, counted on the device,
   over the window's local batches (a vectorized cell launches once a
-  chunk's batch, for its P pairs). Every traced turn prints the share.
+  chunk's batch, for its P pairs), and the finalize kernel's launches over
+  the window's solves (a chunk's solve in a vectorized cell). Every traced
+  turn prints the shares.
 """
 
 from __future__ import annotations
@@ -170,13 +174,19 @@ def _launches() -> dict:
 
 
 def fused_route(snap) -> dict:
-    """The window's local batch kernel launches against its local batches."""
+    """The window's local batch kernel launches against its local batches,
+    and its finalize kernel launches against its solves (a vectorized
+    cell's solve is a chunk's)."""
     launches = snap.get("launches", {})
     batches = snap["counters"]["local_batches"]
+    solves = snap["counters"]["solves"]
     accept = launches.get("local_accept")
+    fit = launches.get("finalize_fit")
     return {"local_pick_launches": launches.get("local_pick"), "local_accept_launches": accept,
             "local_batches": batches,
-            "share": None if accept is None or not batches else accept / batches}
+            "share": None if accept is None or not batches else accept / batches,
+            "finalize_fit_launches": fit, "solves": solves,
+            "finalize_share": None if fit is None or not solves else fit / solves}
 
 
 def _readings(snap, records, seconds: float) -> dict:
@@ -312,6 +322,8 @@ def nodes(args) -> None:
                                    "conditional_nodes": plan.conditional_nodes,
                                    "stamp_nodes": getattr(plan, "stamp_nodes", None),
                                    "mark_nodes": getattr(plan, "mark_nodes", None),
+                                   "captured_launches": getattr(plan, "captured_launches",
+                                                                None),
                                    "tree": args.tree})
             finally:
                 if timing is not None:
