@@ -64,11 +64,13 @@ into the plan's `SpanRecord` around the whole solve and around each stage
 (the names of `timing.SOLVE_SPANS`: the init with GROR, the clique seeds,
 the sample stage, each local batch, the host stage, the self-update, the
 solution with the refinement; where the scale is estimated, the scale peak
-inside the init and the scale estimate inside each local batch), the closing stamps add to the
-record's counters (the solve's rounds and local batches; inits thinned to
-the pool's fill, scale peaks that failed their certificate, returned counts
-that are not the host best's: `timing.STAMP_COUNTERS`), and the kernels'
-launches are counted on the device. An untraced plan captures none of it.
+inside the init and the scale estimate inside each local batch; on the
+"exact_beta" route, the exact beta count and the rejection fill inside the
+init), the closing stamps add to the record's counters (the solve's rounds
+and local batches; inits thinned to the pool's fill, scale peaks that
+failed their certificate, returned counts that are not the host best's:
+`timing.STAMP_COUNTERS`), and the kernels' launches are counted on the
+device. An untraced plan captures none of it.
 With a pair axis the stamps time the P pairs together.
 
 A plan with `pairs=P` is `jax.vmap` of the solve over P pairs
@@ -121,11 +123,13 @@ from psulvsb_tpu_torch.solver.psulvsb import (
     _host_stage,
     _init_peak,
     _init_stage,
+    _init_stage_exact_beta,
     _local_round,
     _sample_stage,
     _seed_from_clique,
     _seed_graph,
     _self_update_pairs,
+    beta_count,
     fused_scan_rounds,
     gumbel_of,
     init_route,
@@ -393,7 +397,10 @@ class ReplayPlan:
     plan keeps a `timing.SpanRecord` (`trace`) that its solves stamp. Where
     the scale is estimated on a route of `peak_apart`, the init computes the
     scale peak first (`_peak`, a span of its own in a traced plan) and hands
-    it to the rest of the init (`_prologue`)."""
+    it to the rest of the init (`_prologue`); on the "exact_beta" route
+    (`beta_apart`) it computes the exact beta count (`_beta`) and then the
+    rejection fill (`_fill`), a span each, and hands the reduced set to the
+    solve's start (`_start`)."""
 
     def __init__(self, params: SolverParams, c: int, device: torch.device, graphs: bool,
                  stream=None, pairs: int | None = None, traced: bool = False):
@@ -447,6 +454,7 @@ class ReplayPlan:
         self._slots = {name: k for k, name in enumerate(timing.SOLVE_SPANS)}
         self.peak_apart = peak_apart(params, c)
         self._peak_out: tuple = ()  # the init's scale peak (`_peak`), inside the init span
+        self.beta_apart = init_route(params, c) == "exact_beta"
 
     # ---- buffers ------------------------------------------------------------
 
@@ -532,12 +540,30 @@ class ReplayPlan:
                           self.layout.pairs(b["draws"], "peak"))
         return tuple(t for t in peak if t is not None)
 
+    def _beta(self, b: dict) -> torch.Tensor:
+        """The "exact_beta" init's exact reduced-set size
+        (`solver.psulvsb.beta_count`, the pair_beta_count kernel)."""
+        return beta_count(b["src"], b["dst"], b["keep"], self.params)
+
+    def _fill(self, b: dict, red_exact: torch.Tensor) -> tuple:
+        """The "exact_beta" init's reduced set around its exact size: the
+        rejection fill and its compaction (red_i, red_j, red_count, pool)."""
+        return _init_stage_exact_beta(b["src"], b["dst"], b["keep"], self.params,
+                                      self.layout.init_draws(b["draws"]), red_exact)
+
     def _prologue(self, b: dict, *peak: torch.Tensor) -> dict:
+        """The init's reduced set, around the scale peak `peak` where there
+        is one, and the solve's start (`_start`)."""
+        peak = InitPeak(*peak, *(None,) * (len(InitPeak._fields) - len(peak))) if peak else None
+        return self._start(b, *_init_stage(b["src"], b["dst"], b["keep"], self.params, None,
+                                           self.layout.init_draws(b["draws"]), peak))
+
+    def _start(self, b: dict, red_i: torch.Tensor, red_j: torch.Tensor, red_count: torch.Tensor,
+               red_pool: torch.Tensor) -> dict:
+        """The solve's start from the init's reduced set: the threshold,
+        GROR and the initial state."""
         p, c, dev = self.params, self.c, self.device
         src, dst, keep = b["src"], b["dst"], b["keep"]
-        peak = InitPeak(*peak, *(None,) * (len(InitPeak._fields) - len(peak))) if peak else None
-        red_i, red_j, red_count, red_pool = _init_stage(
-            src, dst, keep, p, None, self.layout.init_draws(b["draws"]), peak)
         # adoptive_thr_multiplier = 1 + |reduced| / |ori| (registration.cc:669),
         # in float64 and rounded once, as the staged solver's host arithmetic.
         n_reduced = (keep == 1).sum().to(_F64)
@@ -830,11 +856,18 @@ class ReplayPlan:
             self._masks = [b["flag.always"]] if batched else []
             for _ in self._when(ctl, "flag.always", HEAVY):
                 with self._span(ctl, "solve.init", "init_thinned"):
-                    if self.peak_apart:
-                        with self._span(ctl, "solve.init.peak", "init_uncertified"):
-                            self._peak_out = self._vmap(self._peak, b)
-                    self._apply(self._vmap(self._prologue, b, *self._peak_out))
-                    self._peak_out = ()
+                    if self.beta_apart:
+                        with self._span(ctl, "solve.init.beta"):
+                            red_exact = self._vmap(self._beta, b)
+                        with self._span(ctl, "solve.init.fill"):
+                            reduced = self._vmap(self._fill, b, red_exact)
+                        self._apply(self._vmap(self._start, b, *reduced))
+                    else:
+                        if self.peak_apart:
+                            with self._span(ctl, "solve.init.peak", "init_uncertified"):
+                                self._peak_out = self._vmap(self._peak, b)
+                        self._apply(self._vmap(self._prologue, b, *self._peak_out))
+                        self._peak_out = ()
                 if p.clique_eager:  # a successful seed wins over GROR's
                     with self._span(ctl, "solve.clique_seed"):
                         self._apply(self._seed(b, "keep", ctl, ("warm", "best_sampled")))

@@ -312,15 +312,20 @@ def _init_stage_exact_hist(ori_src, ori_dst, keep_mask, params: SolverParams, dr
     return red_i, red_j, red_count, pool
 
 
-def _init_stage_exact_beta(ori_src, ori_dst, keep_mask, params: SolverParams, draws: InitDraws):
-    """Large-C known-scale init with the exact reduced-set size: the beta
-    count kernel sweeps all pairs' window tests, so red_count (which sizes
-    the floor(|reduced| * rate) samples) is exact; the pool is the
-    rejection fill of the sampled mode."""
+def beta_count(ori_src, ori_dst, keep_mask, params: SolverParams) -> torch.Tensor:
+    """The exact known-scale reduced-set size: the beta count kernel sweeps
+    every active pair's window test (registration.cc:744-767). () int64."""
+    beta = 2.0 * params.noise_bound * math.sqrt(params.cbar2)
+    return pair_beta_count(ori_src, ori_dst, beta, keep_mask == 1)
+
+
+def _init_stage_exact_beta(ori_src, ori_dst, keep_mask, params: SolverParams, draws: InitDraws,
+                           red_exact: torch.Tensor):
+    """Large-C known-scale init with the exact reduced-set size `red_exact`
+    (`beta_count`), so red_count (which sizes the floor(|reduced| * rate)
+    samples) is exact; the pool is the rejection fill of the sampled mode."""
     c = ori_src.shape[1]
     active = keep_mask == 1
-    beta = 2.0 * params.noise_bound * math.sqrt(params.cbar2)
-    red_exact = pair_beta_count(ori_src, ori_dst, beta, active)
     red_i, red_j, _, pool = _fill_reduced_pool(
         ori_src, ori_dst, active, torch.zeros((), dtype=_I64, device=ori_src.device),
         c * (c - 1) // 2, params, draws.fill_pairs, draws.fill_keys,
@@ -453,8 +458,10 @@ def _init_stage(
                           peak=mode == "sampled" and params.estimate_scaling)
     if mode == "exact_hist":
         return _init_stage_exact_hist(ori_src, ori_dst, keep_mask, params, draws, peak)
-    stage = {"sampled": _init_stage_sampled, "exact_beta": _init_stage_exact_beta}[mode]
-    return stage(ori_src, ori_dst, keep_mask, params, draws)
+    if mode == "exact_beta":
+        return _init_stage_exact_beta(ori_src, ori_dst, keep_mask, params, draws,
+                                      beta_count(ori_src, ori_dst, keep_mask, params))
+    return _init_stage_sampled(ori_src, ori_dst, keep_mask, params, draws)
 
 
 # =============================================================================

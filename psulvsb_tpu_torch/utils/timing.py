@@ -141,10 +141,11 @@ CALIBRATION_TRIES = 20
 # solve. The stages' names are the staged solver's `stage_s` keys under
 # "solve."; a name with one more part is a span inside its stage (the scale
 # peak in the init, the scale estimate in a local batch: plans that estimate
-# the scale alone stamp them).
+# the scale alone stamp them; the exact beta count and the rejection fill in
+# the init: plans on the "exact_beta" route alone stamp them).
 SOLVE_SPANS = ("solve", "solve.init", "solve.clique_seed", "solve.sample", "solve.local",
                "solve.host", "solve.self_update", "solve.finalize", "solve.init.peak",
-               "solve.local.scale")
+               "solve.local.scale", "solve.init.beta", "solve.init.fill")
 SOLVE_RING = 1 << 16  # solves a plan's record keeps between two reads
 EVENT_LOG = 1 << 16  # stamps a plan's record logs between two reads (the trace's timeline)
 STAMP_LOG = 1 << 14  # eager stamps kept on a card between two reads

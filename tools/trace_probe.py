@@ -8,6 +8,7 @@ its clock, what it costs, and what it shows.
     python3 tools/trace_probe.py nodes --cells 3dmatch.inorder,kitti.inorder --seed 1
     python3 tools/trace_probe.py setup --cell kitti.online --seed 1
     python3 tools/trace_probe.py share --cells kitti.online,3dmatch.inorder --seconds 10
+    python3 tools/trace_probe.py builds --cells 3dmatch.vectorized8192 --seed 1 --seconds 20
 
 from the root of a checkout with a card. Each mode prints JSON lines and
 writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
@@ -41,9 +42,15 @@ writes them to <out>/<mode>.jsonl (`--out`, build/trace_probe by default).
   traced turn's) with the fused-route share of its local batches: the
   local batch kernels' launches in the window, counted on the device,
   over the window's local batches (a vectorized cell launches once a
-  chunk's batch, for its P pairs), and the finalize kernel's launches over
-  the window's solves (a chunk's solve in a vectorized cell). Every traced
-  turn prints the shares.
+  chunk's batch, for its P pairs), the finalize and the beta count kernels'
+  launches over the window's solves (a chunk's solve in a vectorized cell;
+  the beta count runs on the "exact_beta" init route alone). Every traced
+  turn prints the shares;
+- builds: one untraced run of each cell as `--trace 0` runs it, with the
+  plans built counted in the set-up and inside the window, the plans
+  resident at the window's end, each plan's `nbytes` and `plan_bytes`
+  estimate, and the card's free memory at the window's start and its
+  allocation peak.
 """
 
 from __future__ import annotations
@@ -175,18 +182,21 @@ def _launches() -> dict:
 
 def fused_route(snap) -> dict:
     """The window's local batch kernel launches against its local batches,
-    and its finalize kernel launches against its solves (a vectorized
-    cell's solve is a chunk's)."""
+    and its finalize and beta count kernel launches against its solves (a
+    vectorized cell's solve is a chunk's)."""
     launches = snap.get("launches", {})
     batches = snap["counters"]["local_batches"]
     solves = snap["counters"]["solves"]
     accept = launches.get("local_accept")
     fit = launches.get("finalize_fit")
+    beta = launches.get("pair_beta_count")
     return {"local_pick_launches": launches.get("local_pick"), "local_accept_launches": accept,
             "local_batches": batches,
             "share": None if accept is None or not batches else accept / batches,
             "finalize_fit_launches": fit, "solves": solves,
-            "finalize_share": None if fit is None or not solves else fit / solves}
+            "finalize_share": None if fit is None or not solves else fit / solves,
+            "pair_beta_count_launches": beta,
+            "beta_share": None if beta is None or not solves else beta / solves}
 
 
 def _readings(snap, records, seconds: float) -> dict:
@@ -370,9 +380,54 @@ def setup(args) -> None:
     traffic.release()
 
 
+def builds(args) -> None:
+    import torch
+
+    from cardbench import harness
+    from psulvsb_tpu_torch.solver import fused
+
+    built = [0]
+    init = fused.ReplayPlan.__init__
+
+    def counted(self, *a, **kw):
+        built[0] += 1
+        init(self, *a, **kw)
+
+    for name in args.cells.split(","):
+        cell = _cell(name)
+        got = {}
+
+        def at_window():
+            got["setup"] = built[0]
+            got["free_gib"] = (torch.cuda.mem_get_info()[0] / 2**30
+                               if torch.cuda.is_available() else None)
+
+        def after(run):
+            got["window"] = built[0] - got["setup"]
+            got["resident"] = [{**harness.plan_summary(p),
+                                "estimate": fused.plan_bytes(p.params, p.c, p.pairs)}
+                               for p in fused._PLANS.values()]
+
+        built[0] = 0
+        fused.ReplayPlan.__init__ = counted
+        try:
+            res = harness.run_cell(cell, args.seed, args.seconds, False, _device(),
+                                   time.perf_counter(), at_window=at_window, after_window=after)
+        finally:
+            fused.ReplayPlan.__init__ = init
+        emit("builds", {"cell": name, "seed": args.seed, "tree": args.tree,
+                        "card": harness.card_line(), "correct": res["correct"],
+                        "metrics": {m: v["value"] for m, v in res["metrics"].items()},
+                        "memory_peak_gib": res["device"]["memory_peak_bytes"] / 2**30,
+                        "plans_built_in_setup": got["setup"],
+                        "plans_built_in_window": got["window"],
+                        "free_gib_at_window": got["free_gib"], "resident": got["resident"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("clock", "cost", "modes", "export", "nodes", "setup", "share"))
+    ap.add_argument("mode", choices=("clock", "cost", "modes", "export", "nodes", "setup", "share",
+                                     "builds"))
     ap.add_argument("--cells", default="kitti.online,kitti.inorder,3dmatch.inorder,"
                                         "3dmatch.vectorized")
     ap.add_argument("--cell", default="kitti.inorder")
